@@ -7,7 +7,9 @@ of a module is found by its path:
   - ``spsg_tpu_torch.models``    : generator (two-branch 3D conv U-Net), weight bridge
   - ``spsg_tpu_torch.ops``       : hand-written CUDA kernels with their plain PyTorch
                                    versions, marching cubes (host)
-  - ``spsg_tpu_torch.training``  : configuration, generator construction, checkpoints
+  - ``spsg_tpu_torch.losses``    : 3D geometry and semantic losses
+  - ``spsg_tpu_torch.training``  : configuration, generator construction, optimizer,
+                                   checkpoints, the 3D-loss train step
   - ``spsg_tpu_torch.inference`` : chunked whole-scene inference with overlap stitching
   - ``spsg_tpu_torch.utils``     : mesh / image dumps
   - ``spsg_tpu_torch.cli``       : command-line entry points

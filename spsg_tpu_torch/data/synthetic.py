@@ -7,8 +7,9 @@ camera poses — everything the training/eval pipeline consumes — without the
 manual, SURVEY.md §4); this module is the foundation of the test pyramid and
 of ``chip_smoke.py``.
 
-``make_camera`` / ``make_chunk_batch`` of the JAX package render frames with
-the raycaster; they arrive with the raycaster's port (ROADMAP.md).
+``make_chunk_batch`` builds training batches of chunks without frames; the
+frames of the JAX package (``with_frames=True``, ``make_camera``) are rendered
+with the raycaster and arrive with the raycaster's port (ROADMAP.md).
 
 Grid conventions match the on-disk formats (``spsg_tpu_torch.data.formats``):
 dense zyx grids, z is the up axis (reference train.py:113 ``UP_AXIS = 0``),
@@ -164,3 +165,45 @@ def make_scene(
         semantics=sem,
         known=known,
     )
+
+
+def make_chunk_batch(
+    batch_size: int = 2,
+    dims=(128, 64, 64),
+    image_dims=(320, 256),
+    seed: int = 0,
+    with_frames: bool = False,
+    voxelsize: float = 0.02,
+    truncation: float = 3.0,
+):
+    """Generate a ready-to-train batch of synthetic chunks as a dict of numpy
+    arrays in the layout of :mod:`spsg_tpu_torch.data.pipeline` (channel-last).
+    The same seeds give the same batch as the JAX package's function.
+
+    ``with_frames`` (depth/color frames rendered from the complete TSDF) needs
+    the raycaster, which is not ported yet."""
+    from . import pipeline
+
+    if with_frames:
+        raise NotImplementedError(
+            "make_chunk_batch(with_frames=True): frames are rendered with the raycaster, "
+            "which is not ported yet (ROADMAP.md)"
+        )
+    samples = []
+    for b in range(batch_size):
+        scene = make_scene(dims=dims, voxelsize=voxelsize, seed=seed * 1000 + b)
+        sample = pipeline.assemble_sample(
+            sdf_input=scene.sdf_input,
+            sdf_target=scene.sdf_complete,
+            input_colors=scene.input_colors,
+            target_colors=scene.colors,
+            semantics=scene.semantics,
+            known=scene.known,
+            world2grid=scene.world2grid,
+            truncation=truncation,
+            color_space="lab",
+            augment_hue_scale=None,
+        )
+        sample["name"] = f"synthetic_{seed}_{b}"
+        samples.append(sample)
+    return pipeline.collate(samples)

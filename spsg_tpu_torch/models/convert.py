@@ -12,7 +12,8 @@ of the other side.
 One convention for every conv, eligible for the CUDA kernels or not: the
 kernel ``(kz, ky, kx, Cin, Cout)`` becomes PyTorch's ``weight``
 ``(Cout, Cin, kz, ky, kx)``. Both directions only transpose and copy, so the
-round trip is exact.
+round trip is exact. :func:`generator_grads_to_flax` carries a module's
+gradients across under the same names, to hold them against ``jax.grad``.
 """
 
 from __future__ import annotations
@@ -78,3 +79,12 @@ def torch_to_flax_generator(state_dict) -> Dict:
                             node = node.setdefault("BatchNorm_0", {})
                         node[dst] = arr.copy()
     return {"params": params, "batch_stats": stats}
+
+
+def generator_grads_to_flax(generator) -> Dict:
+    """The ``.grad`` of every parameter of a generator module as the JAX
+    package's ``params`` tree (numpy leaves); a parameter without a gradient
+    gives zeros, which is what ``jax.grad`` reports for it."""
+    grads = {name: (p.grad if p.grad is not None else torch.zeros_like(p))
+             for name, p in generator.named_parameters()}
+    return torch_to_flax_generator(grads)["params"]

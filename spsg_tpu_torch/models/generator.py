@@ -69,6 +69,16 @@ class GeneratorConfig:
     dtype: Optional[str] = None  # 'bfloat16' at this level is not ported yet
 
 
+def leaky_relu(x):
+    """LeakyReLU(0.2) with the JAX package's derivative at exactly 0: 1, as
+    ``jax.nn.leaky_relu`` (``where(x >= 0, x, 0.2 x)``) has it, where
+    ``F.leaky_relu`` has 0.2. The two only differ in the backward pass and
+    only where a pre-activation is exactly 0, which is common in the entry
+    convs: with a zero bias they give exact zeros wherever their 5^3 window
+    sees only masked-out (zero) input."""
+    return torch.where(x >= 0, x, 0.2 * x)
+
+
 class BatchNorm(nn.Module):
     """Channel-last BatchNorm with the JAX package's statistics: mean and
     biased variance ``max(E[x^2] - E[x]^2, 0)`` in float32, running statistics
@@ -143,7 +153,7 @@ class ConvBlock(nn.Module):
                          self.padding, self.dilation)
             x = y.permute(0, 2, 3, 4, 1).contiguous()
         if self.act:
-            x = F.leaky_relu(x, 0.2)
+            x = leaky_relu(x)
         if self.bn is not None:
             x = self.bn(x)
         return x
@@ -286,11 +296,11 @@ class Generator(nn.Module):
             dec = torch.cat([dec, x], dim=-1)
 
             if pred_color:
-                c = F.leaky_relu(self.color_head_bn0(dec), 0.2)
+                c = leaky_relu(self.color_head_bn0(dec))
                 c = self.color_head_c(self.color_head_b(self.color_head_a(c)))
                 out_color = torch.clamp(c, -1.0, 1.0)
             if pred_semantic:
-                t = F.leaky_relu(self.semantic_head_bn0(dec), 0.2)
+                t = leaky_relu(self.semantic_head_bn0(dec))
                 out_semantic = self.semantic_head_c(
                     self.semantic_head_b(self.semantic_head_a(t)))
         return out_occ, out_sdf, out_color, out_semantic

@@ -5,6 +5,9 @@
 // Replaces two TPU kernels of the JAX package (spsg_tpu/ops/pallas_conv.py):
 //   _fwd_kernel            (launcher _conv3x3_fwd_impl)        -> STATS = false
 //   _fwd_act_stats_kernel  (launcher _conv3x3_act_stats_impl)  -> STATS = true
+// As in the JAX package the STATS = false kernel also computes the input
+// gradient of both: dx = conv(dy, w flipped in space, Cin and Cout swapped).
+// The weight gradient is csrc/conv3x3_dw.cu.
 // Both compute y[b,z,y,x,:] = sum over the 27 taps (dz,dy,dx) and Cin of
 // x[b,z+dz-1,y+dy-1,x+dx-1,c] * w[dz,dy,dx,c,:], accumulated in float32 and
 // stored in the input type (float32 or bfloat16).
@@ -40,7 +43,10 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int KC = 5;  // input channels per shared-memory chunk (divides 10, 20, 25, 40, 100)
+// input channels per shared-memory chunk: divides the forward's 10, 20, 25, 40, 100;
+// the backward (dx: the cotangent's channels are the input) also brings 1, 3 and 14,
+// whose last chunk is ragged and masked like any other edge
+constexpr int KC = 5;
 
 __device__ __forceinline__ float ldf(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float ldf(const __nv_bfloat16* p) { return __bfloat162float(*p); }

@@ -1,6 +1,6 @@
 """Generator construction, initialisation and checkpoints (PyTorch counterpart
-of ``spsg_tpu/training/state.py``). Optimizers and the discriminator arrive
-with the training slice (ROADMAP.md)."""
+of ``spsg_tpu/training/state.py``). The discriminator and its optimizer arrive
+with the 2D half of the training step (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -60,6 +60,20 @@ def init_generator(cfg: TrainConfig, generator: torch.Generator, device="cuda",
                 w = torch.empty(p.shape).uniform_(-bound, bound, generator=generator)
                 p.copy_(w.to(p.device))
     return gen
+
+
+def gen_optimizer(cfg: TrainConfig, params) -> torch.optim.Adam:
+    """Adam with torch's defaults (b1 0.9, b2 0.999, eps 1e-8) and additive
+    weight decay (reference train.py:156): the update the JAX package builds
+    from ``add_decayed_weights`` followed by ``adam``.
+
+    Adam skips a parameter whose ``.grad`` is None, decay included, and keeps a
+    step count per parameter; the JAX package hands every parameter a gradient
+    (zero where the loss did not reach it) and counts steps once. Callers
+    therefore zero-fill missing gradients before ``step()`` (``Trainer.step``
+    does)."""
+    return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=cfg.weight_decay)
 
 
 def save_checkpoint(path: str, gen: Generator, epoch: int) -> None:

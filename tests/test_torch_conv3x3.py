@@ -89,8 +89,9 @@ def test_bfloat16_storage_float32_accumulation():
 
 
 def test_plain_versions_are_differentiable():
-    """The CPU path trains: gradients of the plain versions equal those of
-    the Pallas kernels' custom VJPs."""
+    """The CPU path trains: gradients through the wrappers (on the CPU the
+    plain versions inside the autograd Functions) equal those of the Pallas
+    kernels' custom VJPs."""
     x, w, b = _data(SHAPES[0], seed=3)
 
     def jloss(x, w, b):
@@ -138,6 +139,8 @@ def test_cpu_calls_launch_no_kernel():
     """The launch counters count kernel launches and nothing else."""
     tc.reset_launch_counts()
     x, w, b = (torch.from_numpy(a) for a in _data(SHAPES[0]))
-    tc.conv3x3(x, w)
-    tc.conv3x3_act_stats(x, w, b)
-    assert tc.launch_counts == {"conv3x3": 0, "conv3x3_act_stats": 0}
+    x.requires_grad_()
+    y = tc.conv3x3(x, w)
+    tc.conv3x3_dw(x.detach(), y.detach())
+    sum(t.sum() for t in (y,) + tc.conv3x3_act_stats(x, w, b)).backward()  # dx through both
+    assert tc.launch_counts == {"conv3x3": 0, "conv3x3_act_stats": 0, "conv3x3_dw": 0}

@@ -33,7 +33,9 @@ def _sources():
 
 def test_every_module_imports_without_jax_triton_or_the_jax_package():
     mods = _modules()
-    assert len(mods) >= 20 and "spsg_tpu_torch.ops._build" in mods
+    assert len(mods) >= 24 and "spsg_tpu_torch.ops._build" in mods
+    assert {"spsg_tpu_torch.losses.geo", "spsg_tpu_torch.losses.semantic",
+            "spsg_tpu_torch.training.step"} <= set(mods)
     script = f"""
 import importlib, importlib.abc, sys
 BANNED = {BANNED!r}
@@ -71,4 +73,5 @@ def test_importing_the_package_builds_nothing():
     """Kernels are built at first CUDA use, never at import (there is no nvcc
     where these tests run)."""
     from spsg_tpu_torch.ops import _build, conv3x3
-    assert conv3x3._lib is None and not _build._LIBS
+    assert not conv3x3._libs and not _build._LIBS
+    assert set(_build.SOURCES) == {"conv3x3", "conv3x3_dw"}
