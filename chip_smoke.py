@@ -10,15 +10,22 @@ fails. Phases, each printing one JSON line:
 
   device   the card (name and power limit as nvidia-smi gives them), versions
   build    builds the CUDA kernels from spsg_tpu_torch/ops/csrc with nvcc (one
-           nvcc per source, started together)
+           nvcc per source, started together); per kernel its registers and
+           spills (ptxas) and its tensor-core instructions (HMMA, from
+           cuobjdump -sass): every variant of the forward kernel must have some
   compare  (summary; the numbers are in the "kernels" line)
            every hand-written kernel against its plain PyTorch version, at a
-           toy shape and at the shapes the main paths give it (batch 1), in
+           toy shape, an edge shape (ragged tiles, Cout > 104) and at the
+           shapes the main paths give it (batch 1, and the (32,16,16) layer
+           also at the paths' batches 8 and 2), in
            float32 and bfloat16, with times: kernel, plain version, the one
            library call that computes the same function (F.conv3d, or
            torch.nn.grad.conv3d_weight for the weight gradient, in true
            float32; a yardstick, the port never calls it for these layers),
-           and the least time the card could take (bound). The forward kernel
+           and the least time the card could take (bound: float32 work at
+           three TF32 tensor-core passes, 3 x flops / 495 TFLOP/s, the least
+           time in which the card gives a float32-accurate product; bfloat16
+           at 989 TFLOP/s; or the bytes at 3.35 TB/s). The forward kernel
            also at the shapes the backward gives it (dx: Cin and Cout swapped,
            Cin of 1, 3 and 14). Then the full backward of both autograd
            Functions with the kernels against the same Functions with the
@@ -49,8 +56,15 @@ fails. Phases, each printing one JSON line:
            shape and both storage types nested under "dtypes"
   last     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}
 
+Option (none when the script is run as the check of a checkout):
+  --baseline-source PATH  another version of csrc/conv3x3.cu (e.g. the parent
+           commit's, unpacked with git archive): built beside this one, and its
+           K1 / K3 timed at every shape in turns with this one (baseline, this,
+           this, baseline) through the same wrapper; "baseline_ms" per record
+
 Tolerances. float32: |kernel - plain| <= 1e-4 on unit-variance outputs (both
-accumulate in float32, in different orders); sums within rtol 1e-4. bfloat16:
+accumulate in float32, in different orders; the forward kernel's 3xTF32
+products are ~2^-20 relative); sums within rtol 1e-4. bfloat16:
 both round the same float32 sum to bfloat16, so they differ only where the two
 sums straddle a rounding boundary, by one step: <= 2e-2 for |y| < 4, and
 2**-7 * |y| beyond; sums within rtol 1e-2. Weight gradient: within 1e-4
@@ -69,7 +83,9 @@ sqrt(N) terms, so k flipped terms move it by sqrt(k/N): 1e-3 to 2e-3 at the
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -98,9 +114,12 @@ from spsg_tpu_torch.training.step import Trainer  # noqa: E402
 DEV = torch.device("cuda:0")
 T0 = time.time()
 
-# NVIDIA H100 SXM data sheet, dense rates: float32 outside the tensor cores,
-# bfloat16 in them, HBM3
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# NVIDIA H100 SXM data sheet, dense tensor-core rates and HBM3. float32 work is
+# bounded as 3xTF32: three TF32 passes (hi*hi, hi*lo, lo*hi) are the least the
+# card needs for a float32-accurate product, so its flops count three times
+PEAK_FLOPS = {torch.float32: 495e12, torch.bfloat16: 989e12}
+PASSES = {torch.float32: 3, torch.bfloat16: 1}
+BOUND_LABEL = {torch.float32: "3xTF32", torch.bfloat16: "bf16"}
 PEAK_BYTES = 3.35e12
 
 # name -> (source in this repo, TPU kernel it replaces)
@@ -118,6 +137,15 @@ SHAPES = [
     (1, 128, 64, 64, 10, 1, True),
     (1, 128, 64, 64, 20, 14, True),
     (1, 32, 16, 16, 100, 100, True),
+    (1, 128, 64, 64, 40, 40, True),    # decoder_3b, the second heaviest
+    (1, 128, 64, 64, 40, 20, True),    # decoder_3c
+    (1, 128, 64, 64, 25, 20, True),    # color_head_a, semantic_head_a
+    (1, 64, 32, 32, 100, 40, True),    # decoder_2a
+    (1, 64, 32, 32, 40, 40, True),     # decoder_2b, _2c, encoder_0c
+    (8, 32, 16, 16, 100, 100, True),   # encoder_1b, _1c at the serving window batch
+    (2, 32, 16, 16, 100, 100, True),   # ... and at the training batch
+    (1, 6, 12, 20, 7, 130, False),     # edges: ragged tiles in X and Y, Cin and Cout of
+                                       # 4-byte copies, Cout > 104 (N over two blocks)
 ]
 HEAVIEST = SHAPES[2]
 # what the backward gives the forward kernel (dx = conv of the cotangent with
@@ -131,6 +159,8 @@ DX_SHAPES = [
     (1, 128, 64, 64, 3, 10, False),
 ]
 FULL_3D = dict(pred_sdf=True, pred_color=True, pred_semantic=True)
+# library of another version of csrc/conv3x3.cu (--baseline-source), or None
+BASELINE = None
 GEO_ONLY = dict(pred_sdf=True, pred_color=False, pred_semantic=False)
 
 
@@ -167,24 +197,70 @@ def phase_device():
 def phase_build():
     t = time.time()
     _build.build_all()
+    seconds = time.time() - t
     info = _build.BUILD_INFO
-    emit("build", seconds=round(time.time() - t, 2), nvcc_flags=" ".join(_build.NVCC_FLAGS),
-         sources={n: dict(seconds=round(info[n]["seconds"], 2), cached=info[n]["cached"],
-                          library=os.path.relpath(info[n]["path"]),
-                          ptxas=_build.ptxas_summary(n)) for n in _build.SOURCES})
+    sources = {}
+    for n in _build.SOURCES:
+        hmma = _build.sass_summary(n)
+        kernels = _build.ptxas_summary(n)
+        for k in kernels:
+            k["hmma"] = hmma.get(k["kernel"], "not found") if "error" not in hmma else "not measured"
+        sources[n] = dict(seconds=round(info[n]["seconds"], 2), cached=info[n]["cached"],
+                          library=os.path.relpath(info[n]["path"]), ptxas=kernels,
+                          sass_error=hmma.get("error"))
+        if n == "conv3x3" and "error" not in hmma:
+            # the forward kernel runs on the tensor cores in every variant
+            conv = {k: v for k, v in hmma.items() if "conv3x3_kernel" in k}
+            if not conv or not all(v > 0 for v in conv.values()):
+                raise SystemExit(f"chip_smoke: conv3x3_kernel variants without HMMA: "
+                                 f"{[k for k, v in conv.items() if not v > 0] or 'none built'}")
+    emit("build", seconds=round(seconds, 2), nvcc_flags=" ".join(_build.NVCC_FLAGS),
+         sources=sources)
+
+
+def load_baseline(src):
+    """The library of another version of csrc/conv3x3.cu, built with the same
+    flags and bound like the package's own."""
+    t = time.time()
+    lib = conv_ops._bind_conv(ctypes.CDLL(_build.build_source(src, "conv3x3_baseline")))
+    emit("baseline", source=src, seconds=round(time.time() - t, 2))
+    return lib
+
+
+def time_kernel(fn, reps, rec):
+    """rec["ms"] of a forward-kernel call; with a baseline also
+    rec["baseline_ms"], taken in turns (baseline, this, this, baseline)
+    through the same wrapper."""
+    if BASELINE is None:
+        rec["ms"] = cuda_ms(fn, reps)
+        return
+
+    def on_baseline():
+        saved = conv_ops._libs["conv3x3"]
+        conv_ops._libs["conv3x3"] = BASELINE
+        try:
+            return cuda_ms(fn, reps)
+        finally:
+            conv_ops._libs["conv3x3"] = saved
+
+    turns = [on_baseline(), cuda_ms(fn, reps), cuda_ms(fn, reps), on_baseline()]
+    rec.update(ms=(turns[1] + turns[2]) / 2, baseline_ms=(turns[0] + turns[3]) / 2,
+               ms_turns=turns)
 
 
 # --------------------------------------------------------------------------- compare
 def bound(shape, dtype, weight_dtype=None):
     """Least time for a conv of this shape (forward, dx or dW: the same flops,
-    the two volumes and the weights each moved once); dW is float32."""
+    the two volumes and the weights each moved once; float32 operations at
+    three TF32 passes); dW is float32. Returns (ms, what bounds it, flops)."""
     B, Z, Y, X, Ci, Co = shape[:6]
     vox = B * Z * Y * X
     flops = 2.0 * 27 * Ci * Co * vox
     esize = torch.empty((), dtype=dtype).element_size()
     wsize = esize if weight_dtype is None else torch.empty((), dtype=weight_dtype).element_size()
     nbytes = vox * (Ci + Co) * esize + 27 * Ci * Co * wsize
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    t_ops = PASSES[dtype] * flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops
 
 
@@ -221,10 +297,11 @@ def compare_one(shape, dtype, gen, forward_only=False):
     ref = conv_ops.conv3x3_plain(x, w)
     rec = dict(shape=list(shape[:4]), cin=Ci, cout=Co, main_path=on_path,
                max_abs_err=check_y(y, ref, dtype, f"conv3x3 {tag}"))
-    rec["ms"] = cuda_ms(lambda: conv_ops.conv3x3(x, w), reps)
+    time_kernel(lambda: conv_ops.conv3x3(x, w), reps, rec)
     rec["plain_ms"] = cuda_ms(lambda: conv_ops.conv3x3_plain(x, w), plain_reps)
     rec["library_ms"] = cuda_ms(lambda: F.conv3d(xc, wc, padding=1), reps)
-    rec.update(bound_ms=bound_ms, bound_by=bound_by, tflops=flops / rec["ms"] / 1e9)
+    rec.update(bound_ms=bound_ms, bound_by=bound_by, bound_rate=BOUND_LABEL[dtype],
+               tflops=flops / rec["ms"] / 1e9)
     out["conv3x3"] = rec
     del y, ref
     if forward_only:
@@ -253,10 +330,11 @@ def compare_one(shape, dtype, gen, forward_only=False):
         vf = v.float()
         return v, vf.sum((0, 2, 3, 4)), (vf * vf).sum((0, 2, 3, 4))
 
-    rec["ms"] = cuda_ms(lambda: conv_ops.conv3x3_act_stats(x, w, b), reps)
+    time_kernel(lambda: conv_ops.conv3x3_act_stats(x, w, b), reps, rec)
     rec["plain_ms"] = cuda_ms(lambda: conv_ops.conv3x3_act_stats_plain(x, w, b), plain_reps)
     rec["library_ms"] = cuda_ms(library, reps)
-    rec.update(bound_ms=bound_ms, bound_by=bound_by, tflops=flops / rec["ms"] / 1e9)
+    rec.update(bound_ms=bound_ms, bound_by=bound_by, bound_rate=BOUND_LABEL[dtype],
+               tflops=flops / rec["ms"] / 1e9)
     out["conv3x3_act_stats"] = rec
     out["conv3x3_dw"] = compare_dw(shape, dtype, gen, x, xc, reps, plain_reps, tag)
     return out
@@ -286,7 +364,8 @@ def compare_dw(shape, dtype, gen, x, xc, reps, plain_reps, tag):
     rec["plain_ms"] = cuda_ms(lambda: conv_ops.conv3x3_dw_plain(x, dy), plain_reps)
     rec["library_ms"] = cuda_ms(
         lambda: torch.nn.grad.conv3d_weight(xc, (Co, Ci, 3, 3, 3), dyc, padding=1), reps)
-    rec.update(bound_ms=bound_ms, bound_by=bound_by, tflops=flops / rec["ms"] / 1e9)
+    rec.update(bound_ms=bound_ms, bound_by=bound_by, bound_rate=BOUND_LABEL[dtype],
+               tflops=flops / rec["ms"] / 1e9)
     return rec
 
 
@@ -847,9 +926,16 @@ def phase_train():
 
 
 # --------------------------------------------------------------------------- main
-def main():
+def main(argv=None):
+    global BASELINE
+    ap = argparse.ArgumentParser(description="Smoke test of spsg_tpu_torch on one GPU.")
+    ap.add_argument("--baseline-source", default=None,
+                    help="another version of csrc/conv3x3.cu to time beside this one")
+    args = ap.parse_args(argv)
     smi = phase_device()
     phase_build()
+    if args.baseline_source:
+        BASELINE = load_baseline(args.baseline_source)
     results = phase_compare()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as tmp:
         serve = phase_path(tmp)

@@ -50,16 +50,21 @@ def find_nvcc() -> str:
     )
 
 
-def _paths(name: str):
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
+def _out_path(src: str, tag: str) -> str:
     with open(src, "rb") as f:
         digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    return os.path.join(BUILD_DIR, f"lib{tag}-{digest}.so")
 
 
-def _start_build(name: str) -> Optional[dict]:
-    """Start nvcc for one source; None if its binary is already there."""
-    src, out = _paths(name)
+def _paths(name: str):
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    return src, _out_path(src, name)
+
+
+def _start_build(name: str, src: Optional[str] = None) -> Optional[dict]:
+    """Start nvcc for one source (``csrc/<name>.cu`` unless ``src`` is given);
+    None if its binary is already there."""
+    src, out = _paths(name) if src is None else (src, _out_path(src, name))
     if os.path.isfile(out):
         BUILD_INFO.setdefault(name, {"seconds": 0.0, "ptxas": "", "path": out, "cached": True})
         return None
@@ -100,6 +105,41 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(_paths(name)[1])
         _LIBS[name] = lib
     return lib
+
+
+def build_source(src: str, tag: str) -> str:
+    """Build the CUDA source at path ``src`` (any checkout's) with the
+    package's flags into ``ops/_build/lib<tag>-<hash>.so``; returns that path.
+    For measuring another version of a kernel beside this one."""
+    job = _start_build(tag, src)
+    if job is not None:
+        _finish_build(job)
+    return _out_path(src, tag)
+
+
+_SASS_FN = re.compile(r"Function : (\S+)")
+
+
+def sass_summary(name: str) -> Dict[str, object]:
+    """Per kernel of the built ``csrc/<name>.cu``, the number of tensor-core
+    instructions (``HMMA``) in its machine code, from ``cuobjdump -sass``;
+    {"error": ...} where cuobjdump is missing or fails."""
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return {"error": f"{tool} not found"}
+    proc = subprocess.run([tool, "-sass", _paths(name)[1]], capture_output=True, text=True)
+    if proc.returncode != 0:
+        return {"error": proc.stderr.strip()[-300:]}
+    out: Dict[str, object] = {}
+    cur = None
+    for line in proc.stdout.splitlines():
+        m = _SASS_FN.search(line)
+        if m:
+            cur = m.group(1)
+            out[cur] = 0
+        elif cur is not None and "HMMA" in line:
+            out[cur] += 1
+    return out
 
 
 _PTXAS_FN = re.compile(r"Function properties for (\S+)")

@@ -13,13 +13,15 @@ float32 or bfloat16 (``x`` and ``w`` alike), float32 accumulation, output in
 the input type; the weight gradient is float32.
 
 Bound on an H100: operations (2*27*Cin*Cout flops per voxel against
-(Cin+Cout) stored elements). The forward kernel tiles voxels x output channels
-in registers, stages a halo slab and one Cin-chunk of the weights in shared
-memory, zero-fills the halo itself (no padded copy of the input) and reduces
-the statistics without atomics; the weight-gradient kernel is a split-K
-product whose per-block partial sums are added by a second kernel in a fixed
-order. Results repeat bit for bit. Details in the sources; measured times in
-PERF.md.
+(Cin+Cout) stored elements). The forward kernel is an implicit GEMM on the
+tensor cores (mma.sync TF32; float32 as 3xTF32, three passes, bfloat16 in
+one): a block owns a tile of voxels x all output channels, stages one halo
+plane and its taps' weights per 8 input channels with asynchronous copies
+(double-buffered), writes the halo's zeros itself (no padded copy of the
+input) and reduces the statistics without atomics; the weight-gradient kernel
+is a split-K product whose per-block partial sums are added by a second
+kernel in a fixed order. Results repeat bit for bit. Details in the sources;
+measured times in PERF.md.
 
 :func:`conv3x3` and :func:`conv3x3_act_stats` are ``torch.autograd.Function``s
 with the backward of the JAX package's custom VJPs: ``dx`` is the forward
@@ -54,17 +56,21 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
+def _bind_conv(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built ``csrc/conv3x3.cu`` on ``lib``."""
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    lib.spsg_conv3x3_partial_rows.restype = ctypes.c_longlong
+    lib.spsg_conv3x3_partial_rows.argtypes = [i, i, i, i, i]
+    lib.spsg_conv3x3_launch.restype = ctypes.c_int
+    lib.spsg_conv3x3_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    return lib
+
+
 def _library():
     lib = _libs.get("conv3x3")
     if lib is None:
-        lib = _build.load("conv3x3")
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        lib.spsg_conv3x3_partial_rows.restype = ctypes.c_longlong
-        lib.spsg_conv3x3_partial_rows.argtypes = [i, i, i, i, i]
-        lib.spsg_conv3x3_launch.restype = ctypes.c_int
-        lib.spsg_conv3x3_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
-        _libs["conv3x3"] = lib
+        lib = _libs["conv3x3"] = _bind_conv(_build.load("conv3x3"))
     return lib
 
 
