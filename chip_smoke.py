@@ -12,12 +12,14 @@ fails. Phases, each printing one JSON line:
   build    builds the CUDA kernels from spsg_tpu_torch/ops/csrc with nvcc (one
            nvcc per source, started together); per kernel its registers and
            spills (ptxas) and its tensor-core instructions (HMMA, from
-           cuobjdump -sass): every variant of the forward kernel must have some
+           cuobjdump -sass): every variant of the forward kernel and of the
+           weight-gradient kernel must have some
   compare  (summary; the numbers are in the "kernels" line)
            every hand-written kernel against its plain PyTorch version, at a
            toy shape, an edge shape (ragged tiles, Cout > 104) and at the
            shapes the main paths give it (batch 1, and the (32,16,16) layer
-           also at the paths' batches 8 and 2), in
+           also at the paths' batches 8 and 2; the weight gradient also at the
+           training batch's heaviest layer, (2,128,64,64) 100->40), in
            float32 and bfloat16, with times: kernel, plain version, the one
            library call that computes the same function (F.conv3d, or
            torch.nn.grad.conv3d_weight for the weight gradient, in true
@@ -56,11 +58,12 @@ fails. Phases, each printing one JSON line:
            shape and both storage types nested under "dtypes"
   last     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}
 
-Option (none when the script is run as the check of a checkout):
+Options (none when the script is run as the check of a checkout):
   --baseline-source PATH  another version of csrc/conv3x3.cu (e.g. the parent
            commit's, unpacked with git archive): built beside this one, and its
            K1 / K3 timed at every shape in turns with this one (baseline, this,
            this, baseline) through the same wrapper; "baseline_ms" per record
+  --baseline-dw-source PATH  the same for csrc/conv3x3_dw.cu and K2
 
 Tolerances. float32: |kernel - plain| <= 1e-4 on unit-variance outputs (both
 accumulate in float32, in different orders; the forward kernel's 3xTF32
@@ -158,9 +161,12 @@ DX_SHAPES = [
     (1, 128, 64, 64, 1, 10, True),
     (1, 128, 64, 64, 3, 10, False),
 ]
+# the weight gradient alone at the training batch's heaviest layer (x: 420 MB)
+DW_SHAPES = [(2, 128, 64, 64, 100, 40, True)]
 FULL_3D = dict(pred_sdf=True, pred_color=True, pred_semantic=True)
-# library of another version of csrc/conv3x3.cu (--baseline-source), or None
-BASELINE = None
+# libraries of other versions of the kernels' sources (--baseline-source,
+# --baseline-dw-source), by the key of ops/conv3x3.py's _libs
+BASELINE = {}
 GEO_ONLY = dict(pred_sdf=True, pred_color=False, pred_semantic=False)
 
 
@@ -208,40 +214,43 @@ def phase_build():
         sources[n] = dict(seconds=round(info[n]["seconds"], 2), cached=info[n]["cached"],
                           library=os.path.relpath(info[n]["path"]), ptxas=kernels,
                           sass_error=hmma.get("error"))
-        if n == "conv3x3" and "error" not in hmma:
-            # the forward kernel runs on the tensor cores in every variant
-            conv = {k: v for k, v in hmma.items() if "conv3x3_kernel" in k}
+        if "error" not in hmma:
+            # the forward and the weight-gradient kernels run on the tensor cores in
+            # every variant
+            kern = f"{n}_kernel"
+            conv = {k: v for k, v in hmma.items() if kern in k}
             if not conv or not all(v > 0 for v in conv.values()):
-                raise SystemExit(f"chip_smoke: conv3x3_kernel variants without HMMA: "
+                raise SystemExit(f"chip_smoke: {kern} variants without HMMA: "
                                  f"{[k for k, v in conv.items() if not v > 0] or 'none built'}")
     emit("build", seconds=round(seconds, 2), nvcc_flags=" ".join(_build.NVCC_FLAGS),
          sources=sources)
 
 
-def load_baseline(src):
-    """The library of another version of csrc/conv3x3.cu, built with the same
+def load_baseline(src, key):
+    """The library of another version of csrc/<key>.cu, built with the same
     flags and bound like the package's own."""
     t = time.time()
-    lib = conv_ops._bind_conv(ctypes.CDLL(_build.build_source(src, "conv3x3_baseline")))
-    emit("baseline", source=src, seconds=round(time.time() - t, 2))
+    bind = {"conv3x3": conv_ops._bind_conv, "conv3x3_dw": conv_ops._bind_dw}[key]
+    lib = bind(ctypes.CDLL(_build.build_source(src, f"{key}_baseline")))
+    emit("baseline", kernel=key, source=src, seconds=round(time.time() - t, 2))
     return lib
 
 
-def time_kernel(fn, reps, rec):
-    """rec["ms"] of a forward-kernel call; with a baseline also
-    rec["baseline_ms"], taken in turns (baseline, this, this, baseline)
-    through the same wrapper."""
-    if BASELINE is None:
+def time_kernel(fn, reps, rec, key="conv3x3"):
+    """rec["ms"] of a call of the kernel of library ``key``; with a baseline
+    of that library also rec["baseline_ms"], taken in turns (baseline, this,
+    this, baseline) through the same wrapper."""
+    if key not in BASELINE:
         rec["ms"] = cuda_ms(fn, reps)
         return
 
-    def on_baseline():
-        saved = conv_ops._libs["conv3x3"]
-        conv_ops._libs["conv3x3"] = BASELINE
+    def on_baseline():  # fn has run once already, so the package's library is loaded
+        saved = conv_ops._libs[key]
+        conv_ops._libs[key] = BASELINE[key]
         try:
             return cuda_ms(fn, reps)
         finally:
-            conv_ops._libs["conv3x3"] = saved
+            conv_ops._libs[key] = saved
 
     turns = [on_baseline(), cuda_ms(fn, reps), cuda_ms(fn, reps), on_baseline()]
     rec.update(ms=(turns[1] + turns[2]) / 2, baseline_ms=(turns[0] + turns[3]) / 2,
@@ -301,7 +310,7 @@ def compare_one(shape, dtype, gen, forward_only=False):
     rec["plain_ms"] = cuda_ms(lambda: conv_ops.conv3x3_plain(x, w), plain_reps)
     rec["library_ms"] = cuda_ms(lambda: F.conv3d(xc, wc, padding=1), reps)
     rec.update(bound_ms=bound_ms, bound_by=bound_by, bound_rate=BOUND_LABEL[dtype],
-               tflops=flops / rec["ms"] / 1e9)
+               tflops=flops / rec["ms"] / 1e9, eff=bound_ms / rec["ms"])
     out["conv3x3"] = rec
     del y, ref
     if forward_only:
@@ -334,14 +343,15 @@ def compare_one(shape, dtype, gen, forward_only=False):
     rec["plain_ms"] = cuda_ms(lambda: conv_ops.conv3x3_act_stats_plain(x, w, b), plain_reps)
     rec["library_ms"] = cuda_ms(library, reps)
     rec.update(bound_ms=bound_ms, bound_by=bound_by, bound_rate=BOUND_LABEL[dtype],
-               tflops=flops / rec["ms"] / 1e9)
+               tflops=flops / rec["ms"] / 1e9, eff=bound_ms / rec["ms"])
     out["conv3x3_act_stats"] = rec
     out["conv3x3_dw"] = compare_dw(shape, dtype, gen, x, xc, reps, plain_reps, tag)
     return out
 
 
 def compare_dw(shape, dtype, gen, x, xc, reps, plain_reps, tag):
-    """conv3x3_dw against conv3x3_dw_plain on ``x`` and a random cotangent."""
+    """conv3x3_dw against conv3x3_dw_plain on ``x`` (a (B,C,Z,Y,X) view of it
+    in ``xc``) and a random cotangent."""
     B, Z, Y, X, Ci, Co, on_path = shape
     dy = torch.randn(B, Z, Y, X, Co, generator=gen).to(dtype).to(DEV)
     dyc = dy.permute(0, 4, 1, 2, 3)
@@ -360,13 +370,21 @@ def compare_dw(shape, dtype, gen, x, xc, reps, plain_reps, tag):
     rec = dict(shape=list(shape[:4]), cin=Ci, cout=Co, main_path=on_path,
                max_abs_err=(dw - ref).abs().max().item(), max_rel_err=rel, repeats_bitwise=True)
     del dw, ref, again
-    rec["ms"] = cuda_ms(lambda: conv_ops.conv3x3_dw(x, dy), reps)
+    time_kernel(lambda: conv_ops.conv3x3_dw(x, dy), reps, rec, key="conv3x3_dw")
     rec["plain_ms"] = cuda_ms(lambda: conv_ops.conv3x3_dw_plain(x, dy), plain_reps)
     rec["library_ms"] = cuda_ms(
         lambda: torch.nn.grad.conv3d_weight(xc, (Co, Ci, 3, 3, 3), dyc, padding=1), reps)
     rec.update(bound_ms=bound_ms, bound_by=bound_by, bound_rate=BOUND_LABEL[dtype],
-               tflops=flops / rec["ms"] / 1e9)
+               tflops=flops / rec["ms"] / 1e9, eff=bound_ms / rec["ms"])
     return rec
+
+
+def compare_dw_alone(shape, dtype, gen):
+    """conv3x3_dw at a shape where only the weight gradient is compared."""
+    B, Z, Y, X, Ci, Co, _ = shape
+    x = torch.randn(B, Z, Y, X, Ci, generator=gen).to(dtype).to(DEV)
+    tag = f"{tuple(shape[:4])} {Ci}->{Co} {str(dtype).split('.')[1]}"
+    return compare_dw(shape, dtype, gen, x, x.permute(0, 4, 1, 2, 3), 5, 1, tag)
 
 
 @contextlib.contextmanager
@@ -446,6 +464,10 @@ def phase_compare():
         for shape in DX_SHAPES:
             rec = compare_one(shape, dtype, gen, forward_only=True)["conv3x3"]
             results["conv3x3"][str(dtype).split(".")[1]].append(dict(rec, role="dx"))
+            torch.cuda.empty_cache()
+        for shape in DW_SHAPES:
+            results["conv3x3_dw"][str(dtype).split(".")[1]].append(
+                compare_dw_alone(shape, dtype, gen))
             torch.cuda.empty_cache()
     backward = compare_backward(HEAVIEST, gen)
     torch.cuda.empty_cache()
@@ -927,15 +949,18 @@ def phase_train():
 
 # --------------------------------------------------------------------------- main
 def main(argv=None):
-    global BASELINE
     ap = argparse.ArgumentParser(description="Smoke test of spsg_tpu_torch on one GPU.")
     ap.add_argument("--baseline-source", default=None,
                     help="another version of csrc/conv3x3.cu to time beside this one")
+    ap.add_argument("--baseline-dw-source", default=None,
+                    help="another version of csrc/conv3x3_dw.cu to time beside this one")
     args = ap.parse_args(argv)
     smi = phase_device()
     phase_build()
-    if args.baseline_source:
-        BASELINE = load_baseline(args.baseline_source)
+    for key, src in (("conv3x3", args.baseline_source),
+                     ("conv3x3_dw", args.baseline_dw_source)):
+        if src:
+            BASELINE[key] = load_baseline(src, key)
     results = phase_compare()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as tmp:
         serve = phase_path(tmp)

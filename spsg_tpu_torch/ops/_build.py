@@ -3,9 +3,9 @@
 Each source under ``ops/csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``. The build
 happens at first use (never at import), into ``ops/_build/`` (git-ignored),
-and the binary is named by the hash of its source, so a changed source is
-rebuilt and a stale binary is never picked up. Sources include no PyTorch
-header, which keeps a build to seconds.
+and the binary is named by the hash of its source and of the headers beside it,
+so a changed source or header is rebuilt and a stale binary is never picked up.
+Sources include no PyTorch header, which keeps a build to seconds.
 
 A failed build raises; callers do not fall back to another implementation.
 """
@@ -51,9 +51,15 @@ def find_nvcc() -> str:
 
 
 def _out_path(src: str, tag: str) -> str:
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{tag}-{digest}.so")
+    """The binary of ``src``, named by the hash of the source, of the headers
+    beside it (``*.cuh``, which sources include) and of the flags."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    folder = os.path.dirname(os.path.abspath(src))
+    headers = sorted(f for f in os.listdir(folder) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(folder, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{tag}-{h.hexdigest()[:12]}.so")
 
 
 def _paths(name: str):

@@ -19,9 +19,9 @@ one): a block owns a tile of voxels x all output channels, stages one halo
 plane and its taps' weights per 8 input channels with asynchronous copies
 (double-buffered), writes the halo's zeros itself (no padded copy of the
 input) and reduces the statistics without atomics; the weight-gradient kernel
-is a split-K product whose per-block partial sums are added by a second
-kernel in a fixed order. Results repeat bit for bit. Details in the sources;
-measured times in PERF.md.
+is a split-K GEMM on the same tensor cores (3xTF32 / one pass alike) whose
+per-block partial sums are added by a second kernel in a fixed order. Results
+repeat bit for bit. Details in the sources; measured times in PERF.md.
 
 :func:`conv3x3` and :func:`conv3x3_act_stats` are ``torch.autograd.Function``s
 with the backward of the JAX package's custom VJPs: ``dx`` is the forward
@@ -74,17 +74,21 @@ def _library():
     return lib
 
 
+def _bind_dw(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built ``csrc/conv3x3_dw.cu`` on ``lib``."""
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    lib.spsg_conv3x3_dw_slices.restype = ctypes.c_int
+    lib.spsg_conv3x3_dw_slices.argtypes = [i, i, i, i, i, i, i]
+    lib.spsg_conv3x3_dw_launch.restype = ctypes.c_int
+    lib.spsg_conv3x3_dw_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
+    return lib
+
+
 def _dw_library():
     lib = _libs.get("conv3x3_dw")
     if lib is None:
-        lib = _build.load("conv3x3_dw")
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        lib.spsg_conv3x3_dw_slices.restype = ctypes.c_int
-        lib.spsg_conv3x3_dw_slices.argtypes = [i, i, i, i, i, i, i]
-        lib.spsg_conv3x3_dw_launch.restype = ctypes.c_int
-        lib.spsg_conv3x3_dw_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
-        _libs["conv3x3_dw"] = lib
+        lib = _libs["conv3x3_dw"] = _bind_dw(_build.load("conv3x3_dw"))
     return lib
 
 

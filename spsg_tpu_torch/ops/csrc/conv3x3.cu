@@ -88,6 +88,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -133,43 +135,6 @@ __device__ __forceinline__ void st2(float* p, float a, float b) {
 }
 __device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// v = hi + lo exactly, hi = v truncated to TF32; lo is truncated to TF32 in
-// turn (the part of v below 2^-20 relative is lost). Three instructions;
-// cvt.rna.tf32.f32 compiles to four for each rounding.
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(v) & 0xffffe000u;
-  lo = __float_as_uint(v - __uint_as_float(hi)) & 0xffffe000u;
-}
-
-// D += A * B, m16n8k8, A row-major (a0..a3), B column-major (b0, b1)
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// cp.async with zero fill: src-size 0 writes zeros and reads nothing
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(ok ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // A fragments of one tap: a0 (gid, tig), a1 (gid+8, tig), a2 (gid, tig+4),

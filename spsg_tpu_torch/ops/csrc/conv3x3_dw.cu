@@ -1,206 +1,387 @@
 // Weight gradient of the 3x3x3, stride-1, zero-pad-1, channel-last 3D
-// convolution for Hopper (sm_90a).
+// convolution for Hopper (sm_90a), as a split-K GEMM on the tensor cores
+// (mma.sync, TF32).
 //
-// Replaces the TPU kernel _dw_kernel (launcher _conv3x3_dw_impl) of the JAX
-// package (spsg_tpu/ops/pallas_conv.py). For tap = (dz, dy, dx):
+// Replaces the TPU kernel _dw_kernel (spsg_tpu/ops/pallas_conv.py:104,
+// launcher _conv3x3_dw_impl) of the JAX package. For tap = (dz, dy, dx):
 //   dW[tap, ci, co] = sum over (b, z, y, x) of
 //                     xpad[b, z+dz, y+dy, x+dx, ci] * dy[b, z, y, x, co]
 // with xpad the input with a zero halo of one voxel, accumulated in float32
 // whatever the storage type (float32 or bfloat16); the output is float32
 // (3,3,3,Cin,Cout), tap-major in (dz, dy, dx) order.
 //
-// What bounds it on an H100: operations (2*27*Cin*Cout flops per voxel against
-// Cin+Cout loaded elements), except for the one-channel heads. Like the
-// forward kernel this first version computes in float32 FMA on the CUDA cores.
+// What bounds it on an H100: operations (2*27*Cin*Cout flops per voxel
+// against Cin+Cout loaded elements), except for the one-channel heads, which
+// are bound by bytes. float32 storage is computed as 3xTF32 (as in
+// conv3x3.cu: three tensor-core passes a product, so its least time is
+// 3*flops / 495 TFLOP/s); bfloat16 storage takes one exact pass.
 //
-// Design. The TPU kernel walks a sequential grid and adds into one resident
-// output block; blocks of a GPU run in no order, so this is a split-K product
-// instead: the reduction runs over ~10^6 voxels, the output has at most
-// 27*100*100 elements.
-//   * A block owns a piece 27 taps x KC input channels x NC output channels of
-//     dW (KC = 8 or 16, NC = 8..56); gridDim.y / gridDim.z cover Cin / Cout and
-//     gridDim.x splits the voxel tiles into S contiguous shares.
-//   * A thread owns one tap, 8 input and 8 output channels of that piece: 64
-//     sums in registers, which no other thread shares, so nothing is reduced
-//     across threads.
-//   * Per tile of TY x TX (= 256) voxels of one (b, z) the block stages the
-//     halo slab [3][TY+2][TX+2][KC] of x (zeros written where it leaves the
-//     volume or the channel range: no padded copy of the input) and the tile
-//     [TY*TX][NC] of dy in shared memory, both channel-last like the arrays in
-//     device memory. Per voxel a thread then reads its 8 + 8 operands as four
-//     16-byte loads (threads of the same tap or the same output channels read
-//     the same words: broadcast) for 64 FMAs.
-//   * Every block writes its sums to its own slice of a (S, 27, Cin, Cout)
-//     scratch buffer and a second kernel adds the S slices in a fixed order:
-//     per-block partials plus a second pass, no float atomics, so results
-//     repeat bit for bit. S is chosen from the device's SM count and the
-//     kernel's occupancy so that the grid fills the card in whole waves, and
-//     so that the scratch buffer stays within 32 MB.
-//   * Ragged Cin / Cout are padded with zeros in shared memory up to the next
-//     multiple of 8, never in device memory; offsets are 64 bit.
+// The GEMM. dW as a matrix is (27*Cin) x Cout, at most 2,700 x 100, and the
+// reduction runs over the voxels, ~10^5-10^6 of them: K is the voxel axis.
+//   * M = (tap, input channel): a block owns one chunk of KC = 8 input
+//     channels for all 27 taps, 216 rows as 14 m16 tiles of two taps each
+//     (the 28th tap slot is computed and dropped). N = output channels: a
+//     block owns NT n8 tiles (NT <= 7, Cout padded to 8); Cout > 56 is split
+//     over 2 or more blocks. 7 warps; warp w owns the m16 tiles of taps
+//     4w .. 4w+3, all NT n8 tiles, and issues
+//     mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32: A[(tap, ci), v] =
+//     xpad[v + tap, ci], B[v, co] = dy[v, co].
+//   * K is walked in tiles of TY x TX voxels of one (b, z) plane, k8 steps of
+//     8 voxels along x (TX = 16, or 8 for X < 16): 256 voxels, or 128 for
+//     NT = 5, whose 256-voxel stages would cost it its second resident block.
+//     Per tile the block stages the halo slab [3][TY+2][TX+2][8] of x and the
+//     tile [TY*TX][NPAD] of dy, both channel-last, so each voxel tile's dy is
+//     staged once per input-channel chunk and x once per output-channel chunk
+//     (the FMA kernel this replaced staged both once per (8 x <= 56)-channel
+//     pair: 13 times at 100 -> 100). The B fragment (dy) of a k8 step serves
+//     the warp's two m16 tiles, the A fragments (x, a shifted view of the slab
+//     per tap) its NT n8 tiles.
+//   * Split K: gridDim.x = the (Cin chunk, Cout chunk) units, fastest, so that
+//     the blocks of one voxel range run together and share its x and dy lines
+//     in L2; gridDim.y = S contiguous shares of the tiles. Each block writes
+//     its sums to its own slice of a (S, 27, Cin, Cout) scratch buffer and
+//     sum_slices_kernel adds the S slices in a fixed order: no float atomics,
+//     results repeat bit for bit. S is the least number of shares that keeps a
+//     block's share at <= kMaxTilesPerBlock tiles (so a block's work does not
+//     grow with the batch: a larger batch gets more blocks) and fills the
+//     card's resident slots (SM count x cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+//     in nearly whole waves, within a 32 MB scratch buffer.
+//
+// Accumulation. The tensor core rounds each mma's sum toward zero, and K here
+// is 10^5-10^6 long: one accumulator across all of it is ~3e-4 of max|dW| off
+// at 32,768 voxels already (tests/test_torch_conv3x3_dw_tf32.py emulates the
+// kernel's order of sums on the CPU). The passes of one voxel tile (48 or 96
+// mmas) go into temporaries that start at 0 and join the float32 accumulators
+// with a rounded float add once per tile (1.7e-6 in the same emulation); the
+// slices join in order in sum_slices_kernel.
+//
+// 3xTF32 (float32 storage), as in conv3x3.cu (helpers in tf32_mma.cuh): each
+// operand v is split at fragment load into hi = v with its 13 low bits
+// cleared and lo = v - hi cleared the same way; the product is lo*hi' +
+// hi*lo' + hi*hi' (in that order). bfloat16 storage: a bfloat16 value is a
+// TF32 value, one pass.
+// (Leaving lo's low bits in place gave bit-identical results, so the tensor
+// core reads a TF32 operand truncated, but no faster kernel.)
+//
+// Shared memory, per stage: the slab, 8 floats a position (A loads: 8 rows
+// (ci) x 4 k (consecutive positions) on 32 distinct banks, for every tap's
+// shift and at any k8 step, since a k8 step never crosses a tile row), and dy
+// at a row stride DS = NPAD or NPAD + 8, = 8 or 24 (mod 32) (B loads: 4 k x
+// 8 n on 32 distinct banks). Two stages: the next tile is copied with cp.async
+// while this one is computed, in 16-, 8- or 4-byte copies as Cin or Cout and
+// the pointer allow, with zero fill at the volume's edges; channels past Cin /
+// Cout are zeroed once and never copied (no padded copy of x). bfloat16 is
+// staged with plain loads, converted to float, in the same two-stage loop (off
+// the generator's path). Offsets into x and dy are 64 bit.
+//
+// Measured and not kept (H100, PERF.md): accumulators in shared memory
+// (fewer registers, no faster), loading the next k8 step's fragments ahead
+// (slower), 256-voxel tiles for NT = 5 (one resident block: slower), a cap of
+// 64 tiles a block lifted (no faster). One-channel heads (Cout = 1) take the
+// same kernel with one n8 tile: faster than the FMA loop it replaced.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int kMaxThreads = 192;   // 27 taps x at most 7 (input octet, output octet) pairs
-constexpr int kTileVoxels = 256;
+constexpr int kWarps = 7;  // 14 m16 tiles of tap pairs, two a warp
+constexpr int kThreads = kWarps * 32;
+constexpr int MT = 2;       // m16 tiles a warp
+constexpr int KC = 8;       // input channels a block
+constexpr int kStages = 2;
+constexpr int kMaxNT = 7;
+constexpr long long kMaxTilesPerBlock = 64;
 constexpr long long kScratchBytes = 32LL << 20;
 
-__device__ __forceinline__ float ldf(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ldf(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-
-// four consecutive elements; p is aligned to four elements
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-// elements c .. c+3 of a row of n channels starting at p, zeros beyond n
-template <typename T>
-__device__ __forceinline__ float4 load_quad(const T* p, int c, int n, bool vec) {
-  if (vec && c + 3 < n) return ld4(p + c);
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (c < n) v.x = ldf(p + c);
-  if (c + 1 < n) v.y = ldf(p + c + 1);
-  if (c + 2 < n) v.z = ldf(p + c + 2);
-  if (c + 3 < n) v.w = ldf(p + c + 3);
-  return v;
-}
+// registers: up to 5 n8 tiles are held to 128 a thread (2 blocks an SM)
+template <int NT>
+constexpr int min_blocks() { return NT <= 5 ? 2 : 1; }
 
 template <typename T>
-__global__ void __launch_bounds__(kMaxThreads, 2)
-conv3x3_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                  float* __restrict__ partials, int Z, int Y, int X, int Cin, int Cout,
-                  int TX, int TY, int tilesX, int tilesY, long long tiles, int KO, int NO,
-                  int xvec, int dvec) {
+struct Store;
+template <>
+struct Store<float> {
+  static constexpr bool kSplit = true;
+};
+template <>
+struct Store<__nv_bfloat16> {
+  static constexpr bool kSplit = false;
+};
+
+// row stride (floats) of the staged dy tile: >= npad and = 8 or 24 (mod 32)
+__host__ __device__ inline int dstride(int npad) { return (npad / 8) % 2 ? npad : npad + 8; }
+
+// fragment values as TF32 bits: split (float32) or as they are (bfloat16)
+template <typename T>
+__device__ __forceinline__ void frag(float v, uint32_t& hi, uint32_t& lo) {
+  if constexpr (Store<T>::kSplit) {
+    split(v, hi, lo);
+  } else {
+    hi = __float_as_uint(v);
+    lo = 0u;
+  }
+}
+
+// d += a * b: 3xTF32 (lo*hi + hi*lo, then hi*hi) for float32, one pass for bfloat16
+template <typename T>
+__device__ __forceinline__ void passes(float (&d)[4], const uint32_t (&ahi)[4],
+                                       const uint32_t (&alo)[4], uint32_t bhi0, uint32_t bhi1,
+                                       uint32_t blo0, uint32_t blo1) {
+  if constexpr (Store<T>::kSplit) {
+    mma(d, alo, bhi0, bhi1);
+    mma(d, ahi, blo0, blo1);
+  }
+  mma(d, ahi, bhi0, bhi1);
+}
+
+struct Geom {
+  int Z, Y, X, Cin, Cout;
+  int TX, TY, HX, HY, tilesX, tilesY, txs;  // txs = log2(TX)
+  int c0, co0, DS;
+  int xe, de;  // floats a copy of x / dy: 4 (16 bytes), 2 or 1 (bfloat16: 1)
+  int xn, dn;  // copies a slab position / a dy voxel: the channels that exist
+};
+
+// E floats from src to dst (cp.async with zero fill where !ok), or one
+// bfloat16 converted to float
+template <int E, typename T>
+__device__ __forceinline__ void copy(float* dst, const T* src, bool ok) {
+  if constexpr (Store<T>::kSplit) {
+    if constexpr (E == 4)
+      cp16(dst, src, ok);
+    else if constexpr (E == 2)
+      cp8(dst, src, ok);
+    else
+      cp4(dst, src, ok);
+  } else {
+    *dst = ok ? __bfloat162float(*src) : 0.f;
+  }
+}
+
+// the halo slab [3][HY][HX][8] of x around plane z, rows y0-1 .., columns
+// x0-1 ..; positions outside the volume are zero-filled, channels past Cin
+// are never written (zeroed once at the start)
+template <int E, typename T>
+__device__ __forceinline__ void stage_slab(float* xs, const T* __restrict__ x, const Geom& g, int b,
+                                           int z, int y0, int x0, int tid) {
+  const int npos = 3 * g.HY * g.HX;
+  for (int p = tid; p < npos; p += kThreads) {
+    const int row = p / g.HX, hx = p - row * g.HX;
+    const int hz = row / g.HY, hy = row - hz * g.HY;
+    const int gz = z + hz - 1, gy = y0 + hy - 1, gx = x0 + hx - 1;
+    const bool ok = gz >= 0 && gz < g.Z && gy >= 0 && gy < g.Y && gx >= 0 && gx < g.X;
+    const T* src =
+        x + (ok ? ((((long long)b * g.Z + gz) * g.Y + gy) * g.X + gx) * (long long)g.Cin + g.c0 : 0);
+    float* dst = xs + p * KC;
+#pragma unroll
+    for (int k = 0; k < KC / E; ++k)
+      if (k < g.xn) copy<E>(dst + k * E, src + k * E, ok);
+  }
+}
+
+// the tile [TY*TX][DS] of dy, channels co0 .. co0+NPAD-1; voxels outside the
+// volume zero-filled, channels past Cout never written
+template <int E, int NPAD, typename T>
+__device__ __forceinline__ void stage_dy(float* ds, const T* __restrict__ dy, const Geom& g,
+                                         long long plane, int y0, int x0, int tid) {
+  constexpr int Q = NPAD / E;
+  for (int i = tid; i < g.TY * g.TX * Q; i += kThreads) {
+    const int v = i / Q, q = i - v * Q;
+    if (q >= g.dn) continue;
+    const int vy = v >> g.txs, vx = v & (g.TX - 1);
+    const int gy = y0 + vy, gx = x0 + vx;
+    const bool ok = gy < g.Y && gx < g.X;
+    const T* src = dy + (ok ? ((plane + gy) * g.X + gx) * (long long)g.Cout + g.co0 + q * E : 0);
+    copy<E>(ds + v * g.DS + q * E, src, ok);
+  }
+}
+
+// Stage voxel tile t: the slab of x (channels c0 .. c0+7) into xs and the
+// tile of dy (channels co0 .. co0+NPAD-1) into ds.
+template <typename T, int NPAD>
+__device__ __forceinline__ void stage_tile(float* xs, float* ds, const T* __restrict__ x,
+                                           const T* __restrict__ dy, const Geom& g, long long t,
+                                           int tid) {
+  long long r = t;
+  const int tileX = (int)(r % g.tilesX);
+  r /= g.tilesX;
+  const int tileY = (int)(r % g.tilesY);
+  r /= g.tilesY;
+  const int z = (int)(r % g.Z);
+  const int b = (int)(r / g.Z);
+  const int x0 = tileX * g.TX, y0 = tileY * g.TY;
+  const long long plane = ((long long)b * g.Z + z) * g.Y;
+  if constexpr (Store<T>::kSplit) {
+    if (g.xe == 4)
+      stage_slab<4>(xs, x, g, b, z, y0, x0, tid);
+    else if (g.xe == 2)
+      stage_slab<2>(xs, x, g, b, z, y0, x0, tid);
+    else
+      stage_slab<1>(xs, x, g, b, z, y0, x0, tid);
+    if (g.de == 4)
+      stage_dy<4, NPAD>(ds, dy, g, plane, y0, x0, tid);
+    else if (g.de == 2)
+      stage_dy<2, NPAD>(ds, dy, g, plane, y0, x0, tid);
+    else
+      stage_dy<1, NPAD>(ds, dy, g, plane, y0, x0, tid);
+  } else {
+    stage_slab<1>(xs, x, g, b, z, y0, x0, tid);
+    stage_dy<1, NPAD>(ds, dy, g, plane, y0, x0, tid);
+  }
+}
+
+// floats a copy can move: rows of n elements of type T at p
+template <typename T>
+__device__ __forceinline__ int copy_width(const T* p, int n) {
+  if (!Store<T>::kSplit) return 1;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  return n % 4 == 0 && a % 16 == 0 ? 4 : n % 2 == 0 && a % 8 == 0 ? 2 : 1;
+}
+
+template <typename T, int NT>
+__global__ void __launch_bounds__(kThreads, min_blocks<NT>())
+conv3x3_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy, float* __restrict__ partials,
+                  int Z, int Y, int X, int Cin, int Cout, int TX, int TY, int tilesX, int tilesY,
+                  long long tiles, int coBlocks) {
+  constexpr int NPAD = NT * 8;
   extern __shared__ __align__(16) float smem[];
-  const int HX = TX + 2;
-  const int HY = TY + 2;
-  const int KC = KO * 8;
-  const int NC = NO * 8;
-  const int npos = 3 * HY * HX;
-  float* xsm = smem;               // [3][HY][HX][KC]
-  float* dsm = smem + npos * KC;   // [TY*TX][NC]
 
   const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int P = KO * NO;
-  const int tap = tid / P;
-  const int pr = tid - tap * P;
-  const int ko = pr / NO;
-  const int no = pr - ko * NO;
-  const int dz = tap / 9;
-  const int ky = (tap / 3) % 3;
-  const int dx = tap % 3;
-  const int c0 = blockIdx.y * KC;
-  const int co0 = blockIdx.z * NC;
-  const bool active = tap < 27 && (c0 + ko * 8 < Cin) && (co0 + no * 8 < Cout);
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gid = lane >> 2;  // fragment row (A, C) / column (B)
+  const int tig = lane & 3;   // fragment k (A, B) / column pair (C)
 
-  const long long S = gridDim.x;
-  const long long t_begin = tiles * (long long)blockIdx.x / S;
-  const long long t_end = tiles * ((long long)blockIdx.x + 1) / S;
+  Geom g;
+  g.Z = Z; g.Y = Y; g.X = X; g.Cin = Cin; g.Cout = Cout;
+  g.TX = TX; g.TY = TY; g.HX = TX + 2; g.HY = TY + 2;
+  g.tilesX = tilesX; g.tilesY = tilesY;
+  g.txs = 31 - __clz(TX);
+  g.c0 = (blockIdx.x / coBlocks) * KC;
+  g.co0 = (blockIdx.x % coBlocks) * NPAD;
+  g.DS = dstride(NPAD);
+  g.xe = copy_width(x, Cin);
+  g.de = copy_width(dy, Cout);
+  g.xn = (min(KC, Cin - g.c0) + g.xe - 1) / g.xe;
+  g.dn = (min(NPAD, Cout - g.co0) + g.de - 1) / g.de;
+  const int xs_elems = 3 * g.HY * g.HX * KC;
+  const int stage_elems = xs_elems + TY * TX * g.DS;
+  // channels past Cin / Cout are never staged: zeros from here on
+  for (int i = tid; i < kStages * stage_elems; i += kThreads) smem[i] = 0.f;
+  __syncthreads();
 
-  float acc[8][8];
+  const long long S = gridDim.y;
+  const long long t_begin = tiles * (long long)blockIdx.y / S;
+  const long long t_end = tiles * ((long long)blockIdx.y + 1) / S;
+
+  // slab offset of this thread's A rows at voxel (0, 0), k = tig: row gid of
+  // m16 tile mt is (tap 4*warp + 2*mt, ci gid), row gid + 8 the next tap; the
+  // 28th tap slot reads tap 26's rows and is not stored
+  int aoff[MT][2];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int h = 0; h < 2; ++h) {
+      int tap = 4 * warp + 2 * mt + h;
+      if (tap > 26) tap = 26;
+      const int dz = tap / 9, ky = (tap / 3) % 3, kx = tap % 3;
+      aoff[mt][h] = (((dz * g.HY + ky) * g.HX + kx) + tig) * KC + gid;
+    }
 
-  const int xq = KC / 4;  // quads of channels per slab position
-  const int dq = NC / 4;  // quads of channels per dy voxel
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0.f;
 
+  // one commit group a tile (empty past the share), so that wait_group<1>
+  // always means "tile t has landed"
+  auto stage = [&](long long t) {
+    if (t < t_end) {
+      float* base = smem + ((t - t_begin) % kStages) * stage_elems;
+      stage_tile<T, NPAD>(base, base + xs_elems, x, dy, g, t, tid);
+    }
+    cp_commit();
+  };
+
+  stage(t_begin);
   for (long long t = t_begin; t < t_end; ++t) {
-    long long r = t;
-    const int tileX = (int)(r % tilesX);
-    r /= tilesX;
-    const int tileY = (int)(r % tilesY);
-    r /= tilesY;
-    const int z = (int)(r % Z);
-    const int b = (int)(r / Z);
-    const int x0 = tileX * TX;
-    const int y0 = tileY * TY;
-
-    if (t > t_begin) __syncthreads();  // the previous tile has been consumed
-
-    // halo slab of x, zeros outside the volume and the channel range
-#pragma unroll 4
-    for (int i = tid; i < npos * xq; i += nthreads) {
-      const int pos = i / xq;
-      const int q = i - pos * xq;
-      const int hx = pos % HX;
-      const int rr = pos / HX;
-      const int hy = rr % HY;
-      const int hz = rr / HY;
-      const int gz = z + hz - 1;
-      const int gy = y0 + hy - 1;
-      const int gx = x0 + hx - 1;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gz >= 0 && gz < Z && gy >= 0 && gy < Y && gx >= 0 && gx < X)
-        v = load_quad(x + ((((long long)b * Z + gz) * Y + gy) * X + gx) * (long long)Cin,
-                      c0 + q * 4, Cin, xvec != 0);
-      *reinterpret_cast<float4*>(xsm + pos * KC + q * 4) = v;
-    }
-    // tile of dy, zeros outside the volume and the channel range
-    const long long plane = ((long long)b * Z + z) * Y;
-#pragma unroll 4
-    for (int i = tid; i < TY * TX * dq; i += nthreads) {
-      const int v = i / dq;
-      const int q = i - v * dq;
-      const int vy = v / TX;
-      const int vx = v - vy * TX;
-      const int gy = y0 + vy;
-      const int gx = x0 + vx;
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gy < Y && gx < X)
-        val = load_quad(dy + ((plane + gy) * X + gx) * (long long)Cout, co0 + q * 4, Cout,
-                        dvec != 0);
-      *reinterpret_cast<float4*>(dsm + v * NC + q * 4) = val;
-    }
+    // the buffer of tile t + 1 was read by tile t - 1, before the barrier
+    // that closed it
+    stage(t + 1);
+    cp_wait<kStages - 1>();
     __syncthreads();
-
-    if (active) {
-      const float* xb = xsm + ((dz * HY + ky) * HX + dx) * KC + ko * 8;
-      const float* db = dsm + no * 8;
-      for (int vy = 0; vy < TY; ++vy) {
-        const float* xr = xb + vy * HX * KC;
-        const float* dr = db + vy * TX * NC;
-#pragma unroll 4
-        for (int vx = 0; vx < TX; ++vx) {
-          const float4 a0 = *reinterpret_cast<const float4*>(xr + vx * KC);
-          const float4 a1 = *reinterpret_cast<const float4*>(xr + vx * KC + 4);
-          const float4 d0 = *reinterpret_cast<const float4*>(dr + vx * NC);
-          const float4 d1 = *reinterpret_cast<const float4*>(dr + vx * NC + 4);
-          const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-          const float d[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+    const float* xs = smem + ((t - t_begin) % kStages) * stage_elems;
+    const float* ds = xs + xs_elems;
+    // the passes of one tile into temporaries from 0 (the tensor core
+    // truncates as it accumulates), joined to acc by a rounded add
+    float d[MT][NT][4];
 #pragma unroll
-          for (int i = 0; i < 8; ++i)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], d[j], acc[i][j]);
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) d[mt][nt][j] = 0.f;
+    for (int vy = 0; vy < TY; ++vy) {
+#pragma unroll 2
+      for (int kx = 0; kx < TX; kx += 8) {
+        // B fragments: b0 (k = tig, n = gid), b1 (k = tig + 4, n = gid)
+        const float* drow = ds + (vy * TX + kx + tig) * g.DS + gid;
+        uint32_t bhi[NT][2], blo[NT][2];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          frag<T>(drow[nt * 8], bhi[nt][0], blo[nt][0]);
+          frag<T>(drow[4 * g.DS + nt * 8], bhi[nt][1], blo[nt][1]);
+        }
+        const float* xb = xs + (vy * g.HX + kx) * KC;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          // a0 (gid, tig), a1 (gid+8, tig), a2 (gid, tig+4), a3 (gid+8, tig+4)
+          const float v[4] = {xb[aoff[mt][0]], xb[aoff[mt][1]], xb[aoff[mt][0] + 4 * KC],
+                              xb[aoff[mt][1] + 4 * KC]};
+          uint32_t ahi[4], alo[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) frag<T>(v[j], ahi[j], alo[j]);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            passes<T>(d[mt][nt], ahi, alo, bhi[nt][0], bhi[nt][1], blo[nt][0], blo[nt][1]);
         }
       }
     }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[mt][nt][j] += d[mt][nt][j];
+    __syncthreads();  // tile t's buffer is refilled by the stage of tile t + 2
   }
+  cp_wait<0>();
 
-  if (active) {
-    float* dst = partials + (long long)blockIdx.x * 27 * Cin * Cout;
+  // c0 (row gid, col 2*tig), c1 (gid, 2*tig+1), c2 (gid+8, 2*tig), c3 (gid+8, 2*tig+1)
+  float* dst = partials + (long long)blockIdx.y * 27 * Cin * Cout;
+  const int ci = g.c0 + gid;
+  if (ci < Cin) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int ci = c0 + ko * 8 + i;
-      if (ci >= Cin) continue;
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int co = co0 + no * 8 + j;
-        if (co < Cout) dst[((long long)tap * Cin + ci) * Cout + co] = acc[i][j];
+      for (int h = 0; h < 2; ++h) {
+        const int tap = 4 * warp + 2 * mt + h;
+        if (tap > 26) continue;
+        float* row = dst + ((long long)tap * Cin + ci) * Cout;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int co = g.co0 + nt * 8 + 2 * tig;
+          if (co < Cout) row[co] = acc[mt][nt][2 * h];
+          if (co + 1 < Cout) row[co + 1] = acc[mt][nt][2 * h + 1];
+        }
       }
-    }
   }
 }
 
@@ -215,60 +396,78 @@ sum_slices_kernel(const float* __restrict__ partials, int S, long long n,
   out[j] = s;
 }
 
+template <typename T>
+using KernelFn = void (*)(const T*, const T*, float*, int, int, int, int, int, int, int, int, int,
+                          long long, int);
+
+constexpr int kNTs[] = {1, 2, 3, 5, kMaxNT};  // instantiated n8 tile counts
+
+template <typename T>
+KernelFn<T> kernel_nt(int NT) {
+  switch (NT) {
+    case 1: return conv3x3_dw_kernel<T, 1>;
+    case 2: return conv3x3_dw_kernel<T, 2>;
+    case 3: return conv3x3_dw_kernel<T, 3>;
+    case 5: return conv3x3_dw_kernel<T, 5>;
+    default: return conv3x3_dw_kernel<T, kMaxNT>;
+  }
+}
+
+const void* kernel_for(int dtype, int NT) {
+  return dtype == 0 ? reinterpret_cast<const void*>(kernel_nt<float>(NT))
+                    : reinterpret_cast<const void*>(kernel_nt<__nv_bfloat16>(NT));
+}
+
+// voxels of a K tile: 256, except where a second stage of them would cost the
+// NT = 5 tiles their second resident block
+int tile_voxels(int NT) { return NT == 5 ? 128 : 256; }
+
+int round_nt(int n) {
+  for (int c : kNTs)
+    if (n <= c) return c;
+  return kMaxNT;
+}
+
 struct Plan {
+  int NT;  // n8 tiles a block (template value)
   int TX, TY;
   int tilesX, tilesY;
   long long tiles;
-  int KO, NO;          // octets of input / output channels per block
   int ciBlocks, coBlocks;
-  int threads;
   size_t smem;
 };
 
 Plan make_plan(int B, int Z, int Y, int X, int Cin, int Cout) {
   Plan p;
-  p.TX = X >= 32 ? 32 : X >= 16 ? 16 : 8;
-  p.TY = kTileVoxels / p.TX;
+  const int octs_o = (Cout + 7) / 8;
+  const int parts = (octs_o + kMaxNT - 1) / kMaxNT;
+  p.NT = round_nt((octs_o + parts - 1) / parts);
+  p.coBlocks = (octs_o + p.NT - 1) / p.NT;
+  p.ciBlocks = (Cin + KC - 1) / KC;
+  p.TX = X >= 16 ? 16 : 8;  // a multiple of 8: k8 steps stay inside a tile row
+  p.TY = tile_voxels(p.NT) / p.TX;
   if (p.TY > Y) p.TY = Y;
   p.tilesX = (X + p.TX - 1) / p.TX;
   p.tilesY = (Y + p.TY - 1) / p.TY;
   p.tiles = (long long)B * Z * p.tilesY * p.tilesX;
-  const int octs_o = (Cout + 7) / 8;
-  const int octs_i = (Cin + 7) / 8;
-  // output octets per block: at most 7, the choice that pads Cout least (ties: more)
-  int best = 1, waste = 1 << 30;
-  for (int n = 1; n <= 7; ++n) {
-    const int w = (octs_o + n - 1) / n * n - octs_o;
-    if (w <= waste) { waste = w; best = n; }
-  }
-  p.NO = best;
-  // two input octets where that pads Cin no further and the block stays within 7 pairs
-  p.KO = (2 * p.NO <= 7 && octs_i % 2 == 0) ? 2 : 1;
-  p.ciBlocks = (octs_i + p.KO - 1) / p.KO;
-  p.coBlocks = (octs_o + p.NO - 1) / p.NO;
-  p.threads = (27 * p.KO * p.NO + 31) / 32 * 32;
-  p.smem = sizeof(float) * ((size_t)3 * (p.TY + 2) * (p.TX + 2) * p.KO * 8 +
-                            (size_t)p.TY * p.TX * p.NO * 8);
+  p.smem = sizeof(float) * kStages *
+           ((size_t)3 * (p.TY + 2) * (p.TX + 2) * KC + (size_t)p.TY * p.TX * dstride(p.NT * 8));
   return p;
 }
 
-const void* kernel_for(int dtype) {
-  return dtype == 0 ? reinterpret_cast<const void*>(&conv3x3_dw_kernel<float>)
-                    : reinterpret_cast<const void*>(&conv3x3_dw_kernel<__nv_bfloat16>);
-}
-
-// Number of voxel shares S: the smallest that fills the card's block slots in
+// Number of voxel shares S: from the least that keeps a block's share within
+// kMaxTilesPerBlock tiles, the first that fills the card's block slots in
 // nearly whole waves (>= 90 %), else the one that fills them best; bounded by
 // the number of tiles and by the scratch buffer. <= 0 on a CUDA error.
 int choose_splits(const Plan& p, int dtype, int Cin, int Cout) {
   int dev = 0, sms = 0, occ = 0;
+  const void* kern = kernel_for(dtype, p.NT);
   if (cudaGetDevice(&dev) != cudaSuccess) return -1;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return -1;
-  if (cudaFuncSetAttribute(kernel_for(dtype), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)p.smem) != cudaSuccess)
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem) !=
+      cudaSuccess)
     return -1;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel_for(dtype), p.threads,
-                                                    p.smem) != cudaSuccess)
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, kThreads, p.smem) != cudaSuccess)
     return -1;
   if (sms < 1 || occ < 1) return -1;
   const double slots = (double)sms * occ;
@@ -276,23 +475,27 @@ int choose_splits(const Plan& p, int dtype, int Cin, int Cout) {
   long long maxS = kScratchBytes / (27LL * Cin * Cout * (long long)sizeof(float));
   if (maxS < 1) maxS = 1;
   if (maxS > p.tiles) maxS = p.tiles;
-  const long long want = (long long)(4.0 * slots / (double)units) + 1;
-  if (maxS > want) maxS = want;
   if (maxS > 65535) maxS = 65535;
-  int bestS = 1;
+  long long minS = (p.tiles + kMaxTilesPerBlock - 1) / kMaxTilesPerBlock;
+  if (minS > maxS) minS = maxS;
+  long long bestS = minS;
   double bestEff = -1.0;
-  for (long long s = 1; s <= maxS; ++s) {
+  for (long long s = minS; s <= maxS; ++s) {
     const double waves = (double)(units * s) / slots;
     const double full = (double)(long long)(waves + 0.999999);
     const double eff = waves / (full < 1.0 ? 1.0 : full);
-    if (eff > bestEff + 1e-9) { bestEff = eff; bestS = (int)s; }
-    if (eff >= 0.9) { bestS = (int)s; break; }
+    if (eff > bestEff + 1e-9) { bestEff = eff; bestS = s; }
+    if (eff >= 0.9) { bestS = s; break; }
   }
-  return bestS;
+  return (int)bestS;
 }
 
 bool bad_shape(int B, int Z, int Y, int X, int Cin, int Cout, int dtype) {
   return B < 1 || Z < 1 || Y < 1 || X < 1 || Cin < 1 || Cout < 1 || (dtype != 0 && dtype != 1);
+}
+
+bool bad_plan(const Plan& p) {
+  return (long long)p.ciBlocks * p.coBlocks > 2147483647LL;
 }
 
 }  // namespace
@@ -303,7 +506,7 @@ bool bad_shape(int B, int Z, int Y, int X, int Cin, int Cout, int dtype) {
 extern "C" int spsg_conv3x3_dw_slices(int B, int Z, int Y, int X, int Cin, int Cout, int dtype) {
   if (bad_shape(B, Z, Y, X, Cin, Cout, dtype)) return -1;
   const Plan p = make_plan(B, Z, Y, X, Cin, Cout);
-  if (p.coBlocks > 65535 || p.ciBlocks > 65535) return -1;
+  if (bad_plan(p)) return -1;
   return choose_splits(p, dtype, Cin, Cout);
 }
 
@@ -317,25 +520,21 @@ extern "C" int spsg_conv3x3_dw_launch(const void* x, const void* dy, void* parti
                                       int slices, void* stream_ptr) {
   if (bad_shape(B, Z, Y, X, Cin, Cout, dtype)) return -1;
   const Plan p = make_plan(B, Z, Y, X, Cin, Cout);
-  if (p.coBlocks > 65535 || p.ciBlocks > 65535) return -1;
+  if (bad_plan(p)) return -1;
   if (slices < 1 || slices > p.tiles || slices > 65535) return -1;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   float* dst = static_cast<float*>(slices == 1 ? dw : partials);
-  // 16-byte (float32) / 8-byte (bfloat16) loads of four channels where rows are aligned
-  const uintptr_t quad = dtype == 0 ? 16 : 8;
-  int xvec = (Cin % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % quad == 0);
-  int dvec = (Cout % 4 == 0) && (reinterpret_cast<uintptr_t>(dy) % quad == 0);
-  int Zv = Z, Yv = Y, Xv = X, Civ = Cin, Cov = Cout;
-  int TX = p.TX, TY = p.TY, tilesX = p.tilesX, tilesY = p.tilesY, KO = p.KO, NO = p.NO;
-  long long tiles = p.tiles;
-  void* args[] = {&x,  &dy,     &dst,    &Zv,    &Yv, &Xv, &Civ,  &Cov, &TX,
-                  &TY, &tilesX, &tilesY, &tiles, &KO, &NO, &xvec, &dvec};
-  dim3 grid((unsigned)slices, (unsigned)p.ciBlocks, (unsigned)p.coBlocks);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel_for(dtype), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  const void* kern = kernel_for(dtype, p.NT);
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernel(kernel_for(dtype), grid, dim3((unsigned)p.threads), args, p.smem,
-                         stream);
+  int Zv = Z, Yv = Y, Xv = X, Civ = Cin, Cov = Cout;
+  int TX = p.TX, TY = p.TY, tilesX = p.tilesX, tilesY = p.tilesY, coBlocks = p.coBlocks;
+  long long tiles = p.tiles;
+  void* args[] = {&x,  &dy, &dst,    &Zv,     &Yv,    &Xv,       &Civ,
+                  &Cov, &TX, &TY, &tilesX, &tilesY, &tiles, &coBlocks};
+  dim3 grid((unsigned)((long long)p.ciBlocks * p.coBlocks), (unsigned)slices);
+  err = cudaLaunchKernel(kern, grid, dim3(kThreads), args, p.smem, stream);
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
