@@ -32,6 +32,18 @@ fails. Phases, each printing one JSON line:
            Cin of 1, 3 and 14). Then the full backward of both autograd
            Functions with the kernels against the same Functions with the
            plain versions inside, at the heaviest layer
+  compare_raycast
+           the raycaster's three kernels against their plain versions, on the
+           input, target and a noisy prediction grid of a make_chunk_batch with
+           frames, at a toy size (16^3, 48x32) and at the training path's
+           ((128,64,64), 320x256): the march (K4; hit and hit_idx identical up to
+           1e-4 of the pixels, alpha and depth within 1e-4 where both hit), the
+           shade (K5; identical) and the scatter (K6; within 1e-5 of each
+           gradient's largest entry, atomic adds in another order), with times:
+           kernel, plain version, a library yardstick (the gather by advanced
+           indexing for K5, index_add_ + divide for K6, none for K4), the bound
+           (bytes at 3.35 TB/s, or for K4 the lattice samples it evaluated at 50
+           float32 operations each at 67 TFLOP/s, whichever is larger)
   path     the serving path through the entry points a user calls: the
            whole-scene CLI at full width (nf_gen 20, windows (128,64,64),
            stride 32, window batch 8, colour and semantics) on one synthetic
@@ -40,7 +52,7 @@ fails. Phases, each printing one JSON line:
            outputs, IoU.txt; then one window batch with the kernels against
            the same batch with the kernels' plain versions, and a small scene
            on the GPU against the same scene on the CPU
-  train    the training path: Trainer(TrainConfig()) at full width (nf_gen 20,
+  train    the 3D-loss training path: Trainer(TrainConfig()) at full width (nf_gen 20,
            chunks (128,64,64), batch 2, Adam) on synthetic chunks with seeded
            weights, 3D losses with colour and semantics switched on: the
            forward runs all 28 eligible convs, the backward crosses 25 of them
@@ -53,9 +65,25 @@ fails. Phases, each printing one JSON line:
            (finite, parameters and running statistics move), timed; device
            time of one step by kind of kernel; a 16^3 / nf 4 step on the GPU
            against the same step on the CPU
-  kernels  one line {"kernels": [...]}: per kernel its launches on the two
-           paths and its numbers at the heaviest main-path shape, with every
-           shape and both storage types nested under "dtypes"
+  train2d  the full default training step (use_2d, use_disc: normals, three
+           raycasts, the depth chain, 2D losses, the discriminator's update and
+           the adversarial term) of Trainer(TrainConfig()) at full width (nf_gen
+           20, (128,64,64), batch 2, one 320x256 frame a chunk rendered on the
+           card, nf_disc 8, patch 96, vanilla GAN), weights as in train. Checks
+           that the step ran with its gate open (num_valid against
+           min_num_valid_2d, the discriminator stepped), the launch counters per
+           step (23 fused, 5 + 28 bare forward and dx, 28 dW: the 2D losses reach
+           the colour head; K4 3, K5 3, K6 1) and the depth chain's host reads;
+           one step against a twin with the plain convs and the plain raycaster
+           (metrics, every parameter gradient of the generator; the
+           discriminator's reported; prediction pixels whose hit differs, counted); one warm-up
+           and three timed steps (median seconds, peak memory); a validation pass
+           changes nothing; device time of one step by kind; a 16^3 / nf 4 /
+           48x32 full step on the GPU against the same step on the CPU
+  kernels  one line {"kernels": [...]}: per kernel its launches on the
+           paths and its numbers at the heaviest main-path shape (for the
+           raycaster's, the prediction grid at the path's size), with every
+           shape (and, for the convs, both storage types) nested inside
   last     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}
 
 Options (none when the script is run as the check of a checkout):
@@ -81,7 +109,14 @@ two forwards differ by float32 rounding (1e-5), which gives a few thousand of
 the 1.5e9 activations, those within rounding of 0, the other LeakyReLU slope;
 a weight gradient is a sum over N voxels of terms of either sign, of size
 sqrt(N) terms, so k flipped terms move it by sqrt(k/N): 1e-3 to 2e-3 at the
-(32,16,16) layers (N = 16384), where the largest differences are seen.
+(32,16,16) layers (N = 16384), where the largest differences are seen. Full
+step against its twin, and GPU against CPU: the 3D metrics within 1e-4 relative,
+the 2D and adversarial ones within 1e-3 (a prediction pixel whose hit flips
+between two float32 forwards moves a mean over a few thousand pixels by ~1e-4);
+against its twin also each parameter gradient of the generator within 1e-2 of
+its largest entry, as in the train step; the discriminator's are reported only
+(no hand kernel in its backward; they follow the render, whose rounding
+differs between the two forwards); GPU against CPU: reported only.
 """
 
 from __future__ import annotations
@@ -110,6 +145,7 @@ from spsg_tpu_torch.cli import test_scene_as_chunks as cli  # noqa: E402
 from spsg_tpu_torch.inference import chunked  # noqa: E402
 from spsg_tpu_torch.models.generator import use_true_float32  # noqa: E402
 from spsg_tpu_torch.ops import _build, conv3x3 as conv_ops  # noqa: E402
+from spsg_tpu_torch.ops import depth as depth_ops, raycast as rc_ops  # noqa: E402
 from spsg_tpu_torch.training import StepFlags, TrainConfig  # noqa: E402
 from spsg_tpu_torch.training import state  # noqa: E402
 from spsg_tpu_torch.training.step import Trainer  # noqa: E402
@@ -130,7 +166,14 @@ KERNELS = {
     "conv3x3": ("spsg_tpu_torch/ops/csrc/conv3x3.cu", "spsg_tpu/ops/pallas_conv.py:127"),
     "conv3x3_act_stats": ("spsg_tpu_torch/ops/csrc/conv3x3.cu", "spsg_tpu/ops/pallas_conv.py:267"),
     "conv3x3_dw": ("spsg_tpu_torch/ops/csrc/conv3x3_dw.cu", "spsg_tpu/ops/pallas_conv.py:158"),
+    # hand kernels for what the JAX package left to XLA (no Pallas kernel): the
+    # functions of spsg_tpu/ops/raycast.py they stand for
+    "raycast_march": ("spsg_tpu_torch/ops/csrc/raycast.cu", "spsg_tpu/ops/raycast.py:404"),
+    "raycast_shade": ("spsg_tpu_torch/ops/csrc/raycast.cu", "spsg_tpu/ops/raycast.py:704"),
+    "raycast_scatter": ("spsg_tpu_torch/ops/csrc/raycast.cu", "spsg_tpu/ops/raycast.py:739"),
 }
+CONV_KERNELS = ("conv3x3", "conv3x3_act_stats", "conv3x3_dw")
+RAYCAST_KERNELS = ("raycast_march", "raycast_shade", "raycast_scatter")
 # (B, Z, Y, X, Cin, Cout, on the main path?)
 TOY = (2, 4, 8, 8, 5, 6, False)
 SHAPES = [
@@ -174,6 +217,15 @@ def emit(phase, **kw):
     print(json.dumps({"phase": phase, "t": round(time.time() - T0, 1), **kw}), flush=True)
 
 
+def all_launch_counts():
+    return {**conv_ops.launch_counts, **rc_ops.launch_counts}
+
+
+def reset_all_launch_counts():
+    conv_ops.reset_launch_counts()
+    rc_ops.reset_launch_counts()
+
+
 def cuda_ms(fn, reps):
     fn()  # warm up
     torch.cuda.synchronize()
@@ -214,7 +266,7 @@ def phase_build():
         sources[n] = dict(seconds=round(info[n]["seconds"], 2), cached=info[n]["cached"],
                           library=os.path.relpath(info[n]["path"]), ptxas=kernels,
                           sass_error=hmma.get("error"))
-        if "error" not in hmma:
+        if "error" not in hmma and n in CONV_KERNELS:
             # the forward and the weight-gradient kernels run on the tensor cores in
             # every variant
             kern = f"{n}_kernel"
@@ -455,7 +507,7 @@ def compare_backward(shape, gen):
 def phase_compare():
     use_true_float32()
     gen = torch.Generator().manual_seed(0)
-    results = {k: {"float32": [], "bfloat16": []} for k in KERNELS}
+    results = {k: {"float32": [], "bfloat16": []} for k in CONV_KERNELS}
     for dtype in (torch.float32, torch.bfloat16):
         for shape in SHAPES:
             for name, rec in compare_one(shape, dtype, gen).items():
@@ -480,6 +532,160 @@ def phase_compare():
          cases=sum(len(v) for r in results.values() for v in r.values()),
          max_abs_err={name: {dt: max(c["max_abs_err"] for c in recs) for dt, recs in r.items()}
                       for name, r in results.items()})
+    return results
+
+
+# --------------------------------------------------------------------------- compare: raycaster
+# (dims (Z,Y,X), image (W,H)): a toy size, and the training path's
+RC_SHAPES = [((16, 16, 16), (48, 32), False), ((128, 64, 64), (320, 256), True)]
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+# arithmetic of one march sample: position (3 mul + 3 add), floor and weights
+# (3 floor, 3 sub, 3 sub, 16 mul), the trilinear sum (8 mul + 7 add), the test
+TRILERP_FLOPS = 50
+
+
+def to_dev(a):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+
+
+def raycast_grids(dims, image, seed):
+    """The step's three grids of a make_chunk_batch with frames (rendered on
+    the card): the input, the target and a prediction made of the target plus
+    noise (N(0, 0.5) voxels), each with its valid voxels, and the cameras."""
+    from spsg_tpu_torch.data import synthetic
+
+    b = synthetic.make_chunk_batch(2, dims, image, seed=seed, with_frames=True, device=DEV)
+    tgt = np.clip(b["target_sdf"], -3.0, 3.0)
+    noise = np.random.default_rng(seed).normal(0, 0.5, tgt.shape).astype(np.float32)
+    grids = {"input": b["input"][..., 0], "target": tgt, "prediction": tgt + noise}
+    return ({k: (to_dev(g), to_dev(np.abs(g) < 3.0)) for k, g in grids.items()},
+            to_dev(b["images_view"]), to_dev(b["images_intrinsic"]))
+
+
+def compare_march(sdf, valid, view, intr, cfg, tag):
+    """K4 against march_plain on the same ray set-up: hit and hit_idx identical
+    up to 1e-4 of the pixels, alpha and depth within 1e-4 where both hit."""
+    setup = rc_ops.march_setup(valid, view, intr, cfg)
+    got = rc_ops.march(sdf, valid, setup, cfg)
+    torch.cuda.synchronize()
+    ref = rc_ops.march_plain(sdf, valid, setup, cfg)
+    n_px = ref[0].numel()
+    hit_diff = int((got[0] != ref[0]).sum())
+    idx_diff = int((got[3] != ref[3]).sum())
+    both = got[0] & ref[0]
+    alpha_err = float((got[1] - ref[1]).abs()[both].max()) if both.any() else 0.0
+    depth_err = float((got[2] - ref[2]).abs()[both].max()) if both.any() else 0.0
+    if not (hit_diff <= 1e-4 * n_px and idx_diff <= 1e-4 * n_px and alpha_err <= 1e-4
+            and depth_err <= 1e-4):
+        raise SystemExit(f"chip_smoke: raycast_march {tag}: kernel and plain version disagree: "
+                         f"hit {hit_diff}, hit_idx {idx_diff} of {n_px} pixels, alpha "
+                         f"{alpha_err:.3e}, depth {depth_err:.3e}")
+    samples = torch.empty_like(got[3])
+    rc_ops.march(sdf, valid, setup, cfg, samples=samples)
+    n_samples = int(samples.sum()) + cfg.bisection_iters * n_px
+    B, n_vox = sdf.shape[0], sdf[0].numel()
+    # sdf and valid once, the rays' set-up (origin per batch row; direction,
+    # cam_z, t0, t_stop per ray) and the four outputs
+    nbytes = B * n_vox * 5 + B * 12 + n_px * (12 + 12) + n_px * 13
+    t_bytes, t_ops = nbytes / PEAK_BYTES, n_samples * TRILERP_FLOPS / F32_FLOPS
+    rec = dict(hits=int(got[0].sum()), hit_diff=hit_diff, hit_idx_diff=idx_diff,
+               alpha_max_abs_err=alpha_err, depth_max_abs_err=depth_err,
+               max_abs_err=max(alpha_err, depth_err), lattice_samples=n_samples,
+               samples_per_ray=n_samples / n_px,
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               ms=cuda_ms(lambda: rc_ops.march(sdf, valid, setup, cfg), 20),
+               plain_ms=cuda_ms(lambda: rc_ops.march_plain(sdf, valid, setup, cfg), 2),
+               library_ms=None)
+    return rec, got
+
+
+def compare_shade_scatter(hits, n_vox, gen, tag):
+    """K5 against shade_plain (identical) and K6 against scatter_plain (within
+    1e-5 of each output's largest entry: float32 sums of the same terms, the
+    kernel's atomic adds in another order), on random attributes and
+    cotangents, some of them not finite."""
+    hit, _, depth, hit_idx = hits
+    B, P = hit.shape
+    attrs = [torch.randn(B, n_vox, c, generator=gen).to(DEV) for c in (3, 3, 14)]
+    attrs[1][:, ::7] = 0.0  # voxels with a zero normal
+    got = rc_ops.shade(*attrs, hit, hit_idx, depth)
+    torch.cuda.synchronize()
+    ref = rc_ops.shade_plain(*attrs, hit, hit_idx, depth)
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise SystemExit(f"chip_smoke: raycast_shade {tag}: kernel and plain version differ")
+    table = torch.cat(attrs, dim=-1)
+    rows = torch.arange(B, device=DEV)[:, None]
+    n_hit = int(hit.sum())
+    # hit, hit_idx, depth per pixel, a 20-float row per hit pixel, 21 floats out
+    nbytes = B * P * 9 + n_hit * 80 + B * P * 84
+    shade_rec = dict(
+        hits=n_hit, identical=True, max_abs_err=0.0, bound_ms=nbytes / PEAK_BYTES * 1e3,
+        bound_by="bytes", ms=cuda_ms(lambda: rc_ops.shade(*attrs, hit, hit_idx, depth), 50),
+        plain_ms=cuda_ms(lambda: rc_ops.shade_plain(*attrs, hit, hit_idx, depth), 10),
+        # the gather alone, one advanced-indexing call on the packed attributes
+        library_ms=cuda_ms(lambda: table[rows, hit_idx.long()], 50))
+
+    cts = [torch.randn(B, P, c, generator=gen).to(DEV) for c in (3, 3, 14)]
+    cts.append(torch.randn(B, P, generator=gen).to(DEV))
+    cts[0][:, ::11, 0] = float("nan")
+    cts[2][:, ::13, 3] = float("inf")
+    got = rc_ops.scatter(*cts, hit, hit_idx, n_vox)
+    torch.cuda.synchronize()
+    ref = rc_ops.scatter_plain(*cts, hit, hit_idx, n_vox)
+    errs = [float((g - r).abs().max() / r.abs().max().clamp(min=1e-30)) for g, r in zip(got, ref)]
+    if not (max(errs) <= 1e-5 and all(torch.isfinite(g).all() for g in got)):
+        raise SystemExit(f"chip_smoke: raycast_scatter {tag}: kernel and plain version differ "
+                         f"by {errs} of their largest entries")
+    G = torch.cat([c.reshape(B, P, -1) for c in (cts[0], cts[1], cts[2], cts[3][..., None])]
+                  + [torch.ones(B, P, 1, device=DEV)], dim=-1)
+    G = torch.where(hit[..., None] & torch.isfinite(G), G, 0.0).reshape(-1, 22)
+    flat_rows = (rows * (n_vox + 1) + torch.where(hit, hit_idx.long(), n_vox)).reshape(-1)
+
+    def library():
+        acc = torch.zeros(B * (n_vox + 1), 22, device=DEV).index_add_(0, flat_rows, G)
+        return acc[:, :-1] / acc[:, -1:].clamp(min=1.0)
+
+    # cotangents and hit / hit_idx read once, the four gradients written once
+    nbytes = B * P * (84 + 5) + B * n_vox * 84
+    scatter_rec = dict(
+        hits=n_hit, max_rel_err=max(errs), max_abs_err=max(
+            float((g - r).abs().max()) for g, r in zip(got, ref)),
+        bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+        ms=cuda_ms(lambda: rc_ops.scatter(*cts, hit, hit_idx, n_vox), 20),
+        plain_ms=cuda_ms(lambda: rc_ops.scatter_plain(*cts, hit, hit_idx, n_vox), 5),
+        library_ms=cuda_ms(library, 20))
+    return shade_rec, scatter_rec
+
+
+def phase_compare_raycast():
+    gen = torch.Generator().manual_seed(5)
+    results = {k: [] for k in RAYCAST_KERNELS}
+    for dims, image, on_path in RC_SHAPES:
+        grids, view, intr = raycast_grids(dims, image, seed=11)
+        cfg = rc_ops.RaycastConfig(width=image[0], height=image[1])
+        n_vox = int(np.prod(dims))
+        for name, (sdf, valid) in grids.items():
+            tag = f"{name} {dims} {image}"
+            base = dict(grid=name, dims=list(dims), image=list(image), main_path=on_path)
+            rec, hits = compare_march(sdf, valid, view, intr, cfg, tag)
+            results["raycast_march"].append(dict(base, **rec))
+            shade_rec, scatter_rec = compare_shade_scatter(hits, n_vox, gen, tag)
+            results["raycast_shade"].append(dict(base, **shade_rec))
+            results["raycast_scatter"].append(dict(base, **scatter_rec))
+        del grids
+        torch.cuda.empty_cache()
+    emit("compare_raycast",
+         tolerance={"raycast_march": "hit and hit_idx identical on all but 1e-4 of the pixels; "
+                                     "alpha, depth 1e-4 where both hit",
+                    "raycast_shade": "identical",
+                    "raycast_scatter": "1e-5 of each gradient's largest entry (atomic adds in "
+                                       "another order)"},
+         summary={k: [{kk: r[kk] for kk in ("grid", "dims", "ms", "plain_ms", "library_ms",
+                                             "bound_ms", "max_abs_err")} for r in v]
+                  for k, v in results.items()},
+         march_hit_diff=sum(r["hit_diff"] for r in results["raycast_march"]),
+         march_hit_idx_diff=sum(r["hit_idx_diff"] for r in results["raycast_march"]))
     return results
 
 
@@ -534,6 +740,11 @@ def classify(key):
         return "hand_conv"
     if "reduce_partials" in k or "sum_slices" in k:
         return "hand_partial_reductions"
+    for name in RAYCAST_KERNELS:
+        if name in k:
+            return name
+    if "raycast_divide" in k:
+        return "raycast_scatter"
     if any(t in k for t in ("cudnn", "xmma", "convolve", "conv", "gemm", "cutlass", "wgrad", "dgrad")):
         return "library_conv"
     return "elementwise"
@@ -607,7 +818,7 @@ def phase_path(tmp):
     out_dir = os.path.join(tmp, "output")
     chunked.run_chunked_inference = recording_run
     torch.cuda.reset_peak_memory_stats()
-    conv_ops.reset_launch_counts()
+    reset_all_launch_counts()
     t = time.time()
     try:
         summary = cli.main(["--synthetic_scenes", "1", "--model_path", ckpt, "--output", out_dir,
@@ -615,9 +826,10 @@ def phase_path(tmp):
     finally:
         chunked.run_chunked_inference = real_run
     cli_seconds = time.time() - t
-    launches = dict(conv_ops.launch_counts)
+    launches = all_launch_counts()
 
-    want = {"conv3x3_act_stats": 23 * 4, "conv3x3": 5 * 4, "conv3x3_dw": 0}
+    want = {"conv3x3_act_stats": 23 * 4, "conv3x3": 5 * 4, "conv3x3_dw": 0,
+            "raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0}
     if launches != want:
         raise SystemExit(f"chip_smoke: launches on the main path {launches}, expected {want}")
     out = seen["out"]
@@ -723,7 +935,7 @@ def profile_train_step(trainer, batch, flags):
     dev_batch = trainer._to_device(batch)
     trainer.optimizer.zero_grad(set_to_none=True)
     with profile(activities=acts) as p_fwd:
-        loss, _ = trainer._forward_losses(dev_batch, flags)
+        loss, _, _ = trainer._forward_losses(dev_batch, flags)
         torch.cuda.synchronize()
     with profile(activities=acts) as p_bwd:
         loss.backward()
@@ -754,20 +966,14 @@ def rel_diff(a, b):
     return abs(a - b) / max(abs(b), 1e-12)
 
 
-def compare_trainers(a, b, ma, mb, metric_tol, grad_tol, what):
-    """Metrics and parameter gradients of two trainers after the same step.
-    With ``grad_tol`` None the gradients' differences are reported, not held
-    to a tolerance."""
-    if set(ma) != set(mb):
-        raise SystemExit(f"chip_smoke: {what}: metrics {sorted(ma)} vs {sorted(mb)}")
-    mdiff = {k: rel_diff(ma[k], mb[k]) for k in ma}
-    bad = {k: v for k, v in mdiff.items() if not v <= metric_tol}
-    if bad or not all(np.isfinite(float(v)) for v in ma.values()):
-        raise SystemExit(f"chip_smoke: {what}: metrics differ: {bad}, {ma} vs {mb}")
+def compare_grads(a, b, grad_tol, what, module="generator"):
+    """Parameter gradients of ``module`` of two trainers after the same step,
+    each within ``grad_tol`` of its largest entry; with ``grad_tol`` None the
+    differences are reported, not held to a tolerance."""
     reached, noise, errs = 0, [], []
-    pb = dict(b.generator.named_parameters())
+    pb = dict(getattr(b, module).named_parameters())
     largest = max(p.grad.abs().max().item() for p in pb.values())
-    for name, p in a.generator.named_parameters():
+    for name, p in getattr(a, module).named_parameters():
         g, r = p.grad.float().cpu(), pb[name].grad.float().cpu()
         scale = r.abs().max().item()
         if scale <= 1e-6 * largest:
@@ -784,14 +990,26 @@ def compare_trainers(a, b, ma, mb, metric_tol, grad_tol, what):
         errs.append((err, name))
     worst, worst_name = max(errs)
     if grad_tol is not None and not worst <= grad_tol:
-        raise SystemExit(f"chip_smoke: {what}: gradient of {worst_name} differs by {worst:.3e} "
-                         f"of its largest entry; worst five {sorted(errs)[-5:]}, median "
-                         f"{sorted(errs)[len(errs) // 2][0]:.3e}")
-    return dict(metrics_max_rel_diff=max(mdiff.values()), grad_max_rel_diff=worst,
-                grad_worst_parameter=worst_name, parameters_with_gradient=reached,
+        raise SystemExit(f"chip_smoke: {what}: gradient of {module} {worst_name} differs by "
+                         f"{worst:.3e} of its largest entry; worst five {sorted(errs)[-5:]}, "
+                         f"median {sorted(errs)[len(errs) // 2][0]:.3e}")
+    return dict(grad_max_rel_diff=worst, grad_worst_parameter=worst_name,
+                parameters_with_gradient=reached,
                 grad_median_rel_diff=sorted(errs)[len(errs) // 2][0],
                 grad_worst_five=[[n, e] for e, n in sorted(errs)[-5:]],
                 gradients_of_rounding_noise=noise)
+
+
+def compare_trainers(a, b, ma, mb, metric_tol, grad_tol, what):
+    """Metrics and the generator's parameter gradients of two trainers after
+    the same step (``grad_tol`` as in :func:`compare_grads`)."""
+    if set(ma) != set(mb):
+        raise SystemExit(f"chip_smoke: {what}: metrics {sorted(ma)} vs {sorted(mb)}")
+    mdiff = {k: rel_diff(ma[k], mb[k]) for k in ma}
+    bad = {k: v for k, v in mdiff.items() if not v <= metric_tol}
+    if bad or not all(np.isfinite(float(v)) for v in ma.values()):
+        raise SystemExit(f"chip_smoke: {what}: metrics differ: {bad}, {ma} vs {mb}")
+    return dict(metrics_max_rel_diff=max(mdiff.values()), **compare_grads(a, b, grad_tol, what))
 
 
 def centre_train_occupancy(trainer, batch):
@@ -824,20 +1042,21 @@ def phase_train():
     # (a) one step with the kernels, and the same step with the plain versions
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    conv_ops.reset_launch_counts()
+    reset_all_launch_counts()
     metrics = trainer.step(batch, full)
     torch.cuda.synchronize()
-    launches = dict(conv_ops.launch_counts)
+    launches = all_launch_counts()
     peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     twin_metrics = twin.step(batch, full)
     torch.cuda.synchronize()
     twin_peak = torch.cuda.max_memory_allocated()
-    if dict(conv_ops.launch_counts) != launches:
+    if all_launch_counts() != launches:
         raise SystemExit("chip_smoke: the plain-conv twin launched a kernel")
     # (b) launch counters of one step: 28 eligible convs forward, 25 backward (the
-    # three convs of the colour head have no loss without the 2D terms)
-    want = {"conv3x3_act_stats": 23, "conv3x3": 5 + 25, "conv3x3_dw": 25}
+    # three convs of the colour head have no loss without the 2D terms); no raycast
+    want = {"conv3x3_act_stats": 23, "conv3x3": 5 + 25, "conv3x3_dw": 25,
+            "raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0}
     if launches != want:
         raise SystemExit(f"chip_smoke: launches of one train step {launches}, expected {want}")
     rec = dict(config=dict(nf_gen=cfg.nf_gen, input_dim=list(cfg.input_dim),
@@ -879,20 +1098,21 @@ def phase_train():
                tensors_unchanged=unchanged)
 
     # geometry-only flags: the same code at a smaller depth
-    conv_ops.reset_launch_counts()
+    reset_all_launch_counts()
     torch.cuda.synchronize()
     t = time.time()
     gm = trainer.step(batch, geo)
     torch.cuda.synchronize()
     geo_seconds = time.time() - t
-    want = {"conv3x3_act_stats": 9, "conv3x3": 2 + 11, "conv3x3_dw": 11}
-    if dict(conv_ops.launch_counts) != want:
+    want = {"conv3x3_act_stats": 9, "conv3x3": 2 + 11, "conv3x3_dw": 11,
+            "raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0}
+    if all_launch_counts() != want:
         raise SystemExit(f"chip_smoke: launches of one geometry-only step "
-                         f"{conv_ops.launch_counts}, expected {want}")
+                         f"{all_launch_counts()}, expected {want}")
     if set(gm) != {"loss_occ", "iou_occ", "loss_sdf", "loss"} or not all(
             np.isfinite(float(v)) for v in gm.values()):
         raise SystemExit(f"chip_smoke: geometry-only step: {gm}")
-    for k, v in conv_ops.launch_counts.items():
+    for k, v in all_launch_counts().items():
         launches[k] += v
     rec.update(geo_only=dict(launches_per_step=want, seconds=geo_seconds,
                              metrics={k: float(v) for k, v in gm.items()}))
@@ -947,6 +1167,279 @@ def phase_train():
     return launches
 
 
+# --------------------------------------------------------------------------- train2d
+FULL_2D = dict(pred_sdf=True, pred_color=True, pred_semantic=True, use_2d=True, use_disc=True)
+# launches of one full step, from the code: the generator's 28 eligible convs
+# forward (23 fused, 5 bare), and all 28 backward now that the 2D losses reach
+# the colour head (dx by the forward kernel, dW by K2); three raycasts (input,
+# projected target, prediction), of which only the prediction's has a backward
+WANT_2D = {"conv3x3_act_stats": 23, "conv3x3": 5 + 28, "conv3x3_dw": 28,
+           "raycast_march": 3, "raycast_shade": 3, "raycast_scatter": 1}
+# the 2D and adversarial metrics of two float32 forwards part where a
+# prediction pixel's hit flips (one pixel moves a mean over a few thousand by
+# ~1e-4): those are held to 1e-3, the 3D metrics to 1e-4
+METRICS_3D = ("loss_occ", "iou_occ", "loss_sdf", "loss_semantic")
+
+
+@contextlib.contextmanager
+def plain_raycast_inside():
+    """Inside, the raycaster takes its plain versions on CUDA tensors too."""
+    saved = (rc_ops.march, rc_ops.shade, rc_ops.scatter)
+    rc_ops.march, rc_ops.shade, rc_ops.scatter = (
+        rc_ops.march_plain, rc_ops.shade_plain, rc_ops.scatter_plain)
+    try:
+        yield
+    finally:
+        rc_ops.march, rc_ops.shade, rc_ops.scatter = saved
+
+
+def recording(trainer, seen):
+    """Record the aux dict of the trainer's forward and the prediction's hits
+    (the third raycast of a step) into ``seen``."""
+    real_forward = trainer._forward_losses
+    real_find = rc_ops.find_surface_crossings
+    calls = []
+
+    def forward(batch, flags):
+        calls.clear()
+        out = real_forward(batch, flags)
+        seen["aux"] = out[2]
+        seen["pred_hit"] = calls[2]["hit"] if len(calls) > 2 else None
+        return out
+
+    def find(*a, **kw):
+        out = real_find(*a, **kw)
+        calls.append(out)
+        return out
+
+    trainer._forward_losses = forward
+    return find
+
+
+def compare_metrics(ma, mb, what):
+    if set(ma) != set(mb):
+        raise SystemExit(f"chip_smoke: {what}: metrics {sorted(ma)} vs {sorted(mb)}")
+    diffs = {k: rel_diff(ma[k], mb[k]) for k in ma}
+    bad = {k: v for k, v in diffs.items() if not v <= (1e-4 if k in METRICS_3D else 1e-3)}
+    if bad or not all(np.isfinite(float(v)) for v in ma.values()):
+        raise SystemExit(f"chip_smoke: {what}: metrics differ: {bad}; {ma} vs {mb}")
+    return diffs
+
+
+def profile_train2d_step(trainer, batch, flags):
+    """Device time of one full step by kind: the step's parts traced one after
+    the other (generator forward with the 2D block; the discriminator's step
+    and the adversarial forward; the generator's backward; its Adam), kernels
+    told apart by name; the depth chain traced alone on the same frames."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    dev_batch = trainer._to_device(batch)
+    trainer.generator.train()
+    params = list(trainer.generator.parameters())
+    with profile(activities=acts) as p_fwd:
+        loss_rest, metrics, aux = trainer._forward_losses(dev_batch, StepFlags(**flags))
+        torch.cuda.synchronize()
+    with profile(activities=acts) as p_disc:
+        gen_l = trainer._discriminator_step(StepFlags(**flags), aux, metrics, None, None)
+        total = loss_rest + trainer.cfg.weight_discgen_loss * aux["gate2d"] * gen_l
+        torch.cuda.synchronize()
+    trainer.optimizer.zero_grad(set_to_none=True)
+    with profile(activities=acts) as p_bwd:
+        total.backward(inputs=params)
+        torch.cuda.synchronize()
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    with profile(activities=acts) as p_opt:
+        trainer.optimizer.step()
+        torch.cuda.synchronize()
+    with profile(activities=acts) as p_depth:
+        depth_ops.depth_to_normals(dev_batch["images_depth"], dev_batch["images_intrinsic"],
+                                   trainer.cfg.max_depth_fill_iters)
+        torch.cuda.synchronize()
+    kinds, names = {}, {}
+    everything = {k: "discriminator" for k in ("hand_conv", "library_conv", "elementwise")}
+    for prof, rename in (
+            (p_fwd, {"hand_conv": "hand_conv_forward", "library_conv": "library_conv_forward",
+                     "elementwise": "elementwise_forward_and_losses"}),
+            (p_disc, everything),
+            (p_bwd, {"hand_conv": "hand_conv_dx", "library_conv": "library_conv_backward",
+                     "elementwise": "elementwise_backward"}),
+            (p_opt, {k: "optimizer" for k in ("hand_conv", "library_conv", "elementwise")})):
+        g, n = device_time_by_kind(prof, rename)
+        for k, v in g.items():
+            kinds[k] = kinds.get(k, 0.0) + v
+        for k, v in n.items():
+            names[k] = names.get(k, 0.0) + v
+    depth_us = sum(device_time_by_kind(p_depth, {})[0].values())
+    # the depth chain runs inside the forward: its time moves out of that kind
+    kinds["depth_chain"] = depth_us
+    kinds["elementwise_forward_and_losses"] = kinds.get("elementwise_forward_and_losses",
+                                                        0.0) - depth_us
+    return device_time_record(kinds, names, 12)
+
+
+def phase_train2d():
+    from spsg_tpu_torch.data import synthetic
+
+    cfg = TrainConfig()  # defaults: nf_gen 20, (128,64,64), batch 2, 320x256, nf_disc 8
+    t = time.time()
+    batch = synthetic.make_chunk_batch(cfg.batch_size, cfg.input_dim,
+                                       (cfg.style_width, cfg.style_height), seed=7,
+                                       with_frames=True, device=DEV)
+    frames_seconds = time.time() - t
+    batch.pop("name")
+    batch["weight_occ"] = np.float32(cfg.weight_occ_loss)
+    flags = StepFlags(**FULL_2D)
+    rec = dict(config=dict(nf_gen=cfg.nf_gen, input_dim=list(cfg.input_dim),
+                           batch_size=cfg.batch_size, image=[cfg.style_width, cfg.style_height],
+                           nf_disc=cfg.nf_disc, patch_size=cfg.patch_size,
+                           disc_loss_type=cfg.disc_loss_type, flags=FULL_2D),
+               frames_seconds=frames_seconds,
+               frame_holes=int((batch["images_depth"] == 0).sum()))
+
+    trainer = Trainer(cfg, DEV, seed=0)
+    scale_conv_weights(trainer.generator, 2.0)
+    centre_train_occupancy(trainer, batch)
+    twin = Trainer(cfg, DEV, seed=0, plain_convs=True)
+    twin.generator.load_state_dict(trainer.generator.state_dict())
+    twin.discriminator.load_state_dict(trainer.discriminator.state_dict())
+    twin.sn_state = {k: {kk: vv.clone() for kk, vv in v.items()} for k, v in trainer.sn_state.items()}
+    disc_before = {k: v.clone() for k, v in trainer.discriminator.state_dict().items()}
+
+    # (a) one step with the kernels, and the same step of a twin with the plain
+    # versions of the convs and of the raycaster
+    seen, seen_twin = {}, {}
+    find = recording(trainer, seen)
+    real_find = rc_ops.find_surface_crossings
+    reset_all_launch_counts()
+    depth_ops.reset_host_syncs()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rc_ops.find_surface_crossings = find
+    try:
+        metrics = trainer.step(batch, flags)
+        torch.cuda.synchronize()
+    finally:
+        rc_ops.find_surface_crossings = real_find
+    launches = all_launch_counts()
+    host_syncs = dict(depth_ops.host_syncs)
+    peak = torch.cuda.max_memory_allocated()
+    if launches != WANT_2D:
+        raise SystemExit(f"chip_smoke: launches of one full step {launches}, expected {WANT_2D}")
+    aux = seen["aux"]
+    gate = dict(num_valid=int(aux["num_valid"]), min_num_valid_2d=cfg.min_num_valid_2d,
+                gate2d=float(aux["gate2d"]), gate_depth=float(aux["gate_depth"]),
+                valid_patches=int(aux["valid_patches"].sum()))
+    disc_stepped = any(not torch.equal(v, disc_before[k])
+                       for k, v in trainer.discriminator.state_dict().items())
+    print(f"train2d: num_valid {gate['num_valid']} against min_num_valid_2d "
+          f"{cfg.min_num_valid_2d}, gate {gate['gate2d']}, discriminator stepped: "
+          f"{disc_stepped}", flush=True)
+    if not (gate["gate2d"] == 1.0 and disc_stepped):
+        raise SystemExit(f"chip_smoke: the full step ran with its gate closed: {gate}")
+
+    find_twin = recording(twin, seen_twin)
+    reset_all_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rc_ops.find_surface_crossings = find_twin
+    try:
+        with plain_raycast_inside():
+            twin_metrics = twin.step(batch, flags)
+        torch.cuda.synchronize()
+    finally:
+        rc_ops.find_surface_crossings = real_find
+    twin_peak = torch.cuda.max_memory_allocated()
+    if any(all_launch_counts().values()):
+        raise SystemExit(f"chip_smoke: the plain twin launched a kernel: {all_launch_counts()}")
+    pred_hit_diff = int((seen["pred_hit"] != seen_twin["pred_hit"]).sum())
+    synth, synth_twin = seen["aux"]["synth"], seen_twin["aux"]["synth"]
+    both = torch.isfinite(synth) & torch.isfinite(synth_twin)
+    synth_diff = (synth - synth_twin)[both].abs().max().item()
+    rec.update(
+        launches_per_step=launches, depth_chain_host_syncs_per_step=host_syncs,
+        gate=gate, discriminator_stepped=disc_stepped, max_memory_allocated=peak,
+        twin_max_memory_allocated=twin_peak,
+        first_step_metrics={k: float(v) for k, v in metrics.items()},
+        kernels_vs_plain_twin=dict(
+            metrics_rel_diff=compare_metrics(metrics, twin_metrics, "full step vs plain twin"),
+            prediction_hit_pixels=int(seen["pred_hit"].sum()),
+            prediction_hit_pixels_differing=pred_hit_diff, render_max_abs_diff=synth_diff,
+            # the step's backward on the card (K6 inside the prediction's raycast,
+            # the colour head's dx and dW) against autograd through the plain
+            # versions, at the train phase's tolerance and for its reason
+            generator_gradients=compare_grads(trainer, twin, 1e-2, "full step vs plain twin"),
+            # reported only: no hand kernel is in the discriminator's backward, and
+            # its gradients follow the render it is given, which the two forwards
+            # round differently (render_max_abs_diff)
+            discriminator_gradients=compare_grads(trainer, twin, None, "full step vs plain twin",
+                                                  "discriminator")))
+    if not (metrics["loss_depth"] > 0 and metrics["loss_color"] > 0 and metrics["loss_gen"] > 0):
+        raise SystemExit(f"chip_smoke: the first full step's 2D losses are degenerate: {metrics}")
+    del trainer._forward_losses, twin, synth, synth_twin, both
+    seen.clear()
+    seen_twin.clear()
+    torch.cuda.empty_cache()
+
+    # (b) one warm-up step, then three timed steps
+    trainer.step(batch, flags)
+    seconds, losses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.time()
+        m = trainer.step(batch, flags)
+        torch.cuda.synchronize()
+        seconds.append(time.time() - t)
+        losses.append({k: float(v) for k, v in m.items()})
+    finite = all(np.isfinite(v) for m in losses for v in m.values()) and all(
+        torch.isfinite(p).all() for p in list(trainer.generator.parameters())
+        + list(trainer.discriminator.parameters()))
+    if not finite or trainer.iteration != 5:
+        raise SystemExit(f"chip_smoke: full steps gave non-finite values: {losses}")
+    rec.update(seconds_per_step=sorted(seconds)[1], seconds_per_step_all=seconds,
+               max_memory_allocated_steady=torch.cuda.max_memory_allocated(),
+               losses=[m["loss"] for m in losses])
+    # a validation pass changes nothing
+    before = {k: v.clone() for k, v in trainer.generator.state_dict().items()}
+    dbefore = {k: v.clone() for k, v in trainer.discriminator.state_dict().items()}
+    vm = trainer.step(batch, StepFlags(train=False, **FULL_2D))
+    if trainer.iteration != 5 or not all(
+            torch.equal(v, before[k]) for k, v in trainer.generator.state_dict().items()) \
+            or not all(torch.equal(v, dbefore[k])
+                       for k, v in trainer.discriminator.state_dict().items()):
+        raise SystemExit("chip_smoke: the validation pass changed the model")
+    rec["validation_metrics"] = {k: float(v) for k, v in vm.items()}
+    del before, dbefore
+    rec["step_device_time"] = profile_train2d_step(trainer, batch, FULL_2D)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (c) a small full step on the GPU against the same step on the CPU
+    small = TrainConfig(input_dim=(16, 16, 16), nf_gen=4, nf_disc=4, style_width=48,
+                        style_height=32, patch_size=16, max_depth_fill_iters=8,
+                        min_num_valid_2d=10)
+    sbatch = synthetic.make_chunk_batch(2, (16, 16, 16), (48, 32), seed=1, with_frames=True,
+                                        device="cpu")
+    sbatch.pop("name")
+    sbatch["weight_occ"] = np.float32(1.0)
+    pair = {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(small, dev, seed=3)
+        scale_conv_weights(tr.generator, 2.0)
+        pair[dev] = (tr, {k: float(v) for k, v in tr.step(sbatch, flags).items()})
+    # gradients reported only, as in the train phase's small step
+    rec["small_step_gpu_vs_cpu"] = dict(
+        metrics_rel_diff=compare_metrics(pair["cuda"][1], pair["cpu"][1],
+                                         "16^3 full step, GPU vs CPU"),
+        metrics_gpu=pair["cuda"][1],
+        generator_gradients=compare_grads(pair["cuda"][0], pair["cpu"][0], None,
+                                          "16^3 full step, GPU vs CPU"))
+    emit("train2d", **rec)
+    return launches
+
+
 # --------------------------------------------------------------------------- main
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of spsg_tpu_torch on one GPU.")
@@ -962,30 +1455,43 @@ def main(argv=None):
         if src:
             BASELINE[key] = load_baseline(src, key)
     results = phase_compare()
+    rc_results = phase_compare_raycast()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as tmp:
         serve = phase_path(tmp)
     train = phase_train()
+    train2d = phase_train2d()
 
-    # the kernels of each path: serving runs the two forward kernels, training all three
-    on_path = {"serve": ("conv3x3", "conv3x3_act_stats"), "train": tuple(KERNELS)}
+    # the kernels of each path: serving runs the two forward kernels, the 3D
+    # training step all three conv kernels, the full step all six
+    on_path = {"serve": ("conv3x3", "conv3x3_act_stats"), "train": CONV_KERNELS,
+               "train2d": tuple(KERNELS)}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        head = next(r for r in results[name]["float32"]
-                    if (r["shape"], r["cin"], r["cout"]) == (list(HEAVIEST[:4]), HEAVIEST[4], HEAVIEST[5]))
-        by_path = {"serve": serve[name], "train": train[name]}
+        by_path = {"serve": serve[name], "train": train[name], "train2d": train2d[name]}
         for path, names in on_path.items():
             if name in names and by_path[path] < 1:
                 raise SystemExit(f"chip_smoke: {name} was not launched on the {path} path")
+        if name in CONV_KERNELS:
+            recs = results[name]["float32"]
+            head = next(r for r in recs if (r["shape"], r["cin"], r["cout"])
+                        == (list(HEAVIEST[:4]), HEAVIEST[4], HEAVIEST[5]))
+            measured_at = dict(shape=head["shape"], cin=head["cin"], cout=head["cout"],
+                               dtype="float32")
+            detail = dict(dtypes=results[name])
+        else:
+            recs = rc_results[name]
+            # the prediction's grid at the path's size: the one with the most work
+            head = next(r for r in recs if r["main_path"] and r["grid"] == "prediction")
+            measured_at = dict(grid="prediction", dims=head["dims"], image=head["image"],
+                               dtype="float32")
+            detail = dict(cases=recs)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
-            max_abs_err=max(r["max_abs_err"] for r in results[name]["float32"]),
+            max_abs_err=max(r["max_abs_err"] for r in recs),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
-            measured_at=dict(shape=head["shape"], cin=head["cin"], cout=head["cout"],
-                             dtype="float32"),
-            dtypes=results[name],
-        ))
+            measured_at=measured_at, **detail))
     print(smi, flush=True)  # again, so that it stands near the result whatever was printed above
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

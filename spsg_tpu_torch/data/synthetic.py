@@ -7,9 +7,8 @@ camera poses — everything the training/eval pipeline consumes — without the
 manual, SURVEY.md §4); this module is the foundation of the test pyramid and
 of ``chip_smoke.py``.
 
-``make_chunk_batch`` builds training batches of chunks without frames; the
-frames of the JAX package (``with_frames=True``, ``make_camera``) are rendered
-with the raycaster and arrive with the raycaster's port (ROADMAP.md).
+``make_chunk_batch`` builds training batches of chunks, with frames rendered
+by this package's raycaster from ``make_camera``'s cameras on request.
 
 Grid conventions match the on-disk formats (``spsg_tpu_torch.data.formats``):
 dense zyx grids, z is the up axis (reference train.py:113 ``UP_AXIS = 0``),
@@ -167,6 +166,48 @@ def make_scene(
     )
 
 
+def make_camera(
+    dims=(128, 64, 64),
+    image_dims=(320, 256),
+    seed: int = 0,
+    fov_deg: float = 60.0,
+):
+    """A camera looking at the scene centre from above/behind (a copy of the
+    JAX package's, plain numpy). Returns (cam2grid (4,4) float32, intrinsics
+    (4,) = [fx, fy, mx, my]); cam2grid is the view matrix the raycaster takes
+    (reference torch/train.py:534 + raycast_rgbd.py:77-85)."""
+    rng = np.random.default_rng(seed)
+    width, height = image_dims
+    fx = 0.5 * width / np.tan(np.radians(fov_deg) / 2)
+    fy = fx
+    intrinsics = np.array([fx, fy, width / 2.0, height / 2.0], dtype=np.float32)
+
+    target = np.array([dims[0] * 0.25, dims[1] * 0.5, dims[2] * 0.5], dtype=np.float32)
+    eye = np.array(
+        [
+            dims[0] * (0.6 + 0.3 * rng.random()),
+            dims[1] * (0.7 + 0.25 * rng.random()),
+            dims[2] * (0.7 + 0.25 * rng.random()),
+        ],
+        dtype=np.float32,
+    )
+    # camera axes in grid space: +z forward (pinhole model marches +z),
+    # +x right, +y down (image convention)
+    fwd = target - eye
+    fwd /= np.linalg.norm(fwd)
+    up_hint = np.array([-1.0, 0.0, 0.0], dtype=np.float32)  # grid z is up -> image up = -grid z
+    right = np.cross(fwd, up_hint)
+    right /= np.linalg.norm(right)
+    down = np.cross(fwd, right)
+    down /= np.linalg.norm(down)
+    cam2grid = np.eye(4, dtype=np.float32)
+    cam2grid[:3, 0] = right
+    cam2grid[:3, 1] = down
+    cam2grid[:3, 2] = fwd
+    cam2grid[:3, 3] = eye
+    return cam2grid, intrinsics
+
+
 def make_chunk_batch(
     batch_size: int = 2,
     dims=(128, 64, 64),
@@ -175,20 +216,18 @@ def make_chunk_batch(
     with_frames: bool = False,
     voxelsize: float = 0.02,
     truncation: float = 3.0,
+    device="cuda",
 ):
     """Generate a ready-to-train batch of synthetic chunks as a dict of numpy
     arrays in the layout of :mod:`spsg_tpu_torch.data.pipeline` (channel-last).
-    The same seeds give the same batch as the JAX package's function.
+    The same seeds give the same chunks as the JAX package's function.
 
-    ``with_frames`` (depth/color frames rendered from the complete TSDF) needs
-    the raycaster, which is not ported yet."""
+    With ``with_frames`` one depth and colour frame per chunk is rendered from
+    the complete TSDF with this package's raycaster on ``device`` (the GPU
+    unless the caller asks for ``"cpu"``; ``device`` is not used otherwise),
+    from :func:`make_camera`'s camera."""
     from . import pipeline
 
-    if with_frames:
-        raise NotImplementedError(
-            "make_chunk_batch(with_frames=True): frames are rendered with the raycaster, "
-            "which is not ported yet (ROADMAP.md)"
-        )
     samples = []
     for b in range(batch_size):
         scene = make_scene(dims=dims, voxelsize=voxelsize, seed=seed * 1000 + b)
@@ -206,4 +245,42 @@ def make_chunk_batch(
         )
         sample["name"] = f"synthetic_{seed}_{b}"
         samples.append(sample)
-    return pipeline.collate(samples)
+    batch = pipeline.collate(samples)
+
+    if with_frames:
+        import torch
+
+        from ..ops import raycast as raycast_mod
+        from ..training.state import resolve_device
+
+        dev = resolve_device(device)
+        cams = [make_camera(dims, image_dims, seed=seed * 1000 + b) for b in range(batch_size)]
+        views = np.stack([c[0] for c in cams])
+        intr = np.stack([c[1] for c in cams])
+        cfg = raycast_mod.RaycastConfig(
+            width=image_dims[0],
+            height=image_dims[1],
+            depth_min=0.1 / voxelsize,
+            depth_max=6.0 / voxelsize,
+            ray_increment=0.3 * truncation,
+            thresh_sample_dist=50.5 * 0.3 * truncation,
+        )
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        with torch.no_grad():
+            out = raycast_mod.raycast(
+                t(np.clip(batch["target_sdf"], -truncation, truncation)),
+                t(np.abs(batch["target_sdf"]) < truncation),
+                t(batch["target_colors"].astype(np.float32) / 255.0),
+                None, None, t(views), t(intr), cfg)
+        depth = out.depth.cpu().numpy()
+        color = out.color.cpu().numpy()
+        depth_m = np.where(np.isfinite(depth), depth * voxelsize, 0.0)
+        color = np.where(np.isfinite(color), color, 0.0)
+        batch["images_depth"] = depth_m.astype(np.float32)
+        batch["images_color"] = np.transpose(color, (0, 3, 1, 2)).astype(np.float32)
+        batch["images_view"] = views.astype(np.float32)
+        batch["images_intrinsic"] = intr.astype(np.float32)
+    return batch

@@ -14,6 +14,13 @@ kernel ``(kz, ky, kx, Cin, Cout)`` becomes PyTorch's ``weight``
 ``(Cout, Cin, kz, ky, kx)``. Both directions only transpose and copy, so the
 round trip is exact. :func:`generator_grads_to_flax` carries a module's
 gradients across under the same names, to hold them against ``jax.grad``.
+
+The discriminator half: the JAX package's ``params`` (``sn_conv_<k>`` and
+``final``, each ``{kernel (kh,kw,Cin,Cout), bias}``) and ``spectral_stats``
+(``SpectralNorm_<k>`` / ``sn_conv_<k>/kernel/{u,sigma}``) become the
+``Discriminator2D`` state_dict (``convs.<k>.{weight (Cout,Cin,kh,kw), bias}``,
+``final.{weight,bias}``) and its spectral state ``{"sn_conv_<k>": {"u",
+"sigma"}}``; ``u`` keeps its (1, Cout) shape.
 """
 
 from __future__ import annotations
@@ -88,3 +95,40 @@ def generator_grads_to_flax(generator) -> Dict:
     grads = {name: (p.grad if p.grad is not None else torch.zeros_like(p))
              for name, p in generator.named_parameters()}
     return torch_to_flax_generator(grads)["params"]
+
+
+def flax_to_torch_discriminator(params, spectral_stats=None):
+    """Discriminator ``params`` (+ ``spectral_stats``), numpy leaves ->
+    (state_dict, spectral state); the spectral state is {} without stats."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        key = "final" if name == "final" else f"convs.{int(name.rsplit('_', 1)[1])}"
+        sd[f"{key}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1))))
+        sd[f"{key}.bias"] = torch.from_numpy(np.array(p["bias"]))
+    sn = {}
+    for node in (spectral_stats or {}).values():
+        for leaf, v in node.items():
+            conv, _, what = leaf.split("/")
+            sn.setdefault(conv, {})[what] = torch.from_numpy(np.array(v, dtype=np.float32))
+    return sd, sn
+
+
+def torch_to_flax_discriminator(state_dict, sn_state=None):
+    """(Discriminator2D state_dict, spectral state) -> (``params``,
+    ``spectral_stats``) with numpy leaves, the inverse of
+    :func:`flax_to_torch_discriminator` (``SpectralNorm_<k>`` numbers the
+    spectral-normalised convs in order, as Flax names them)."""
+    params: Dict = {}
+    for key, v in state_dict.items():
+        mod, leaf = key.rsplit(".", 1)
+        name = "final" if mod == "final" else f"sn_conv_{mod.split('.')[1]}"
+        arr = v.detach().cpu().numpy()
+        params.setdefault(name, {})["kernel" if leaf == "weight" else "bias"] = (
+            np.ascontiguousarray(np.transpose(arr, (2, 3, 1, 0))) if leaf == "weight" else arr.copy())
+    stats = {}
+    for conv, node in (sn_state or {}).items():
+        k = int(conv.rsplit("_", 1)[1])
+        stats[f"SpectralNorm_{k}"] = {f"{conv}/kernel/{what}": v.detach().cpu().numpy()
+                                      for what, v in node.items()}
+    return params, stats

@@ -24,12 +24,19 @@ from typing import Dict, List, Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("conv3x3", "conv3x3_dw")
+SOURCES = ("conv3x3", "conv3x3_dw", "raycast")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# flags of one source on top of NVCC_FLAGS: the raycaster rounds a * b + c
+# twice, as its plain PyTorch version does (no fused multiply-add)
+SOURCE_FLAGS = {"raycast": ["-fmad=false"]}
+
+
+def _flags(name: str) -> List[str]:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, [])
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # per source: {"seconds": float, "ptxas": str (compiler output), "path": str,
@@ -53,7 +60,7 @@ def find_nvcc() -> str:
 def _out_path(src: str, tag: str) -> str:
     """The binary of ``src``, named by the hash of the source, of the headers
     beside it (``*.cuh``, which sources include) and of the flags."""
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1(" ".join(_flags(tag)).encode())
     folder = os.path.dirname(os.path.abspath(src))
     headers = sorted(f for f in os.listdir(folder) if f.endswith(".cuh"))
     for path in [src] + [os.path.join(folder, f) for f in headers]:
@@ -76,7 +83,7 @@ def _start_build(name: str, src: Optional[str] = None) -> Optional[dict]:
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+    cmd = [find_nvcc(), *_flags(name), "-o", tmp, src]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return {"name": name, "proc": proc, "tmp": tmp, "out": out, "t0": time.time(), "cmd": cmd}
 
@@ -115,7 +122,8 @@ def load(name: str) -> ctypes.CDLL:
 
 def build_source(src: str, tag: str) -> str:
     """Build the CUDA source at path ``src`` (any checkout's) with the
-    package's flags into ``ops/_build/lib<tag>-<hash>.so``; returns that path.
+    package's flags (and those of ``SOURCE_FLAGS[tag]``) into
+    ``ops/_build/lib<tag>-<hash>.so``; returns that path.
     For measuring another version of a kernel beside this one."""
     job = _start_build(tag, src)
     if job is not None:

@@ -1,6 +1,6 @@
-"""Generator construction, initialisation and checkpoints (PyTorch counterpart
-of ``spsg_tpu/training/state.py``). The discriminator and its optimizer arrive
-with the 2D half of the training step (ROADMAP.md)."""
+"""Generator and discriminator construction, initialisation, optimizers and
+generator checkpoints (PyTorch counterpart of ``spsg_tpu/training/state.py``).
+Checkpoints of the discriminator come with the training loop (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ from typing import Tuple
 
 import torch
 
+from ..models.discriminator import Discriminator2D, SpectralState, init_spectral_state
 from ..models.generator import Generator, GeneratorConfig, use_true_float32
 from .config import TrainConfig
 
@@ -73,6 +74,44 @@ def gen_optimizer(cfg: TrainConfig, params) -> torch.optim.Adam:
     therefore zero-fill missing gradients before ``step()`` (``Trainer.step``
     does)."""
     return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=cfg.weight_decay)
+
+
+def make_discriminator(cfg: TrainConfig, device="cuda") -> Discriminator2D:
+    """The discriminator of ``cfg`` on ``device`` (weights as ``nn.Conv2d``
+    draws them; :func:`init_discriminator` draws them as the JAX package)."""
+    device = resolve_device(device)
+    return Discriminator2D(
+        nf_in=cfg.disc_nf_in,
+        nf=cfg.nf_disc,
+        patch_size=cfg.patch_size,
+        image_dims=(cfg.style_height, cfg.style_width),
+        patch=cfg.patch_disc,
+        disc_loss_type=cfg.disc_loss_type,
+    ).to(device)
+
+
+def init_discriminator(cfg: TrainConfig, generator: torch.Generator,
+                       device="cuda") -> Tuple[Discriminator2D, SpectralState]:
+    """A discriminator with freshly drawn parameters and its spectral state:
+    conv weights U(+-sqrt(1/fan_in)) (``torch_kernel_init``), zero biases,
+    ``u`` ~ N(0, 1), ``sigma`` = 1, all from the CPU ``generator``."""
+    disc = make_discriminator(cfg, device)
+    with torch.no_grad():
+        for name, p in disc.named_parameters():
+            if p.dim() == 4:
+                bound = 1.0 / math.sqrt(p[0].numel())
+                p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator)
+                        .to(p.device))
+            else:
+                p.zero_()
+    return disc, init_spectral_state(disc, generator)
+
+
+def disc_optimizer(cfg: TrainConfig, params) -> torch.optim.Adam:
+    """Adam at ``d_lr_factor * lr`` (b1 0.9, b2 0.999, eps 1e-8) with additive
+    weight decay, as :func:`gen_optimizer` (reference train.py:157-158)."""
+    return torch.optim.Adam(params, lr=cfg.d_lr_factor * cfg.lr, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=cfg.weight_decay)
 
 

@@ -1,20 +1,38 @@
 """The train/val step (PyTorch counterpart of ``spsg_tpu/training/step.py``,
 itself a rebuild of the reference hot loop, torch/train.py:419-757).
 
-Ported so far: the part of the step that needs no raycaster, i.e. what the
-JAX package's ``Trainer._step`` does for any ``StepFlags`` with
-``use_2d=False``: generator forward, occupancy BCE, (log-)L1 SDF and 3D
-semantic cross-entropy, backward through all eligible convs (hand-written CUDA
-kernels on a CUDA device, ``ops/conv3x3.py``) and the generator's Adam step.
-That is the whole geometry-only phase of the curriculum, every run without
-frames, and the 3D semantic term. The 2D half (normals, raycasts, depth chain,
-2D losses, discriminator, style/content) raises ``NotImplementedError`` until
-it is ported (ROADMAP.md).
+One call runs, as the JAX package's ``Trainer._step`` does: generator
+forward, 3D occupancy / SDF / semantic losses and, with ``StepFlags.use_2d``,
+the 2D view-guided block: SDF-gradient normals, three raycasts (input,
+projected target, prediction; the first two without gradient, so one
+backward scatter a step), the depth chain on the target frame, depth and
+colour L1 and the 2D semantic CE. With ``use_disc`` the discriminator is
+updated on the detached render first, then the generator's adversarial loss
+is taken against the *updated* discriminator, and one backward of
+``loss_rest + weight_discgen * gate * gen_loss`` reaches the generator
+(train.py:726-732). Hand-written CUDA kernels on a card: the generator's
+convs (``ops/conv3x3.py``) and the raycaster's march, shade and scatter
+(``ops/raycast.py``).
 
-PyTorch idiom: the state lives in the generator module and its optimizer, not
-in a state object threaded through the step. The JAX package's scheduling
-options for its compiler (``step_many``, ``precompute_views``,
-``compact_resid``, ``remat``) have no counterpart here.
+The gates are the JAX package's: ``gate2d`` (every frame's depth holes
+filled) multiplies the 2D losses; ``gate2d * gate_numvalid`` (enough valid
+rendered pixels and patches) multiplies the adversarial term and predicates
+the discriminator's optimizer step, while its spectral statistics move in
+either case. Deciding that predicate reads one flag back to the host per
+step; the depth chain's early exit reads at most ``max_depth_fill_iters + 1``
+more (``ops/depth.py``). ``skip_batch_on_bad_depth`` reads one more.
+
+Not ported (each raises ``NotImplementedError``): style/content losses (need
+VGG), ``weight_missing_color > 1`` under ``use_2d`` (needs the occupancy
+raycast ``raycast_occ``), and the cached view precomputation
+(``precompute_views`` / ``cache_renders``, which go with the training loop).
+The JAX package's compiler scheduling (``step_many``, ``compact_resid``,
+``remat``, ``fuse_raycast``, ``pair_raycast``) has no counterpart: the three
+raycasts run one after the other, which is the JAX package's default.
+
+PyTorch idiom: the state lives in the modules, their optimizers and the
+discriminator's spectral state, not in a state object threaded through the
+step.
 """
 
 from __future__ import annotations
@@ -23,70 +41,147 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..data import category
+from ..losses import gan as gan_losses
 from ..losses import geo as geo_losses
 from ..losses import semantic as sem_losses
+from ..losses import twod as twod_losses
+from ..ops import depth as depth_ops
+from ..ops import normals3d
+from ..ops.raycast import RaycastConfig, raycast
 from .config import StepFlags, TrainConfig
-from .state import gen_optimizer, init_generator, resolve_device
+from .state import (
+    disc_optimizer, gen_optimizer, init_discriminator, init_generator, resolve_device)
 
-_UNPORTED_FLAGS = ("use_2d", "use_disc", "compute_style", "compute_content")
+NEG_INF = -float("inf")
+
+
+def _raycast_cfg(cfg: TrainConfig) -> RaycastConfig:
+    return RaycastConfig(
+        width=cfg.style_width,
+        height=cfg.style_height,
+        depth_min=cfg.raycast_depth_min / cfg.voxelsize,
+        depth_max=cfg.raycast_depth_max / cfg.voxelsize,
+        ray_increment=cfg.ray_increment,
+        thresh_sample_dist=cfg.thresh_sample_dist,
+        march_block=cfg.march_block,
+    )
+
+
+def _sanitize(img, fill=0.0):
+    return torch.where(torch.isfinite(img), img, fill)
+
+
+def _scale_color(x):
+    """The first three channels mapped from [0, 1] to [-1, 1]."""
+    return torch.cat([x[..., :3] * 2.0 - 1.0, x[..., 3:]], dim=-1)
 
 
 class Trainer:
-    """Owns the generator, its optimizer, the class weights and the iteration
-    count. ``seed`` draws the initial weights (``training/state.py::
-    init_generator``); ``plain_convs`` is the generator's testing hook (the
-    kernels' plain versions on any device)."""
+    """Owns the generator, the discriminator (when ``weight_disc_loss > 0``)
+    with its spectral state, their optimizers, the class weights and the
+    iteration count. ``seed`` draws the initial weights (generator first, then
+    the discriminator, from one CPU ``torch.Generator``); ``plain_convs`` is
+    the generator's testing hook (the kernels' plain versions on any
+    device)."""
 
     def __init__(self, cfg: TrainConfig, device="cuda", seed: int = 0,
                  plain_convs: bool = False):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.generator = init_generator(cfg, torch.Generator().manual_seed(seed), self.device,
-                                        plain_convs=plain_convs)
+        rng = torch.Generator().manual_seed(seed)
+        self.generator = init_generator(cfg, rng, self.device, plain_convs=plain_convs)
         self.optimizer = gen_optimizer(cfg, self.generator.parameters())
+        self.discriminator = self.disc_optimizer = None
+        self.sn_state = {}
+        if cfg.weight_disc_loss > 0:
+            self.discriminator, self.sn_state = init_discriminator(cfg, rng, self.device)
+            self.disc_optimizer = disc_optimizer(cfg, self.discriminator.parameters())
+        # the step's own randomness (the gradient penalty's alpha)
+        self.rng = torch.Generator().manual_seed(seed + 1)
         self.class_weights = torch.as_tensor(
             np.asarray(category.CLASS_WEIGHTS, np.float32), device=self.device)
         self.iteration = 0
 
     # -- public API ---------------------------------------------------------
 
-    def step(self, batch, flags: StepFlags,
-             generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    def step(self, batch, flags: StepFlags, generator: Optional[torch.Generator] = None,
+             gp_alpha=None) -> Dict[str, torch.Tensor]:
         """One train step (``flags.train``) or validation pass (eval-mode
-        BatchNorm, no update, no change of the running statistics).
+        BatchNorm, no update, no change of any state).
 
         ``batch`` is a dict of numpy arrays or tensors in the layout of
-        ``data/pipeline.py`` plus the scalar ``weight_occ``. ``generator`` is
-        the source of the step's randomness; the ported part of the step draws
-        none. Returns the metrics under the JAX package's names as 0-dim
-        tensors on the device: nothing in here waits for the device."""
-        for name in _UNPORTED_FLAGS:
-            if getattr(flags, name):
-                raise NotImplementedError(
-                    f"StepFlags.{name}: the 2D half of the train step (raycasts, 2D losses, "
-                    "discriminator, style/content) is not ported yet (ROADMAP.md)"
-                )
+        ``data/pipeline.py`` plus the scalar ``weight_occ``; with ``use_2d``
+        also ``images_depth`` (B[,F],H,W), ``images_color`` (B[,F],3,H,W),
+        ``images_view`` (B[,F],4,4) and ``images_intrinsic`` (B[,F],4).
+        ``generator`` (CPU ``torch.Generator``, default the trainer's own) draws
+        the gradient penalty's ``alpha`` (``wgan_gp``), unless ``gp_alpha``
+        (B,1,1,1) is given. Returns the metrics under the JAX package's names as
+        0-dim tensors on the device."""
+        cfg = self.cfg
+        self._check_ported(flags)
         batch = self._to_device(batch)
-        self.generator.train(flags.train)
-        with torch.set_grad_enabled(flags.train):
-            loss, metrics = self._forward_losses(batch, flags)
-        if flags.train:
+        train = flags.train
+        self.generator.train(train)
+        skip_on_depth = train and flags.use_2d and cfg.skip_batch_on_bad_depth
+        saved_buffers = ({k: v.clone() for k, v in self.generator.named_buffers()}
+                         if skip_on_depth else None)
+        with torch.set_grad_enabled(train):
+            loss_rest, metrics, aux = self._forward_losses(batch, flags)
+        gate = aux["gate2d"]
+        total_loss = loss_rest
+        if flags.use_disc and self.discriminator is not None:
+            gen_l = self._discriminator_step(flags, aux, metrics, generator, gp_alpha)
+            total_loss = loss_rest + cfg.weight_discgen_loss * gate * gen_l
+        if train:
+            params = list(self.generator.parameters())
             self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+            # the generator's parameters only: the adversarial term also reaches
+            # the discriminator's, which have taken their step already
+            total_loss.backward(inputs=params)
             # every parameter takes every step, as in the JAX package: one the
-            # loss did not reach (the colour head without 2D losses) has a
-            # zero gradient, is still decayed and still counts the step
-            for p in self.generator.parameters():
+            # loss did not reach has a zero gradient, is still decayed and
+            # still counts the step
+            for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            self.optimizer.step()
-            self.iteration += 1
-        metrics["loss"] = loss
+            if skip_on_depth and not bool(aux["gate_depth"] > 0):  # a host read
+                # the reference's whole-batch skip (train.py:539-541): no
+                # optimizer step, no running statistics, no iteration
+                with torch.no_grad():
+                    for k, v in self.generator.named_buffers():
+                        v.copy_(saved_buffers[k])
+            else:
+                self.optimizer.step()
+                self.iteration += 1
+        metrics["loss"] = total_loss
         return {k: v.detach() for k, v in metrics.items()}
 
+    def precompute_views(self, batch):
+        """The JAX package's cached view precomputation (input / target march
+        hits and the depth chain once per sample) goes with the training loop."""
+        raise NotImplementedError(
+            "precompute_views: the cached view precomputation goes with the training loop, "
+            "which is not ported yet (ROADMAP.md, Queue A item 7)")
+
     # -- internals ----------------------------------------------------------
+
+    def _check_ported(self, flags: StepFlags) -> None:
+        for name in ("compute_style", "compute_content"):
+            if getattr(flags, name):
+                raise NotImplementedError(
+                    f"StepFlags.{name}: the style/content losses need VGG, which is not "
+                    "ported yet (ROADMAP.md, Queue A item 9)")
+        if flags.use_2d and self.cfg.weight_missing_color > 1:
+            raise NotImplementedError(
+                "weight_missing_color > 1: the missing-colour weights need the occupancy "
+                "raycast (raycast_occ, kernel H3), which is not ported yet (ROADMAP.md)")
+        if flags.use_2d and self.cfg.cache_renders:
+            raise NotImplementedError(
+                "cache_renders: the cached view precomputation goes with the training "
+                "loop, which is not ported yet (ROADMAP.md, Queue A item 7)")
 
     def _to_device(self, batch):
         out = {}
@@ -99,14 +194,74 @@ class Trainer:
                 out[k] = v.to(self.device, non_blocking=True)
         return out
 
+    def _disc(self, x, sn_state, update: bool):
+        return self.discriminator(x, sn_state, update_sn_stats=update)
+
+    def _discriminator_step(self, flags, aux, metrics, generator, gp_alpha):
+        """The discriminator's losses and, in training, its update on the
+        detached render; then the generator's adversarial loss against the
+        updated discriminator (returned, differentiable in the render)."""
+        cfg = self.cfg
+        train = flags.train
+        synth = aux["synth"]
+        synth_sg = synth.detach()
+        target_img = aux["target_img"]
+        sn0 = self.sn_state
+        weighted = cfg.weight_by_percent_pixels and cfg.disc_loss_type != "hinge"
+        with torch.set_grad_enabled(train):
+            # the stored spectral state threads through the two calls
+            d_real, sn1 = self._disc(target_img, sn0, train)
+            d_fake, sn2 = self._disc(synth_sg, sn1, train)
+            real_l, fake_l = gan_losses.discriminator_loss(
+                cfg.disc_loss_type, d_real, d_fake,
+                aux["valid_patches"] if cfg.patch_disc else None,
+                None,
+                sample_weight_real=aux["sample_weight_real"] if weighted else None,
+                sample_weight_fake=aux["sample_weight_fake"] if weighted else None,
+            )
+            if cfg.disc_loss_type.startswith("wgan"):
+                dl = cfg.weight_disc_loss * 0.005 * (real_l + fake_l)
+                if cfg.disc_loss_type == "wgan_gp" and train:
+                    if gp_alpha is None:
+                        gp_alpha = torch.rand((target_img.shape[0], 1, 1, 1),
+                                              generator=generator or self.rng)
+                    alpha = torch.as_tensor(np.array(gp_alpha, dtype=np.float32)).to(self.device)
+                    # from the stored statistics, without an update
+                    penalty = gan_losses.gradient_penalty(
+                        lambda x: self._disc(x, sn0, False)[0], target_img, synth_sg, alpha)
+                    dl = dl + 10.0 * penalty
+            else:
+                dl = cfg.weight_disc_loss * (real_l + fake_l)
+        metrics["loss_disc"] = dl.detach()
+        metrics["loss_disc_real"] = real_l.detach()
+        metrics["loss_disc_fake"] = fake_l.detach()
+        if train:
+            dparams = list(self.discriminator.parameters())
+            self.disc_optimizer.zero_grad(set_to_none=True)
+            dl.backward(inputs=dparams)
+            for p in dparams:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            # the reference steps the discriminator only with enough valid
+            # pixels (train.py:662, 726-727): one host read of the gate a step
+            if bool(aux["gate2d"] > 0):
+                self.disc_optimizer.step()
+            self.sn_state = sn2
+        # against the updated parameters and statistics, without an update
+        with torch.set_grad_enabled(train):
+            d_fake_g, _ = self._disc(synth, self.sn_state, False)
+            gen_l = gan_losses.generator_loss(cfg.disc_loss_type, d_fake_g)
+        metrics["loss_gen"] = gen_l.detach()
+        return gen_l
+
     def _forward_losses(self, batch, flags: StepFlags):
-        """The 3D losses (``_forward_losses`` of the JAX package up to its 2D
-        block). Returns (loss, metrics)."""
+        """Everything but the adversarial generator term (``_forward_losses``
+        of the JAX package). Returns (loss, metrics, aux)."""
         cfg = self.cfg
         trunc = cfg.truncation
         metrics: Dict[str, torch.Tensor] = {}
 
-        occ_logits, pred_sdf, _pred_color, pred_sem = self.generator(
+        occ_logits, pred_sdf, pred_color, pred_sem = self.generator(
             batch["input"], batch["mask"], pred_color=flags.pred_color, pred_sdf=True,
             pred_semantic=flags.pred_semantic)
         occ_logits = occ_logits[..., 0]
@@ -145,4 +300,172 @@ class Trainer:
                 pred_sem, batch["semantics"], surface_pred, self.class_weights)
             loss = loss + cfg.weight_semantic_loss * loss_sem
             metrics["loss_semantic"] = loss_sem
-        return loss, metrics
+
+        zero = torch.zeros((), device=self.device)
+        aux = dict(synth=None, target_img=None, valid_patches=None, gate2d=zero,
+                   gate_depth=zero, sample_weight_real=None, sample_weight_fake=None)
+        if flags.use_2d:
+            loss2d, metrics2d, aux2d = self._2d_losses(
+                batch, flags, target_sdf, pred_sdf_g, pred_color, pred_sem, surface_pred)
+            loss = loss + loss2d
+            metrics.update(metrics2d)
+            aux.update(aux2d)
+        return loss, metrics, aux
+
+    def _2d_losses(self, batch, flags, target_sdf, pred_sdf_g, pred_color, pred_sem,
+                   surface_pred):
+        """The 2D view-guided block (reference train.py:524-752) without the
+        adversarial terms. Returns (loss2d, metrics, aux)."""
+        cfg = self.cfg
+        trunc = cfg.truncation
+        rc = _raycast_cfg(cfg)
+        metrics: Dict[str, torch.Tensor] = {}
+
+        # several frames a chunk: (B, F, ...) images flatten to a B*F frame
+        # batch and every volume repeats F times (reference RaycastRGBD
+        # max_num_frames, style.py:9-16)
+        images_depth = batch["images_depth"]
+        images_color = batch["images_color"]
+        if images_depth.dim() == 4:  # (B, F, H, W)
+            n_frames = images_depth.shape[1]
+            images_depth = images_depth.reshape((-1,) + tuple(images_depth.shape[2:]))
+            images_color = images_color.reshape((-1,) + tuple(images_color.shape[2:]))
+            view = batch["images_view"].reshape(-1, 4, 4)
+            intr = batch["images_intrinsic"].reshape(-1, 4)
+        else:
+            n_frames = 1
+            view = batch["images_view"]  # (B,4,4) cam->grid
+            intr = batch["images_intrinsic"]
+        images_color = images_color.permute(0, 2, 3, 1)  # (B*F,H,W,3)
+
+        def rep(g):
+            return g.repeat_interleave(n_frames, dim=0) if n_frames > 1 else g
+
+        target_sdf = rep(target_sdf)
+        pred_sdf_g = rep(pred_sdf_g)
+        surface_pred = rep(surface_pred)
+        if pred_color is not None:
+            pred_color = rep(pred_color)
+        if pred_sem is not None:
+            pred_sem = rep(pred_sem)
+        semantics_grid_labels = rep(batch["semantics"]) if "semantics" in batch else None
+        input_grid = rep(batch["input"])
+        target_colors255 = rep(batch["target_colors"])
+
+        images_normals, _, frames_ok = depth_ops.depth_to_normals(
+            images_depth, intr, cfg.max_depth_fill_iters)
+        # the reference skips the sample when holes remain (train.py:539-541)
+        gate2d = frames_ok.all().float()
+        view_inv_rot = torch.linalg.inv(view)[:, :3, :3]
+
+        with torch.no_grad():
+            # input grids (train.py:556-577)
+            input_sdf = input_grid[..., 0]
+            input_valid = input_sdf.abs() < trunc
+            input_normals = normals3d.surface_normals(
+                input_sdf, torch.ones_like(input_valid), view_inv_rot)
+            # target grids (train.py:579-616)
+            tgt_valid = target_sdf.abs() < trunc
+            tgt_normals = normals3d.surface_normals(target_sdf, tgt_valid, view_inv_rot)
+            if semantics_grid_labels is not None:
+                sem_onehot = F.one_hot(semantics_grid_labels.long(), 15)[..., :14].float()
+            else:
+                sem_onehot = None
+            # three separate raycasts, the input and the projected target
+            # without gradient (reference train.py:563,590,626)
+            rc_in = raycast(input_sdf, input_valid, input_grid[..., 1:4], input_normals, None,
+                            view, intr, rc)
+            rc_tgt = None
+            if cfg.project_targets:
+                rc_tgt = raycast(target_sdf, tgt_valid, target_colors255 / 255.0, tgt_normals,
+                                 sem_onehot, view, intr, rc)
+
+        # prediction grids (train.py:617-632)
+        pred_normals = normals3d.surface_normals(pred_sdf_g, surface_pred, view_inv_rot)
+        color01 = (pred_color + 1.0) * 0.5 if flags.pred_color else None
+        semantic_grid = (pred_sem if flags.pred_semantic
+                         else torch.full(pred_sdf_g.shape + (14,), 14.0, device=self.device))
+        rc_pred = raycast(pred_sdf_g, surface_pred, color01, pred_normals, semantic_grid,
+                          view, intr, rc)
+
+        normals_in = _sanitize(rc_in.normal)
+        if flags.pred_color:
+            input2d = torch.cat([_sanitize(rc_in.color * 2.0 - 1.0), normals_in], dim=-1)
+        else:
+            input2d = normals_in
+
+        target2d = target2d_label = invalid_c = None
+        if cfg.project_targets:
+            invalid_c = rc_tgt.color == NEG_INF
+            if cfg.filter_proj_tgt:
+                invalid_c = twod_losses.filter_proj_target(
+                    rc_tgt.color, cfg.color_thresh, cfg.color_space)[..., None] | invalid_c
+            t_color = torch.where(invalid_c, images_color, rc_tgt.color) * 2.0 - 1.0
+            t_norm = torch.where(rc_tgt.normal == NEG_INF, images_normals, rc_tgt.normal)
+            target2d = torch.cat([t_color, t_norm], dim=-1) if flags.pred_color else t_norm
+            if flags.pred_semantic:
+                target2d_label = sem_losses.rendered_semantic_label(rc_tgt.semantic)
+
+        # depth L1 (train.py:634-641)
+        loss_depth = twod_losses.depth_l1_loss(rc_pred.depth, images_depth, cfg.voxelsize)
+        loss2d = cfg.weight_depth_loss * gate2d * loss_depth
+        metrics["loss_depth"] = loss_depth
+
+        # colour L1 (train.py:642-648)
+        if flags.pred_color and cfg.weight_color_loss > 0:
+            loss_color = twod_losses.color_l1_loss(rc_pred.color, images_color, None)
+            loss2d = loss2d + cfg.weight_color_loss * gate2d * loss_color
+            metrics["loss_color"] = loss_color
+
+        # rendered stack and its validity (train.py:649-662)
+        raycast_stack = (torch.cat([rc_pred.color, rc_pred.normal], dim=-1) if flags.pred_color
+                         else rc_pred.normal)
+        valid_px = raycast_stack.detach() != NEG_INF
+        num_valid = valid_px.sum()
+        gate_numvalid = (num_valid > cfg.min_num_valid_2d).float()
+        valid_patches = None
+        if (self.discriminator is not None and cfg.patch_disc
+                and cfg.patch_size < cfg.style_height):
+            vp = self.discriminator.compute_valids(valid_px[..., -1:].float())
+            valid_patches = vp[..., 0] > cfg.valid_thresh
+            gate_numvalid = gate_numvalid * (valid_patches.sum() > 0).float()
+
+        # 2D semantic CE (train.py:743-747)
+        if flags.pred_semantic and not cfg.pred_3d_semantic and target2d_label is not None:
+            loss_sem2d = sem_losses.semantic_2d_loss(
+                rc_pred.semantic, target2d_label, self.class_weights)
+            loss2d = loss2d + cfg.weight_semantic_loss * gate2d * loss_sem2d
+            metrics["loss_semantic"] = loss_sem2d
+
+        # discriminator inputs (train.py:688-701)
+        synth = target_img = None
+        if flags.use_disc:
+            tgt_stack = (torch.cat([images_color, images_normals], dim=-1) if flags.pred_color
+                         else images_normals)
+            synth_r, tgt_r = twod_losses.preprocess_rendered_target_images(
+                raycast_stack, tgt_stack)
+            if flags.pred_color:
+                synth_r = _scale_color(synth_r)
+            if cfg.project_targets and target2d is not None:
+                tgt_r = target2d
+            elif flags.pred_color:
+                tgt_r = _scale_color(tgt_r)
+            synth = torch.cat([input2d, synth_r], dim=-1)
+            target_img = torch.cat([input2d, tgt_r], dim=-1).detach()
+
+        # per-sample percent-pixel weights (train.py:597-632, 705-715)
+        sample_weight_real = sample_weight_fake = None
+        if cfg.weight_by_percent_pixels:
+            if cfg.project_targets and rc_tgt is not None:
+                w = 1.0 - invalid_c[..., 0].float().mean(dim=(1, 2))
+                sample_weight_real = torch.clamp(w, 0.0, 0.3) / 0.3
+            w = (rc_pred.color[..., 0].detach() != NEG_INF).float().mean(dim=(1, 2))
+            sample_weight_fake = torch.clamp(w, 0.0, 0.3) / 0.3
+
+        aux = dict(synth=synth, target_img=target_img, valid_patches=valid_patches,
+                   # the combined gate (depth filled AND enough valid pixels), and
+                   # the depth-fill gate alone (the reference's whole-batch skip)
+                   gate2d=gate2d * gate_numvalid, gate_depth=gate2d,
+                   sample_weight_real=sample_weight_real,
+                   sample_weight_fake=sample_weight_fake, num_valid=num_valid)
+        return loss2d, metrics, aux

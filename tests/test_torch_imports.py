@@ -74,4 +74,6 @@ def test_importing_the_package_builds_nothing():
     where these tests run)."""
     from spsg_tpu_torch.ops import _build, conv3x3
     assert not conv3x3._libs and not _build._LIBS
-    assert set(_build.SOURCES) == {"conv3x3", "conv3x3_dw"}
+    from spsg_tpu_torch.ops import raycast
+    assert not raycast._libs
+    assert set(_build.SOURCES) == {"conv3x3", "conv3x3_dw", "raycast"}

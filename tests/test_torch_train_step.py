@@ -75,8 +75,11 @@ def test_synthetic_chunk_batch_is_the_jax_packages():
     for k in ref:
         if k != "name":
             assert got[k].dtype == ref[k].dtype and np.array_equal(got[k], ref[k]), k
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        synthetic.make_chunk_batch(batch_size=1, dims=DIMS, with_frames=True)
+    # frames are rendered by the port's raycaster (tests/test_torch_raycast.py)
+    framed = synthetic.make_chunk_batch(batch_size=1, dims=DIMS, image_dims=(48, 32),
+                                        with_frames=True, device="cpu")
+    assert framed["images_depth"].shape == (1, 32, 48)
+    assert framed["images_color"].shape == (1, 3, 32, 48)
 
 
 def _float64(tree):
@@ -107,7 +110,8 @@ def test_losses_and_parameter_gradients_match_jax_grad(flags):
         jgrads64 = H.to_numpy_tree(jgrads64)
 
     trainer.generator.train()
-    loss, metrics = trainer._forward_losses(trainer._to_device(batch), StepFlags(**FLAGS[flags]))
+    loss, metrics, _ = trainer._forward_losses(trainer._to_device(batch),
+                                               StepFlags(**FLAGS[flags]))
     loss.backward()
     _assert_metrics({**metrics, "loss": loss.detach()}, {**jmetrics, "loss": jloss})
     want = {"loss_occ", "iou_occ", "loss_sdf"} | ({"loss_semantic"} if flags == "full3d" else set())
@@ -238,11 +242,24 @@ def test_colour_branch_is_skipped_when_not_asked_for():
     assert ran == ["geo_3a", "encoder_0a", "decoder_3a", "semantic_head_a"]
 
 
-@pytest.mark.parametrize("flag", ["use_2d", "use_disc", "compute_style", "compute_content"])
+# what the full step still leaves out, under the flags that reach it: the
+# missing-colour weights (need raycast_occ) under use_2d, and style/content
+# (need VGG) under use_2d and on their own
+UNPORTED = {
+    "use_2d": (dict(weight_missing_color=3.0), dict(use_2d=True)),
+    "use_disc": (dict(weight_disc_loss=0.5), dict(use_2d=True, use_disc=True,
+                                                  compute_style=True)),
+    "compute_style": ({}, dict(compute_style=True)),
+    "compute_content": ({}, dict(compute_content=True)),
+}
+
+
+@pytest.mark.parametrize("flag", list(UNPORTED))
 def test_unported_flags_raise(flag):
-    trainer = Trainer(TrainConfig(**TINY), device="cpu")
+    cfg_kw, flags = UNPORTED[flag]
+    trainer = Trainer(TrainConfig(**{**TINY, **cfg_kw}), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.step(_numpy_batch(), StepFlags(**{flag: True}))
+        trainer.step(_numpy_batch(), StepFlags(**flags))
     assert trainer.iteration == 0
 
 
