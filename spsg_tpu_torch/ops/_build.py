@@ -57,10 +57,11 @@ def find_nvcc() -> str:
     )
 
 
-def _out_path(src: str, tag: str) -> str:
+def _out_path(src: str, tag: str, flags: Optional[List[str]] = None) -> str:
     """The binary of ``src``, named by the hash of the source, of the headers
-    beside it (``*.cuh``, which sources include) and of the flags."""
-    h = hashlib.sha1(" ".join(_flags(tag)).encode())
+    beside it (``*.cuh``, which sources include) and of the flags (those of
+    ``tag`` unless given)."""
+    h = hashlib.sha1(" ".join(_flags(tag) if flags is None else flags).encode())
     folder = os.path.dirname(os.path.abspath(src))
     headers = sorted(f for f in os.listdir(folder) if f.endswith(".cuh"))
     for path in [src] + [os.path.join(folder, f) for f in headers]:
@@ -74,16 +75,19 @@ def _paths(name: str):
     return src, _out_path(src, name)
 
 
-def _start_build(name: str, src: Optional[str] = None) -> Optional[dict]:
-    """Start nvcc for one source (``csrc/<name>.cu`` unless ``src`` is given);
-    None if its binary is already there."""
-    src, out = _paths(name) if src is None else (src, _out_path(src, name))
+def _start_build(name: str, src: Optional[str] = None,
+                 flags: Optional[List[str]] = None) -> Optional[dict]:
+    """Start nvcc for one source (``csrc/<name>.cu`` unless ``src`` is given,
+    with the flags of ``name`` unless ``flags`` are); None if its binary is
+    already there."""
+    flags = _flags(name) if flags is None else flags
+    src, out = _paths(name) if src is None else (src, _out_path(src, name, flags))
     if os.path.isfile(out):
         BUILD_INFO.setdefault(name, {"seconds": 0.0, "ptxas": "", "path": out, "cached": True})
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *_flags(name), "-o", tmp, src]
+    cmd = [find_nvcc(), *flags, "-o", tmp, src]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return {"name": name, "proc": proc, "tmp": tmp, "out": out, "t0": time.time(), "cmd": cmd}
 
@@ -120,15 +124,16 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def build_source(src: str, tag: str) -> str:
+def build_source(src: str, tag: str, source: Optional[str] = None) -> str:
     """Build the CUDA source at path ``src`` (any checkout's) with the
-    package's flags (and those of ``SOURCE_FLAGS[tag]``) into
-    ``ops/_build/lib<tag>-<hash>.so``; returns that path.
-    For measuring another version of a kernel beside this one."""
-    job = _start_build(tag, src)
+    package's flags for ``csrc/<source>.cu`` (``tag`` unless given: its
+    ``SOURCE_FLAGS``) into ``ops/_build/lib<tag>-<hash>.so``; returns that
+    path. For measuring another version of a kernel beside this one."""
+    flags = _flags(tag if source is None else source)
+    job = _start_build(tag, src, flags)
     if job is not None:
         _finish_build(job)
-    return _out_path(src, tag)
+    return _out_path(src, tag, flags)
 
 
 _SASS_FN = re.compile(r"Function : (\S+)")

@@ -21,22 +21,31 @@ attributes into per-view images, with the JAX package's semantics:
 Three hand-written CUDA kernels (``csrc/raycast.cu``) carry it on a card; none
 replaces a Pallas kernel (the JAX package left the raycaster to XLA):
 
-  * :func:`march` (K4, ``raycast_march_kernel``): one thread per ray walks the
-    lattice to its first crossing, bisects and picks the nearest voxel. The
-    lockstep loop of the JAX package, translated op for op, would read an
-    "any ray alive" flag back to the host at every iteration;
+  * :func:`march` (K4, ``raycast_march_map_kernel`` + ``raycast_march_kernel``):
+    a pre-pass marks every fully valid cell with a bit and every 8^3 coarse
+    block that holds one with a flag (:func:`coarse_blocks_plain`); then one
+    thread per ray (a warp an 8x4 pixel tile) walks the lattice to its first
+    crossing, loading corners (from ``sdf`` alone) only for samples whose cell
+    is fully valid, bisects and picks the nearest voxel. The lockstep loop of
+    the JAX package, translated op for op, would read an "any ray alive" flag
+    back to the host at every iteration;
   * :func:`shade` (K5, ``raycast_shade_kernel``): the gather of the forward;
-  * :func:`scatter` (K6, ``raycast_scatter_kernel`` + ``raycast_divide_kernel``):
-    the averaged scatter of the backward.
+  * :func:`scatter` (K6, ``raycast_scatter_zero_kernel``,
+    ``raycast_scatter_kernel``, ``raycast_scatter_finalize_kernel``): the
+    averaged scatter of the backward: the first pixel to hit a voxel owns it,
+    every pixel of the voxel adds into the owner's row, and one pass over the
+    voxels writes each gradient once, divided by the count.
 
 Each has its plain PyTorch version beside it (``*_plain``). Dispatch is by
 where the tensors live and by nothing else: a CUDA tensor launches the kernel
 or raises, a CPU tensor takes the plain version. The ray set-up (camera rays,
 the box of valid voxels, ``t0``, ``t_stop``) is shared PyTorch code that both
-consume. Of the JAX package's march schedules (coarse skip, straggler and
-cross-batch compaction, batch groups) only the plain march is here: its tests
-hold the others bit-identical to it. Their fields of the JAX package's
-``RaycastConfig`` have no counterpart in :class:`RaycastConfig`.
+consume. Of the JAX package's march schedules, K4 has the coarse skip (with
+the block edge fixed at the JAX package's default of 8) and the plain march
+has none; straggler and cross-batch compaction and batch groups are not
+here. The JAX package's tests hold each of them bit-identical to its plain
+march, and the fields that steer them have no counterpart in
+:class:`RaycastConfig`.
 """
 
 from __future__ import annotations
@@ -55,6 +64,10 @@ NUM_CLASSES = 14
 # gradient channels of the scatter: colour 3, normal 3, semantic 14, depth 1;
 # then the count of hitting pixels
 N_GRAD = 3 + 3 + NUM_CLASSES + 1
+# edge in voxels of K4's coarse blocks (kEdge in csrc/raycast.cu)
+COARSE_BLOCK = 8
+# floats in K6's per-pixel row of sums: 21 channels, the count, padding (kRow)
+SCATTER_ROW = 24
 
 # launches of each kernel by its wrapper (and by nothing else)
 launch_counts = {"raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0}
@@ -204,18 +217,22 @@ def march_setup(valid, view, intrinsics, cfg: RaycastConfig) -> MarchSetup:
 # ---------------------------------------------------------------------------
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Argument types of a library built from ``csrc/raycast.cu``."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.spsg_raycast_march.restype = i
+    lib.spsg_raycast_march.argtypes = [p] * 15 + [i] * 6 + [f, f, i, i, p]
+    lib.spsg_raycast_shade.restype = i
+    lib.spsg_raycast_shade.argtypes = [p] * 10 + [i] * 3 + [p]
+    lib.spsg_raycast_scatter.restype = i
+    lib.spsg_raycast_scatter.argtypes = [p] * 11 + [i] * 3 + [p]
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     lib = _libs.get("raycast")
     if lib is None:
-        lib = _build.load("raycast")
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.spsg_raycast_march.restype = i
-        lib.spsg_raycast_march.argtypes = [p] * 12 + [i] * 5 + [f, f, i, i, p]
-        lib.spsg_raycast_shade.restype = i
-        lib.spsg_raycast_shade.argtypes = [p] * 10 + [i] * 3 + [p]
-        lib.spsg_raycast_scatter.restype = i
-        lib.spsg_raycast_scatter.argtypes = [p] * 11 + [i] * 3 + [p]
-        _libs["raycast"] = lib
+        lib = _libs["raycast"] = _bind(_build.load("raycast"))
     return lib
 
 
@@ -261,19 +278,27 @@ def _check_grid(sdf, valid):
 
 
 def march(sdf: torch.Tensor, valid: torch.Tensor, setup: MarchSetup, cfg: RaycastConfig,
-          samples: Optional[torch.Tensor] = None):
+          samples: Optional[torch.Tensor] = None, evaluated: Optional[torch.Tensor] = None):
     """First surface crossing of every ray: (hit (B,P) bool, alpha (B,P) ray
     length, depth (B,P) camera z, hit_idx (B,P) int32 flat voxel index of the
     nearest voxel). CUDA tensors go to the kernel, CPU tensors to
-    :func:`march_plain`. No gradient. On a card, an int32 (B,P) ``samples``
-    receives the lattice samples each ray evaluated (to measure the work)."""
+    :func:`march_plain`. No gradient. On a card, int32 (B,P) ``samples`` and
+    ``evaluated`` receive, per ray, the lattice index at exit (the samples a
+    march without the coarse skip evaluates) and the samples that loaded
+    corners (to measure the work; :func:`march_work_plain` counts both)."""
     _check_grid(sdf, valid)
     if _device_kind(sdf, "raycast_march") == "cpu":
         return march_plain(sdf, valid, setup, cfg)
     B, Z, Y, X = sdf.shape
     P = setup.t0.shape[1]
+    if P % cfg.width:
+        raise ValueError(f"raycast_march: {P} rays a row is not a multiple of width {cfg.width}")
     _check_cuda("raycast_march", sdf, valid, *setup)
     dev = sdf.device
+    nb = _coarse_dims(Z, Y, X)
+    blocks = torch.empty((B,) + nb, dtype=torch.uint8, device=dev)
+    # per block, its cells' bits (COARSE_BLOCK^3 of them) in int32 words
+    cells = torch.empty((B,) + nb + (COARSE_BLOCK ** 3 // 32,), dtype=torch.int32, device=dev)
     hit = torch.empty((B, P), dtype=torch.bool, device=dev)
     alpha = torch.empty((B, P), dtype=torch.float32, device=dev)
     depth = torch.empty((B, P), dtype=torch.float32, device=dev)
@@ -281,12 +306,45 @@ def march(sdf: torch.Tensor, valid: torch.Tensor, setup: MarchSetup, cfg: Raycas
     with torch.cuda.device(dev):
         err = _library().spsg_raycast_march(
             sdf.data_ptr(), valid.data_ptr(), *(t.data_ptr() for t in setup),
+            blocks.data_ptr(), cells.data_ptr(),
             hit.data_ptr(), alpha.data_ptr(), depth.data_ptr(), hit_idx.data_ptr(),
-            _ptr(samples), B, Z, Y, X, P, cfg.ray_increment, cfg.thresh_sample_dist, cfg.max_samples,
-            cfg.bisection_iters, _stream(sdf))
+            _ptr(samples), _ptr(evaluated), B, Z, Y, X, P, cfg.width, cfg.ray_increment,
+            cfg.thresh_sample_dist, cfg.max_samples, cfg.bisection_iters, _stream(sdf))
     _raise_on(err, "raycast_march", sdf.shape)
     launch_counts["raycast_march"] += 1
     return hit, alpha, depth, hit_idx
+
+
+def _coarse_dims(Z, Y, X):
+    return tuple(-(-n // COARSE_BLOCK) for n in (Z, Y, X))
+
+
+def _cell_ok(sdf, valid):
+    """(B, Z-1, Y-1, X-1): the cell at each base corner is fully valid (all 8
+    corners valid and finite)."""
+    ok = valid & torch.isfinite(sdf)
+    cell = ok[:, :-1, :-1, :-1].clone()
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                cell &= ok[:, dz:dz + ok.shape[1] - 1, dy:dy + ok.shape[2] - 1,
+                           dx:dx + ok.shape[3] - 1]
+    return cell
+
+
+def coarse_blocks_plain(sdf, valid):
+    """Plain PyTorch version of K4's block map: (B, nbz, nby, nbx) bool, a
+    block of COARSE_BLOCK^3 cells (by base corner; ceil(dim / COARSE_BLOCK)
+    blocks an axis) holds a fully valid cell. A lattice sample whose cell lies
+    in a block without one is NaN, so the kernel loads nothing for it (the
+    JAX package's build_block_windows of its cell_ok)."""
+    _check_grid(sdf, valid)
+    B, Z, Y, X = sdf.shape
+    nb = _coarse_dims(Z, Y, X)
+    e = COARSE_BLOCK
+    cell = torch.zeros((B,) + tuple(n * e for n in nb), dtype=torch.bool, device=sdf.device)
+    cell[:, :Z - 1, :Y - 1, :X - 1] = _cell_ok(sdf, valid)
+    return cell.reshape(B, nb[0], e, nb[1], e, nb[2], e).any(dim=6).any(dim=4).any(dim=2)
 
 
 def _flat_index(ix, iy, iz, dims):
@@ -410,6 +468,68 @@ def march_plain(sdf, valid, setup: MarchSetup, cfg: RaycastConfig):
     return hit, alpha, alpha * cam_z, idx.to(torch.int32)
 
 
+def march_work_plain(sdf, valid, setup: MarchSetup, cfg: RaycastConfig):
+    """The march's work per ray, counted in plain PyTorch on the lattice of
+    :func:`march_plain` (any device; a host read a round): ``samples``, the
+    lattice index at exit (k = 0 included: the crossing's k + 1, or the first
+    k beyond ``t_stop`` or the cap), which is what K4 writes to ``samples``;
+    ``in_blocks``, of those the samples whose cell lies in the grid in a
+    coarse block with a fully valid cell (:func:`coarse_blocks_plain`);
+    ``fully_valid``, of those the samples whose cell is fully valid, the
+    least any march must interpolate and what K4 writes to ``evaluated``.
+    Each (B,P) int64."""
+    _check_grid(sdf, valid)
+    B, Z, Y, X = sdf.shape
+    dims = (Z, Y, X)
+    dev = sdf.device
+    sdf_flat = sdf.reshape(B, -1)
+    valid_flat = valid.reshape(B, -1)
+    cell_ok = _cell_ok(sdf, valid).reshape(B, -1)
+    occ = coarse_blocks_plain(sdf, valid).reshape(B, -1)
+    nbz, nby, nbx = _coarse_dims(Z, Y, X)
+    origin, direction, _, t0, t_stop = setup
+    P = t0.shape[1]
+    ox, oy, oz = (origin[:, None, i, None] for i in range(3))
+    dx, dy, dz = (direction[..., i, None] for i in range(3))
+    step = cfg.ray_increment
+    F_ = cfg.march_block
+    rows = torch.arange(B, device=dev)[:, None, None]
+    samples = torch.zeros((B, P), dtype=torch.int64, device=dev)
+    in_blocks = torch.zeros_like(samples)
+    fully_valid = torch.zeros_like(samples)
+    done = torch.zeros((B, P), dtype=torch.bool, device=dev)
+    prev = torch.full((B, P), float("nan"), device=dev)
+    k0 = 0
+    while not bool(done.all()):
+        ks = torch.arange(k0, k0 + F_, device=dev)
+        t = t0[..., None] + ks.to(torch.float32) * step
+        px, py, pz = ox + t * dx, oy + t * dy, oz + t * dz
+        v = _trilerp(sdf_flat, valid_flat, px, py, pz, dims)[0]
+        ix, iy, iz = (torch.floor(q).to(torch.int64) for q in (px, py, pz))
+        inb = (ix >= 0) & (iy >= 0) & (iz >= 0) & (ix < X - 1) & (iy < Y - 1) & (iz < Z - 1)
+        ix, iy, iz = (torch.where(inb, q, 0) for q in (ix, iy, iz))
+        blk = ((iz // COARSE_BLOCK) * nby + iy // COARSE_BLOCK) * nbx + ix // COARSE_BLOCK
+        in_blk = inb & occ[rows, blk]
+        full = inb & cell_ok[rows, (iz * (Y - 1) + iy) * (X - 1) + ix]
+        prev_v = torch.cat([prev[..., None], v[..., :-1]], dim=-1)
+        crossing = ((ks <= cfg.max_samples) & (t <= t_stop[..., None]) & (prev_v * v < 0)
+                    & ((prev_v - v).abs() < cfg.thresh_sample_dist)
+                    & (v.abs() < cfg.thresh_sample_dist))
+        ends = (ks >= 1) & (crossing | ~(t <= t_stop[..., None]) | (ks > cfg.max_samples))
+        first = torch.argmax(ends.to(torch.uint8), dim=-1, keepdim=True)
+        exit_k = ks[first[..., 0]] + torch.gather(crossing, -1, first)[..., 0].long()
+        newly = ends.any(dim=-1) & ~done
+        limit = torch.where(done, -1, torch.where(newly, exit_k, k0 + F_))
+        counted = ks < limit[..., None]
+        in_blocks += (in_blk & counted).sum(dim=-1)
+        fully_valid += (full & counted).sum(dim=-1)
+        samples = torch.where(newly, exit_k, samples)
+        done |= newly
+        prev = v[..., -1]
+        k0 += F_
+    return dict(samples=samples, in_blocks=in_blocks, fully_valid=fully_valid)
+
+
 def find_surface_crossings(sdf, valid, view, intrinsics, cfg: RaycastConfig):
     """Non-differentiable surface search: dict of per-pixel ``hit`` (B,P)
     bool, ``alpha`` (B,P) ray length, ``depth`` (B,P) camera z and
@@ -483,8 +603,9 @@ def scatter(g_color, g_normal, g_semantic, g_depth, hit, hit_idx, n_voxels: int)
     counts as 0) and a count of 1 into its voxel, in float32; each voxel's sums
     are divided by max(count, 1). Returns (d_sdf (B,N), d_color (B,N,3),
     d_normal (B,N,3), d_semantic (B,N,14)). CUDA tensors go to the kernels
-    (atomic adds: not bitwise repeatable), CPU tensors to
-    :func:`scatter_plain`."""
+    (atomic adds into a row of the pixel that owns the voxel, then every
+    gradient written once, divided by the count: not bitwise repeatable), CPU
+    tensors to :func:`scatter_plain`."""
     if _device_kind(hit, "raycast_scatter") == "cpu":
         return scatter_plain(g_color, g_normal, g_semantic, g_depth, hit, hit_idx, n_voxels)
     B, P = hit.shape
@@ -493,7 +614,10 @@ def scatter(g_color, g_normal, g_semantic, g_depth, hit, hit_idx, n_voxels: int)
         if g is not None and g.dtype != torch.float32:
             raise TypeError(f"raycast_scatter: float32 cotangents, got {g.dtype}")
     dev = hit.device
-    acc = torch.zeros((B, n_voxels, N_GRAD + 1), device=dev)
+    # zeroed by the kernels: a slot per voxel (its owner pixel), rounded up to
+    # 16 bytes, then a row of 24 floats per pixel (the sums of the voxel it owns)
+    scratch = torch.empty(-(-B * n_voxels // 4) * 4 + B * P * SCATTER_ROW, dtype=torch.int32,
+                          device=dev)
     d_sdf = torch.empty((B, n_voxels), device=dev)
     d_c = torch.empty((B, n_voxels, 3), device=dev)
     d_n = torch.empty((B, n_voxels, 3), device=dev)
@@ -501,7 +625,7 @@ def scatter(g_color, g_normal, g_semantic, g_depth, hit, hit_idx, n_voxels: int)
     with torch.cuda.device(dev):
         err = _library().spsg_raycast_scatter(
             _ptr(g_color), _ptr(g_normal), _ptr(g_semantic), _ptr(g_depth),
-            hit.data_ptr(), hit_idx.data_ptr(), acc.data_ptr(), d_sdf.data_ptr(),
+            hit.data_ptr(), hit_idx.data_ptr(), scratch.data_ptr(), d_sdf.data_ptr(),
             d_c.data_ptr(), d_n.data_ptr(), d_s.data_ptr(), B, n_voxels, P, _stream(hit))
     _raise_on(err, "raycast_scatter", hit.shape)
     launch_counts["raycast_scatter"] += 1
