@@ -39,7 +39,10 @@ fails. Phases, each printing one JSON line:
            ((128,64,64), 320x256): the march (K4; hit, hit_idx, alpha and depth
            identical to the bit on every pixel, and its count of its work,
            per ray the lattice index at exit and the samples that loaded
-           corners, equal to march_work_plain's), the shade (K5; identical)
+           corners, equal to march_work_plain's), the shade (K5; identical to
+           the bit, also on a ragged pixel count, the training step's input
+           grid (semantic None, timed too), every attribute None, NaN and
+           +-inf attributes, a row without a hit and a row of hits)
            and the scatter (K6; within 1e-5 of each gradient's largest entry,
            atomic adds in another order; also with every hit pixel on 8
            voxels), with device times (the calls queued behind a spin of the
@@ -49,7 +52,9 @@ fails. Phases, each printing one JSON line:
            3.35 TB/s; for K4 the larger of that and the lattice samples up to
            the exit whose cell is fully valid, plus the bisections, at 50
            float32 operations each at 67 TFLOP/s, counted by march_work_plain;
-           the earlier bound, every lattice sample up to the exit, beside it)
+           the earlier bound, every lattice sample up to the exit, beside it;
+           for K5 the rows of the voxels hit, each once; a row for each hit
+           pixel, the earlier count, beside it)
   path     the serving path through the entry points a user calls: the
            whole-scene CLI at full width (nf_gen 20, windows (128,64,64),
            stride 32, window batch 8, colour and semantics) on one synthetic
@@ -98,9 +103,10 @@ Options (none when the script is run as the check of a checkout):
            K1 / K3 timed at every shape in turns with this one (baseline, this,
            this, baseline) through the same wrapper; "baseline_ms" per record
   --baseline-dw-source PATH  the same for csrc/conv3x3_dw.cu and K2
-  --baseline-raycast-source PATH  the same for csrc/raycast.cu, K4 and K6 (a
-           version with the dense-accumulator C interface, called as its
-           wrappers did), at the path's shape; "baseline_ms" per record
+  --baseline-raycast-source PATH  the same for csrc/raycast.cu, K4, K5 and K6
+           (a version with the C interface ops/raycast.py::_bind declares, run
+           through the same wrappers), at the path's shape; "baseline_ms" per
+           record
 
 Tolerances. float32: |kernel - plain| <= 1e-4 on unit-variance outputs (both
 accumulate in float32, in different orders; the forward kernel's 3xTF32
@@ -290,11 +296,10 @@ def phase_build():
 
 def load_baseline(src, key):
     """The library of another version of csrc/<key>.cu, built with the same
-    flags and bound like the package's own (the raycaster's: the
-    dense-accumulator C interface, called through adapters of its wrappers)."""
+    flags and bound like the package's own."""
     t = time.time()
     bind = {"conv3x3": conv_ops._bind_conv, "conv3x3_dw": conv_ops._bind_dw,
-            "raycast": bind_dense_acc_raycast}[key]
+            "raycast": rc_ops._bind}[key]
     lib = bind(ctypes.CDLL(_build.build_source(src, f"{key}_baseline", key)))
     emit("baseline", kernel=key, source=src, seconds=round(time.time() - t, 2))
     return lib
@@ -554,45 +559,18 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # arithmetic of one march sample: position (3 mul + 3 add), floor and weights
 # (3 floor, 3 sub, 3 sub, 16 mul), the trilinear sum (8 mul + 7 add), the test
 TRILERP_FLOPS = 50
-def bind_dense_acc_raycast(lib):
-    """Argument types of the dense-accumulator csrc/raycast.cu (the first
-    version of these kernels): its march takes no scratch, no count of
-    evaluated samples and no width; its scatter a zeroed float32 (B, N, 22)
-    accumulator."""
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.spsg_raycast_march.restype = i
-    lib.spsg_raycast_march.argtypes = [p] * 12 + [i] * 5 + [f, f, i, i, p]
-    lib.spsg_raycast_scatter.restype = i
-    lib.spsg_raycast_scatter.argtypes = [p] * 11 + [i] * 3 + [p]
-    return lib
-
-
-def baseline_march(sdf, valid, setup, cfg):
-    """The baseline's march, allocated and called as its wrapper did."""
-    B, Z, Y, X = sdf.shape
-    P = setup.t0.shape[1]
-    out = (torch.empty((B, P), dtype=torch.bool, device=DEV), torch.empty((B, P), device=DEV),
-           torch.empty((B, P), device=DEV), torch.empty((B, P), dtype=torch.int32, device=DEV))
-    err = BASELINE["raycast"].spsg_raycast_march(
-        sdf.data_ptr(), valid.data_ptr(), *(t.data_ptr() for t in setup),
-        *(o.data_ptr() for o in out), None, B, Z, Y, X, P, cfg.ray_increment,
-        cfg.thresh_sample_dist, cfg.max_samples, cfg.bisection_iters, rc_ops._stream(sdf))
-    rc_ops._raise_on(err, "baseline raycast_march", sdf.shape)
-    return out
-
-
-def baseline_scatter(g_color, g_normal, g_sem, g_depth, hit, hit_idx, n_vox):
-    """The baseline's scatter, allocated and called as its wrapper did."""
-    B, P = hit.shape
-    acc = torch.zeros((B, n_vox, rc_ops.N_GRAD + 1), device=DEV)
-    out = (torch.empty((B, n_vox), device=DEV), torch.empty((B, n_vox, 3), device=DEV),
-           torch.empty((B, n_vox, 3), device=DEV), torch.empty((B, n_vox, 14), device=DEV))
-    err = BASELINE["raycast"].spsg_raycast_scatter(
-        *(rc_ops._ptr(g) for g in (g_color, g_normal, g_sem, g_depth)), hit.data_ptr(),
-        hit_idx.data_ptr(), acc.data_ptr(), *(o.data_ptr() for o in out), B, n_vox, P,
-        rc_ops._stream(hit))
-    rc_ops._raise_on(err, "baseline raycast_scatter", hit.shape)
-    return out
+def on_raycast_library(fn, lib):
+    """``fn`` run with the raycaster's wrappers on another build ``lib`` of
+    raycast.cu (its C interface the one ops/raycast.py::_bind declares)."""
+    def run():
+        rc_ops._library()  # the package's own, loaded before it is swapped out
+        saved = rc_ops._libs["raycast"]
+        rc_ops._libs["raycast"] = lib
+        try:
+            return fn()
+        finally:
+            rc_ops._libs["raycast"] = saved
+    return run
 
 
 def device_ms(fn, reps):
@@ -716,9 +694,9 @@ def compare_march(sdf, valid, view, intr, cfg, tag, on_path):
     fn = (lambda: rc_ops.march(sdf, valid, setup, cfg))
     baseline = None
     if "raycast" in BASELINE:
-        rec["baseline_diffs"] = march_diffs(baseline_march(sdf, valid, setup, cfg), ref)
+        rec["baseline_diffs"] = march_diffs(on_raycast_library(fn, BASELINE["raycast"])(), ref)
         if on_path:
-            baseline = (lambda: baseline_march(sdf, valid, setup, cfg))
+            baseline = on_raycast_library(fn, BASELINE["raycast"])
     time_in_turns(fn, baseline, 20, rec)
     if on_path:
         rec["kernels_ms"] = kernel_split_ms(fn)
@@ -758,40 +736,92 @@ def compare_scatter(cts, hit, hit_idx, n_vox, tag, on_path):
         plain_ms=cuda_ms(lambda: rc_ops.scatter_plain(*cts, hit, hit_idx, n_vox), 5),
         library_ms=device_ms(library, 20))
     fn = (lambda: rc_ops.scatter(*cts, hit, hit_idx, n_vox))
-    baseline = None
-    if "raycast" in BASELINE and on_path:
-        baseline = (lambda: baseline_scatter(*cts, hit, hit_idx, n_vox))
+    baseline = (on_raycast_library(fn, BASELINE["raycast"])
+                if "raycast" in BASELINE and on_path else None)
     time_in_turns(fn, baseline, 20, rec)
     if on_path:
         rec["kernels_ms"] = kernel_split_ms(fn)
     return rec
 
 
-def compare_shade_scatter(hits, n_vox, gen, tag, on_path):
-    """K5 against shade_plain (identical) and K6 against scatter_plain, on
-    random attributes and cotangents, some of them not finite: once on the
-    march's hits, and once with every hit pixel remapped onto 8 neighbouring
-    voxels (contention: thousands of pixels a voxel)."""
-    hit, _, depth, hit_idx = hits
-    B, P = hit.shape
+def bits_equal(got, ref):
+    """Outputs equal to the bit (a NaN counts only if its bits are the same)."""
+    return all(torch.equal(g.view(torch.int32), r.view(torch.int32)) for g, r in zip(got, ref))
+
+
+def shade_cases(hit, hit_idx, depth, n_vox, gen):
+    """Random attributes (colour, normal with some exactly zero, semantic) and
+    K5's cases, name -> (color, normal, semantic, hit, hit_idx, depth): the
+    march's hits, and the edge cases: a ragged pixel count (the first 997
+    pixels of each row, made contiguous: B * 997 is no multiple of a block's
+    pixels), the training step's input grid (semantic None), every attribute
+    None, NaN (one with a sign and a payload) and +-inf attributes, a row
+    without a hit and a row of hits."""
+    B = hit.shape[0]
     attrs = [torch.randn(B, n_vox, c, generator=gen).to(DEV) for c in (3, 3, 14)]
     attrs[1][:, ::7] = 0.0  # voxels with a zero normal
-    got = rc_ops.shade(*attrs, hit, hit_idx, depth)
-    torch.cuda.synchronize()
-    ref = rc_ops.shade_plain(*attrs, hit, hit_idx, depth)
-    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
-        raise SystemExit(f"chip_smoke: raycast_shade {tag}: kernel and plain version differ")
+    odd = [a.clone() for a in attrs]
+    odd[0][:, 2::3, 0] = float("nan")
+    odd[0][:, 1::4, 2] = -float("inf")
+    odd[1][:, 3::9] = float("nan")  # a NaN normal is not zero
+    odd[1][:, 5::11, 1] = float("inf")
+    odd[2][:, ::4, 5] = torch.tensor([-0x3FFFFF], dtype=torch.int32).view(torch.float32).to(DEV)
+    odd[2][:, 1::6, 13] = float("inf")
+    rows = hit.clone()
+    rows[0] = False
+    rows[-1] = True
+    cut = [a[:, :997].contiguous() for a in (hit, hit_idx, depth)]
+    return attrs, {"hits": (*attrs, hit, hit_idx, depth),
+                   "ragged_997": (*attrs, *cut),
+                   "step_input_grid": (attrs[0], attrs[1], None, hit, hit_idx, depth),
+                   "all_absent": (None, None, None, hit, hit_idx, depth),
+                   "non_finite": (*odd, hit, hit_idx, depth),
+                   "row_without_hit_row_of_hits": (*attrs, rows, hit_idx, depth)}
+
+
+def shade_bound_ms(hit, hit_idx, attrs, per_pixel=False):
+    """hit, hit_idx, depth a pixel read once, the rows of the present
+    attributes of each voxel hit read once (per_pixel: once for each pixel
+    that hits it, the earlier count), 21 floats a pixel written once."""
+    B, P = hit.shape
+    row = sum(4 * a.shape[-1] for a in attrs if a is not None)
+    voxel = torch.arange(B, device=hit.device)[:, None] * 2 ** 32 + hit_idx.long()
+    rows = int(hit.sum()) if per_pixel else torch.unique(voxel[hit]).numel()
+    return (B * P * 9 + rows * row + B * P * 84) / PEAK_BYTES * 1e3
+
+
+def compare_shade_scatter(hits, n_vox, gen, tag, on_path):
+    """K5 against shade_plain (identical to the bit, also on its edge cases)
+    and K6 against scatter_plain, on random attributes and cotangents, some of
+    them not finite: once on the march's hits, and once with every hit pixel
+    remapped onto 8 neighbouring voxels (contention: thousands of pixels a
+    voxel). K5 is timed as the prediction's render calls it and as the input
+    grid's does (semantic None)."""
+    hit, _, depth, hit_idx = hits
+    B, P = hit.shape
+    attrs, cases = shade_cases(hit, hit_idx, depth, n_vox, gen)
+    for name, args in cases.items():
+        got = rc_ops.shade(*args)
+        torch.cuda.synchronize()
+        if not bits_equal(got, rc_ops.shade_plain(*args)):
+            raise SystemExit(f"chip_smoke: raycast_shade {tag}, {name}: kernel and plain "
+                             f"version differ")
     table = torch.cat(attrs, dim=-1)
     rows = torch.arange(B, device=DEV)[:, None]
-    n_hit = int(hit.sum())
-    # hit, hit_idx, depth per pixel, a 20-float row per hit pixel, 21 floats out
-    nbytes = B * P * 9 + n_hit * 80 + B * P * 84
     shade_rec = dict(
-        hits=n_hit, identical=True, max_abs_err=0.0, bound_ms=nbytes / PEAK_BYTES * 1e3,
-        bound_by="bytes", ms=device_ms(lambda: rc_ops.shade(*attrs, hit, hit_idx, depth), 50),
+        hits=int(hit.sum()), identical=sorted(cases), max_abs_err=0.0,
+        bound_ms=shade_bound_ms(hit, hit_idx, attrs), bound_by="bytes",
+        bound_ms_row_per_pixel=shade_bound_ms(hit, hit_idx, attrs, per_pixel=True),
         plain_ms=cuda_ms(lambda: rc_ops.shade_plain(*attrs, hit, hit_idx, depth), 10),
         # the gather alone, one advanced-indexing call on the packed attributes
         library_ms=device_ms(lambda: table[rows, hit_idx.long()], 50))
+    shade_rec["step_input_grid"] = dict(bound_ms=shade_bound_ms(hit, hit_idx, attrs[:2]))
+    for rec, args in ((shade_rec, cases["hits"]),
+                      (shade_rec["step_input_grid"], cases["step_input_grid"])):
+        fn = (lambda args=args: rc_ops.shade(*args))
+        baseline = (on_raycast_library(fn, BASELINE["raycast"])
+                    if "raycast" in BASELINE and on_path else None)
+        time_in_turns(fn, baseline, 50, rec)
 
     cts = [torch.randn(B, P, c, generator=gen).to(DEV) for c in (3, 3, 14)]
     cts.append(torch.randn(B, P, generator=gen).to(DEV))
@@ -825,7 +855,8 @@ def phase_compare_raycast():
     emit("compare_raycast",
          tolerance={"raycast_march": "hit, hit_idx, alpha, depth identical to the bit on every "
                                      "pixel; samples and evaluated equal to march_work_plain's",
-                    "raycast_shade": "identical",
+                    "raycast_shade": "identical to the bit (int32 view), also on its edge "
+                                     "cases",
                     "raycast_scatter": "1e-5 of each gradient's largest entry (atomic adds in "
                                        "another order), also with every hit on 8 voxels"},
          summary={k: [{kk: r[kk] for kk in r if kk in keys or kk.endswith("_ms")} for r in v]
@@ -1593,8 +1624,8 @@ def main(argv=None):
     ap.add_argument("--baseline-dw-source", default=None,
                     help="another version of csrc/conv3x3_dw.cu to time beside this one")
     ap.add_argument("--baseline-raycast-source", default=None,
-                    help="another version of csrc/raycast.cu (the dense-accumulator C interface) to time "
-                         "beside this one")
+                    help="another version of csrc/raycast.cu (the C interface of "
+                         "ops/raycast.py::_bind) to time beside this one")
     args = ap.parse_args(argv)
     smi = phase_device()
     phase_build()

@@ -52,11 +52,23 @@
 //   flag and bit for every lattice sample, a warp as long as its longest
 //   ray) and the pre-pass.
 //
-// K5 raycast_shade_kernel, one thread per pixel: colour (3), normal (3) and
-// semantic (14) of the hit voxel (0 where an attribute is absent: null
-// pointer), -inf where there is no hit, a -inf normal where the voxel's normal
-// is exactly zero, and the depth image. Bound: bytes (the gathered rows and
-// the images written).
+// K5 raycast_shade_kernel: colour (3), normal (3) and semantic (14) of the
+// hit voxel (0 where an attribute is absent: null pointer), -inf where there
+// is no hit, a -inf normal where the voxel's normal is exactly zero, and the
+// depth image; a copy and a select, no arithmetic on the values. Bound: bytes
+// (the gathered rows and the images written); the images are most of them.
+// A block takes kShadePixels consecutive flat pixels (b * P + p), so each
+// output's share of the block is one contiguous span. Phase 1, a thread a
+// pixel: hit, hit_idx and depth read coalesced, the depth image written, the
+// pixel's source row (or -1: no hit) staged in shared memory. Phase 2: each
+// span is walked in order, one element a thread a round, element e = pixel
+// e / C, channel e % C, so a warp's stores are coalesced and neighbouring
+// lanes read neighbouring floats of a row; an element is loaded only where
+// the pixel has a hit and the attribute is present. The normals go to shared
+// memory and, phase 3, take -inf where the pixel's triple is zero. The last
+// block is guarded where B * P is no multiple of its pixels. A first version
+// (a thread a pixel, 20 scalar loads and 21 scalar stores at strides of 12,
+// 12 and 56 bytes) issued ~10x the write sectors it owned.
 //
 // K6, three launches, no (B, N, 22) accumulator. raycast_scatter_zero_kernel
 // zeroes a (B, N) int32 slot per voxel and a row of 24 floats per pixel with
@@ -91,6 +103,11 @@ constexpr int kChannels = 3 + 3 + kClasses + 1;
 constexpr int kEdge = 8;  // coarse block edge in voxels (ops/raycast.py COARSE_BLOCK)
 constexpr int kCellWords = kEdge * kEdge * kEdge / 32;  // a block's cell bits in words
 constexpr int kTileX = 8, kTileY = 4;  // a warp's pixels
+// K5's block: consecutive flat pixels and threads; 64 x 64 was the fastest
+// of 32 to 1024 pixels and 1/4 to 2 threads a pixel on an NVIDIA H100 80GB
+// HBM3 at 700 W (PERF.md)
+constexpr int kShadePixels = 64;
+constexpr int kShadeThreads = 64;
 
 // The pixel of this thread when a warp takes an 8x4 tile of a W-wide image
 // (P pixels a batch row): its flat index b * P + y * W + x, or -1 past the
@@ -322,29 +339,57 @@ __global__ void raycast_march_kernel(
   idx_out[ray] = idx;
 }
 
-__global__ void raycast_shade_kernel(
+// Element e of the block's span of a C-channel attribute: channel e % C of
+// pixel e / C's row; -inf where the pixel has no hit (row -1), 0 where the
+// attribute is absent. Loads only where both are there.
+template <int C>
+__device__ __forceinline__ float shade_value(const float* __restrict__ attr,
+                                             const long long* rows, int e) {
+  const int j = e / C;
+  const long long row = rows[j];
+  if (row < 0) return -INFINITY;
+  return attr ? __ldg(attr + row * C + (e - j * C)) : 0.f;
+}
+
+// Element e of the block's normal span from the staged normals: -inf where
+// the pixel has no hit or its normal is exactly zero
+__device__ __forceinline__ float shade_normal(const float* nrm, const long long* rows, int e) {
+  const int j = e / 3;
+  const float* n = nrm + 3 * j;
+  return rows[j] >= 0 && (n[0] != 0.f || n[1] != 0.f || n[2] != 0.f) ? nrm[e] : -INFINITY;
+}
+
+__global__ void __launch_bounds__(kShadeThreads) raycast_shade_kernel(
     const float* __restrict__ color, const float* __restrict__ normal,
     const float* __restrict__ semantic, const uint8_t* __restrict__ hit,
     const int* __restrict__ hit_idx, const float* __restrict__ depth,
     float* __restrict__ color_im, float* __restrict__ normal_im, float* __restrict__ sem_im,
-    float* __restrict__ depth_im, int B, int N, int P) {
-  const long long px = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (px >= (long long)B * P) return;
-  const long long row = (px / P) * N + hit_idx[px];
-  const bool h = hit[px] != 0;
-  float n[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    color_im[3 * px + c] = h ? (color ? color[3 * row + c] : 0.f) : -INFINITY;
-    n[c] = normal ? normal[3 * row + c] : 0.f;
+    float* __restrict__ depth_im, long long pixels, int N, int P) {
+  __shared__ long long rows[kShadePixels];
+  __shared__ float nrm[3 * kShadePixels];
+  const long long g0 = (long long)blockIdx.x * kShadePixels;
+  const int n = (int)min((long long)kShadePixels, pixels - g0);
+  const int t = threadIdx.x;
+  for (int j = t; j < n; j += kShadeThreads) {
+    const long long g = g0 + j;
+    const bool h = hit[g] != 0;
+    const int idx = hit_idx[g];
+    const float d = depth[g];
+    rows[j] = h ? g / P * N + idx : -1;
+    depth_im[g] = h ? d : -INFINITY;
   }
-  const bool nz = n[0] != 0.f || n[1] != 0.f || n[2] != 0.f;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) normal_im[3 * px + c] = (h && nz) ? n[c] : -INFINITY;
-#pragma unroll
-  for (int c = 0; c < kClasses; ++c)
-    sem_im[kClasses * px + c] = h ? (semantic ? semantic[kClasses * row + c] : 0.f) : -INFINITY;
-  depth_im[px] = h ? depth[px] : -INFINITY;
+  __syncthreads();
+  color_im += 3 * g0;
+  normal_im += 3 * g0;
+  sem_im += kClasses * g0;
+  for (int e = t; e < 3 * n; e += kShadeThreads) {
+    color_im[e] = shade_value<3>(color, rows, e);
+    nrm[e] = shade_value<3>(normal, rows, e);
+  }
+  for (int e = t; e < kClasses * n; e += kShadeThreads)
+    sem_im[e] = shade_value<kClasses>(semantic, rows, e);
+  __syncthreads();
+  for (int e = t; e < 3 * n; e += kShadeThreads) normal_im[e] = shade_normal(nrm, rows, e);
 }
 
 // K6's scratch: per voxel its slot (0 if no pixel hit it, else 1 + the pixel
@@ -521,9 +566,10 @@ int spsg_raycast_shade(const float* color, const float* normal, const float* sem
                        float* color_im, float* normal_im, float* sem_im, float* depth_im, int B,
                        int N, int P, cudaStream_t stream) {
   if (B <= 0 || P <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  raycast_shade_kernel<<<blocks_for((long long)B * P), kThreads, 0, stream>>>(
-      color, normal, semantic, hit, hit_idx, depth, color_im, normal_im, sem_im, depth_im, B, N,
-      P);
+  const long long pixels = (long long)B * P;
+  raycast_shade_kernel<<<(unsigned)((pixels + kShadePixels - 1) / kShadePixels), kShadeThreads, 0,
+                         stream>>>(color, normal, semantic, hit, hit_idx, depth, color_im,
+                                   normal_im, sem_im, depth_im, pixels, N, P);
   return (int)cudaGetLastError();
 }
 

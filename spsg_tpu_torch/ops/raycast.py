@@ -29,7 +29,9 @@ replaces a Pallas kernel (the JAX package left the raycaster to XLA):
     is fully valid, bisects and picks the nearest voxel. The lockstep loop of
     the JAX package, translated op for op, would read an "any ray alive" flag
     back to the host at every iteration;
-  * :func:`shade` (K5, ``raycast_shade_kernel``): the gather of the forward;
+  * :func:`shade` (K5, ``raycast_shade_kernel``): the gather of the forward,
+    a block a run of consecutive pixels: their rows staged in shared memory,
+    then each output's span of the block gathered and written in order;
   * :func:`scatter` (K6, ``raycast_scatter_zero_kernel``,
     ``raycast_scatter_kernel``, ``raycast_scatter_finalize_kernel``): the
     averaged scatter of the backward: the first pixel to hit a voxel owns it,
@@ -551,7 +553,9 @@ def shade(color, normal, semantic, hit, hit_idx, depth):
     (B,N,14), each None for zeros; hit, hit_idx, depth (B,P). Returns
     (color (B,P,3), depth (B,P), normal (B,P,3), semantic (B,P,14)), -inf where
     there is no hit, and a -inf normal where the voxel's normal is zero. CUDA
-    tensors go to the kernel, CPU tensors to :func:`shade_plain`."""
+    tensors go to the kernel, CPU tensors to :func:`shade_plain`; the two
+    give the same outputs to the bit (a copy and a select, NaN and inf copied
+    as they are)."""
     if _device_kind(hit, "raycast_shade") == "cpu":
         return shade_plain(color, normal, semantic, hit, hit_idx, depth)
     B, P = hit.shape
