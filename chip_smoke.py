@@ -33,7 +33,7 @@ fails. Phases, each printing one JSON line:
            Functions with the kernels against the same Functions with the
            plain versions inside, at the heaviest layer
   compare_raycast
-           the raycaster's three kernels against their plain versions, on the
+           the raycaster's four kernels against their plain versions, on the
            input, target and a noisy prediction grid of a make_chunk_batch with
            frames, at a toy size (16^3, 48x32) and at the training path's
            ((128,64,64), 320x256): the march (K4; hit, hit_idx, alpha and depth
@@ -54,7 +54,14 @@ fails. Phases, each printing one JSON line:
            float32 operations each at 67 TFLOP/s, counted by march_work_plain;
            the earlier bound, every lattice sample up to the exit, beside it;
            for K5 the rows of the voxels hit, each once; a row for each hit
-           pixel, the earlier count, beside it)
+           pixel, the earlier count, beside it); and the occupancy march (K7)
+           at the step's 4 m range on the step's two masks of the same batch
+           (the target surface in 8^3 blocks without input, the target's
+           |sdf| < 1 band) and an all-empty grid: identical on every pixel,
+           its count of samples per ray equal to occ_march_plain's; bound: the
+           grid, the rays and the image at 3.35 TB/s, or the samples up to
+           each ray's first occupied one at 20 float32 operations each; no
+           library yardstick
   path     the serving path through the entry points a user calls: the
            whole-scene CLI at full width (nf_gen 20, windows (128,64,64),
            stride 32, window batch 8, colour and semantics) on one synthetic
@@ -89,12 +96,36 @@ fails. Phases, each printing one JSON line:
            (metrics, every parameter gradient of the generator; the
            discriminator's reported; prediction pixels whose hit differs, counted); one warm-up
            and three timed steps (median seconds, peak memory); a validation pass
-           changes nothing; device time of one step by kind; a 16^3 / nf 4 /
-           48x32 full step on the GPU against the same step on the CPU
+           changes nothing; device time of one step by kind; one full step with
+           weight_missing_color 2 (launches as above and K7 2) against its
+           plain twin, and precompute_views on the same batch identical to the
+           bit to what that step computed (hits, normals, frames_ok, masks);
+           a 16^3 / nf 4 / 48x32 full step on the GPU against the same step
+           on the CPU
+  train_cli
+           the train CLI as a user calls it (spsg_tpu_torch.cli.train.main, in
+           this process) at TrainConfig() width on 10 synthetic chunks in
+           batches of 2 for 3 epochs (5 iterations each), the first iteration
+           geometry-only, the other 14 full steps, a render cache of 10 (the
+           first epoch's full steps miss it whole, the third epoch's hit it
+           whole): args.txt, log_val.csv (its header, 3 finite rows, the 2D
+           and adversarial losses in the last), model-epoch0-2.pt; K4 once in
+           every cached step, twice in a lookup that recomputes; seconds per
+           iteration by kind (geometry-only, the first full step, whole cache
+           miss, partial, whole hit; median, range and count, at least 3 whole
+           misses and 3 whole hits), the loop's host time outside the step, one
+           checkpoint write (seconds, bytes), peak memory. The launch counts
+           are set to 0 as run_training starts, after the CLI synthesised its
+           chunks. Then the third epoch again, resumed from model-epoch1.pt:
+           the same iteration, epoch and Adam step counts, the parameters held
+           to Queue C's Adam rule
   kernels  one line {"kernels": [...]}: per kernel its launches on the
-           paths and its numbers at the heaviest main-path shape (for the
-           raycaster's, the prediction grid at the path's size), with every
-           shape (and, for the convs, both storage types) nested inside
+           paths (serve, train, train2d, train2d_missing_colour, train_cli;
+           each counter set to 0 just before the path's run and read just
+           after) and its numbers at the heaviest main-path shape (for the
+           raycaster's, the prediction grid at the path's size; for K7 the
+           mask with the most samples), with every shape (and, for the convs,
+           both storage types) nested inside
   last     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}
 
 Options (none when the script is run as the check of a checkout):
@@ -103,10 +134,10 @@ Options (none when the script is run as the check of a checkout):
            K1 / K3 timed at every shape in turns with this one (baseline, this,
            this, baseline) through the same wrapper; "baseline_ms" per record
   --baseline-dw-source PATH  the same for csrc/conv3x3_dw.cu and K2
-  --baseline-raycast-source PATH  the same for csrc/raycast.cu, K4, K5 and K6
-           (a version with the C interface ops/raycast.py::_bind declares, run
-           through the same wrappers), at the path's shape; "baseline_ms" per
-           record
+  --baseline-raycast-source PATH  the same for csrc/raycast.cu, K4, K5, K6 and
+           K7 (a version with the C interface ops/raycast.py::_bind declares,
+           run through the same wrappers; K7 only where the version has it),
+           at the path's shape; "baseline_ms" per record
 
 Tolerances. float32: |kernel - plain| <= 1e-4 on unit-variance outputs (both
 accumulate in float32, in different orders; the forward kernel's 3xTF32
@@ -131,7 +162,14 @@ between two float32 forwards moves a mean over a few thousand pixels by ~1e-4);
 against its twin also each parameter gradient of the generator within 1e-2 of
 its largest entry, as in the train step; the discriminator's are reported only
 (no hand kernel in its backward; they follow the render, whose rounding
-differs between the two forwards); GPU against CPU: reported only.
+differs between the two forwards); GPU against CPU: reported only. The
+occupancy march: identical on every pixel (a select of bytes at positions the
+kernel and its plain version round alike). The cached views against the step's
+own: identical to the bit. The resumed epoch against the unbroken run: the
+same iteration, epoch and Adam step counts; every parameter within 2 * lr per
+step taken and >= 99.9 % of them within 1e-5 (ROADMAP.md Queue C's Adam rule:
+K6's atomic adds and cuDNN's weight gradients are not bitwise repeatable, and
+an element whose gradient is rounding noise moves by up to lr either way).
 """
 
 from __future__ import annotations
@@ -139,6 +177,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -146,6 +185,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -159,6 +199,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from spsg_tpu_torch.cli import test_scene_as_chunks as cli  # noqa: E402
 from spsg_tpu_torch.inference import chunked  # noqa: E402
+from spsg_tpu_torch.losses import geo as geo_losses  # noqa: E402
 from spsg_tpu_torch.models.generator import use_true_float32  # noqa: E402
 from spsg_tpu_torch.ops import _build, conv3x3 as conv_ops  # noqa: E402
 from spsg_tpu_torch.ops import depth as depth_ops, raycast as rc_ops  # noqa: E402
@@ -187,9 +228,10 @@ KERNELS = {
     "raycast_march": ("spsg_tpu_torch/ops/csrc/raycast.cu", "spsg_tpu/ops/raycast.py:404"),
     "raycast_shade": ("spsg_tpu_torch/ops/csrc/raycast.cu", "spsg_tpu/ops/raycast.py:704"),
     "raycast_scatter": ("spsg_tpu_torch/ops/csrc/raycast.cu", "spsg_tpu/ops/raycast.py:739"),
+    "raycast_occ": ("spsg_tpu_torch/ops/csrc/raycast.cu", "spsg_tpu/ops/raycast.py:878"),
 }
 CONV_KERNELS = ("conv3x3", "conv3x3_act_stats", "conv3x3_dw")
-RAYCAST_KERNELS = ("raycast_march", "raycast_shade", "raycast_scatter")
+RAYCAST_KERNELS = ("raycast_march", "raycast_shade", "raycast_scatter", "raycast_occ")
 # (B, Z, Y, X, Cin, Cout, on the main path?)
 TOY = (2, 4, 8, 8, 5, 6, False)
 SHAPES = [
@@ -834,9 +876,76 @@ def compare_shade_scatter(hits, n_vox, gen, tag, on_path):
     return shade_rec, scatter_rec
 
 
+# float32 operations of one sample of the occupancy march: t (convert, mul,
+# add), the position (3 mul, 3 add), + 0.5 (3 add), floor (3), the bounds (6)
+OCC_SAMPLE_FLOPS = 20
+
+
+def compare_occ(occ, view, intr, cfg, tag, on_path):
+    """K7 against occ_march_plain on the same rays: identical on every pixel,
+    and the kernel's count of samples per ray equal to the plain version's.
+    The bound: the grid read once (a byte a voxel), the rays' set-up and the
+    image; or the samples up to each ray's first occupied one (the plain
+    version's count) at OCC_SAMPLE_FLOPS float32 operations each."""
+    occ, setup = rc_ops.occ_setup(occ, view, intr, cfg)
+    B, n_vox = occ.shape[0], occ[0].numel()
+    P = setup.t0.shape[1]
+    n_px = B * P
+    samples = torch.empty((B, P), dtype=torch.int32, device=DEV)
+    got = rc_ops.occ_march(occ, setup, cfg, samples=samples)
+    torch.cuda.synchronize()
+    ref, ref_samples = rc_ops.occ_march_plain(occ, setup, cfg, return_samples=True)
+    diff = int((got != ref).sum())
+    if diff or not torch.equal(samples.long(), ref_samples):
+        raise SystemExit(f"chip_smoke: raycast_occ {tag}: kernel and plain version differ on "
+                         f"{diff} of {n_px} pixels, or in their count of samples")
+    work = int(ref_samples.sum())
+    # the grid, origin per batch row, direction, t0, t_stop per ray, the image
+    nbytes = B * n_vox + B * 12 + n_px * 20 + n_px
+    t_bytes, t_ops = nbytes / PEAK_BYTES, work * OCC_SAMPLE_FLOPS / F32_FLOPS
+    rec = dict(hits=int(got.sum()), pixels_differing=diff, max_abs_err=0.0,
+               occupied_voxels=int(occ.sum()), samples=work, samples_per_ray=work / n_px,
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               plain_ms=cuda_ms(lambda: rc_ops.occ_march_plain(occ, setup, cfg), 2),
+               library_ms=None,
+               # the wrapper as the step calls it: the ray set-up in PyTorch, then K7.
+               # The set-up copies Python scalars to the card (ops/raycast.py::_div,
+               # _rdiv), a blocking copy each that waits for the stream, so this
+               # times calls at the host's pace, not the device's
+               ms_with_setup=device_ms(lambda: rc_ops.raycast_occ(occ, view, intr, cfg), 20))
+    # how often the wrapper waits for the card (torch's sync debug mode warns once
+    # for each operation that does)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            rc_ops.raycast_occ(occ, view, intr, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    rec["host_syncs_with_setup"] = len(caught)
+    fn = (lambda: rc_ops.occ_march(occ, setup, cfg))
+    # a baseline raycast.cu from before K7 has no occupancy march to time
+    baseline = (on_raycast_library(fn, BASELINE["raycast"])
+                if "raycast" in BASELINE and on_path
+                and hasattr(BASELINE["raycast"], "spsg_raycast_occ") else None)
+    time_in_turns(fn, baseline, 20, rec)
+    return rec
+
+
+def occupancy_grids(grids):
+    """The step's two occupancy masks of a make_chunk_batch (input and target
+    from raycast_grids: training/step.py::_occupancy_masks) and an all-empty
+    grid."""
+    inp, tgt = grids["input"][0], grids["target"][0]
+    return {"missing": geo_losses.missing_geo_mask(inp.abs() < 3.0 - 0.01, tgt, 3.0),
+            "target_band": tgt.abs() < 1, "empty": torch.zeros_like(tgt, dtype=torch.bool)}
+
+
 def phase_compare_raycast():
     gen = torch.Generator().manual_seed(5)
     results = {k: [] for k in RAYCAST_KERNELS}
+    tc = TrainConfig()
     for dims, image, on_path in RC_SHAPES:
         grids, view, intr = raycast_grids(dims, image, seed=11)
         cfg = rc_ops.RaycastConfig(width=image[0], height=image[1])
@@ -849,6 +958,12 @@ def phase_compare_raycast():
             shade_rec, scatter_rec = compare_shade_scatter(hits, n_vox, gen, tag, on_path)
             results["raycast_shade"].append(dict(base, **shade_rec))
             results["raycast_scatter"].append(dict(base, **scatter_rec))
+        # the occupancy march at the step's shallower range (raycast_occ_depth_max)
+        occ_cfg = dataclasses.replace(cfg, depth_max=tc.raycast_occ_depth_max / tc.voxelsize)
+        for name, occ in occupancy_grids(grids).items():
+            rec = compare_occ(occ, view, intr, occ_cfg, f"{name} {dims} {image}", on_path)
+            results["raycast_occ"].append(dict(grid=name, dims=list(dims), image=list(image),
+                                               main_path=on_path, **rec))
         del grids
         torch.cuda.empty_cache()
     keys = ("grid", "dims", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
@@ -858,7 +973,9 @@ def phase_compare_raycast():
                     "raycast_shade": "identical to the bit (int32 view), also on its edge "
                                      "cases",
                     "raycast_scatter": "1e-5 of each gradient's largest entry (atomic adds in "
-                                       "another order), also with every hit on 8 voxels"},
+                                       "another order), also with every hit on 8 voxels",
+                    "raycast_occ": "identical on every pixel; samples equal to "
+                                   "occ_march_plain's"},
          summary={k: [{kk: r[kk] for kk in r if kk in keys or kk.endswith("_ms")} for r in v]
                   for k, v in results.items()},
          march_pixels_differing=sum(sum(r[k] for k in ("hit_diff", "hit_idx_diff",
@@ -1005,7 +1122,7 @@ def phase_path(tmp):
     launches = all_launch_counts()
 
     want = {"conv3x3_act_stats": 23 * 4, "conv3x3": 5 * 4, "conv3x3_dw": 0,
-            "raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0}
+            "raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0, "raycast_occ": 0}
     if launches != want:
         raise SystemExit(f"chip_smoke: launches on the main path {launches}, expected {want}")
     out = seen["out"]
@@ -1232,7 +1349,7 @@ def phase_train():
     # (b) launch counters of one step: 28 eligible convs forward, 25 backward (the
     # three convs of the colour head have no loss without the 2D terms); no raycast
     want = {"conv3x3_act_stats": 23, "conv3x3": 5 + 25, "conv3x3_dw": 25,
-            "raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0}
+            "raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0, "raycast_occ": 0}
     if launches != want:
         raise SystemExit(f"chip_smoke: launches of one train step {launches}, expected {want}")
     rec = dict(config=dict(nf_gen=cfg.nf_gen, input_dim=list(cfg.input_dim),
@@ -1281,7 +1398,7 @@ def phase_train():
     torch.cuda.synchronize()
     geo_seconds = time.time() - t
     want = {"conv3x3_act_stats": 9, "conv3x3": 2 + 11, "conv3x3_dw": 11,
-            "raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0}
+            "raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0, "raycast_occ": 0}
     if all_launch_counts() != want:
         raise SystemExit(f"chip_smoke: launches of one geometry-only step "
                          f"{all_launch_counts()}, expected {want}")
@@ -1350,7 +1467,7 @@ FULL_2D = dict(pred_sdf=True, pred_color=True, pred_semantic=True, use_2d=True, 
 # the colour head (dx by the forward kernel, dW by K2); three raycasts (input,
 # projected target, prediction), of which only the prediction's has a backward
 WANT_2D = {"conv3x3_act_stats": 23, "conv3x3": 5 + 28, "conv3x3_dw": 28,
-           "raycast_march": 3, "raycast_shade": 3, "raycast_scatter": 1}
+           "raycast_march": 3, "raycast_shade": 3, "raycast_scatter": 1, "raycast_occ": 0}
 # the 2D and adversarial metrics of two float32 forwards part where a
 # prediction pixel's hit flips (one pixel moves a mean over a few thousand by
 # ~1e-4): those are held to 1e-3, the 3D metrics to 1e-4
@@ -1360,13 +1477,13 @@ METRICS_3D = ("loss_occ", "iou_occ", "loss_sdf", "loss_semantic")
 @contextlib.contextmanager
 def plain_raycast_inside():
     """Inside, the raycaster takes its plain versions on CUDA tensors too."""
-    saved = (rc_ops.march, rc_ops.shade, rc_ops.scatter)
-    rc_ops.march, rc_ops.shade, rc_ops.scatter = (
-        rc_ops.march_plain, rc_ops.shade_plain, rc_ops.scatter_plain)
+    saved = (rc_ops.march, rc_ops.shade, rc_ops.scatter, rc_ops.occ_march)
+    rc_ops.march, rc_ops.shade, rc_ops.scatter, rc_ops.occ_march = (
+        rc_ops.march_plain, rc_ops.shade_plain, rc_ops.scatter_plain, rc_ops.occ_march_plain)
     try:
         yield
     finally:
-        rc_ops.march, rc_ops.shade, rc_ops.scatter = saved
+        rc_ops.march, rc_ops.shade, rc_ops.scatter, rc_ops.occ_march = saved
 
 
 def recording(trainer, seen):
@@ -1376,9 +1493,9 @@ def recording(trainer, seen):
     real_find = rc_ops.find_surface_crossings
     calls = []
 
-    def forward(batch, flags):
+    def forward(*a, **kw):
         calls.clear()
-        out = real_forward(batch, flags)
+        out = real_forward(*a, **kw)
         seen["aux"] = out[2]
         seen["pred_hit"] = calls[2]["hit"] if len(calls) > 2 else None
         return out
@@ -1454,6 +1571,106 @@ def profile_train2d_step(trainer, batch, flags):
     kinds["elementwise_forward_and_losses"] = kinds.get("elementwise_forward_and_losses",
                                                         0.0) - depth_us
     return device_time_record(kinds, names, 12)
+
+
+@contextlib.contextmanager
+def recording_views(seen):
+    """Record into ``seen`` what a step computes that precompute_views also
+    computes: the marches' hits ("find", in call order: input, target,
+    prediction), the depth chain ("depth") and the occupancy masks ("occ")."""
+    real = (rc_ops.find_surface_crossings, rc_ops.raycast_occ, depth_ops.depth_to_normals)
+
+    def keep(key, fn):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            seen.setdefault(key, []).append(out)
+            return out
+        return run
+
+    rc_ops.find_surface_crossings, rc_ops.raycast_occ, depth_ops.depth_to_normals = (
+        keep("find", real[0]), keep("occ", real[1]), keep("depth", real[2]))
+    try:
+        yield seen
+    finally:
+        rc_ops.find_surface_crossings, rc_ops.raycast_occ, depth_ops.depth_to_normals = real
+
+
+def as_bits(a):
+    return a.view(torch.int32) if a.dtype == torch.float32 else a
+
+
+def views_differing(pre, seen):
+    """Elements where precompute_views' entries differ from the step's own
+    values, to the bit (0 everywhere is the check)."""
+    normals, _, frames_ok = seen["depth"][0]
+    pairs = {"images_normals": normals, "frames_ok": frames_ok,
+             "missing2d": seen["occ"][0], "tgt_mask2d": seen["occ"][1]}
+    for name, hits in (("in", seen["find"][0]), ("tgt", seen["find"][1])):
+        pairs.update({f"{name}_{k}": hits[k] for k in ("hit", "hit_idx", "depth")})
+    if set(pairs) != set(pre):
+        raise SystemExit(f"chip_smoke: precompute_views gives {sorted(pre)}, "
+                         f"the step {sorted(pairs)}")
+    return {k: int((as_bits(pre[k]) != as_bits(v.reshape(pre[k].shape))).sum())
+            for k, v in pairs.items()}
+
+
+def missing_colour_step(batch):
+    """One full step with weight_missing_color 2 (two occupancy raycasts, K7,
+    weight the colour L1 and the discriminator's patches) against its twin with
+    the plain convs and the plain raycaster; and precompute_views on the same
+    batch against what the step computed, to the bit (K4 and K7 are
+    deterministic, the depth chain is plain PyTorch). Returns (record,
+    launches of the step)."""
+    cfg = TrainConfig(weight_missing_color=2.0)
+    flags = StepFlags(**FULL_2D)
+    trainer = Trainer(cfg, DEV, seed=0)
+    scale_conv_weights(trainer.generator, 2.0)
+    centre_train_occupancy(trainer, batch)
+    twin = Trainer(cfg, DEV, seed=0, plain_convs=True)
+    twin.generator.load_state_dict(trainer.generator.state_dict())
+    twin.discriminator.load_state_dict(trainer.discriminator.state_dict())
+    twin.sn_state = {k: {kk: vv.clone() for kk, vv in v.items()} for k, v in trainer.sn_state.items()}
+    seen = {}
+    reset_all_launch_counts()
+    with recording_views(seen):
+        metrics = trainer.step(batch, flags)
+        torch.cuda.synchronize()
+    launches = all_launch_counts()
+    want = dict(WANT_2D, raycast_occ=2)
+    if launches != want:
+        raise SystemExit(f"chip_smoke: launches of the missing-colour step {launches}, "
+                         f"expected {want}")
+    missing2d, tgt_mask2d = seen["occ"]
+    weighted = int(((missing2d != 0) & (tgt_mask2d != 0)).sum())
+    if not weighted > 0:
+        raise SystemExit("chip_smoke: the missing-colour step weighted no pixel")
+    reset_all_launch_counts()
+    with plain_raycast_inside():
+        twin_metrics = twin.step(batch, flags)
+    torch.cuda.synchronize()
+    if any(all_launch_counts().values()):
+        raise SystemExit(f"chip_smoke: the plain twin launched a kernel: {all_launch_counts()}")
+    rec = dict(launches_per_step=launches, weighted_pixels=weighted,
+               metrics={k: float(v) for k, v in metrics.items()},
+               kernels_vs_plain_twin=dict(
+                   metrics_rel_diff=compare_metrics(metrics, twin_metrics,
+                                                    "missing-colour step vs plain twin"),
+                   generator_gradients=compare_grads(trainer, twin, 1e-2,
+                                                     "missing-colour step vs plain twin")))
+    del twin
+    pre = trainer.precompute_views(batch)
+    differing = views_differing(pre, seen)
+    if any(differing.values()):
+        raise SystemExit(f"chip_smoke: precompute_views differs from the step's own views: "
+                         f"{differing}")
+    # a sample's entries from a batch of one against the batch of two (reported:
+    # the cache's sub-batches on the card)
+    one = trainer.precompute_views({k: v[1:] for k, v in batch.items()
+                                    if isinstance(v, np.ndarray) and v.ndim > 0})
+    rec.update(precompute_vs_step_elements_differing=differing,
+               precompute_batch_of_one_vs_two_elements_differing={
+                   k: int((as_bits(v) != as_bits(pre[k][1:])).sum()) for k, v in one.items()})
+    return rec, launches
 
 
 def phase_train2d():
@@ -1592,6 +1809,10 @@ def phase_train2d():
     del trainer
     torch.cuda.empty_cache()
 
+    # (d) the missing-colour weights and the cached views
+    rec["missing_colour"], launches_mc = missing_colour_step(batch)
+    torch.cuda.empty_cache()
+
     # (c) a small full step on the GPU against the same step on the CPU
     small = TrainConfig(input_dim=(16, 16, 16), nf_gen=4, nf_disc=4, style_width=48,
                         style_height=32, patch_size=16, max_depth_fill_iters=8,
@@ -1613,6 +1834,195 @@ def phase_train2d():
         generator_gradients=compare_grads(pair["cuda"][0], pair["cpu"][0], None,
                                           "16^3 full step, GPU vs CPU"))
     emit("train2d", **rec)
+    return launches, launches_mc
+
+
+# --------------------------------------------------------------------------- train_cli
+# the train CLI at TrainConfig() width: 10 synthetic chunks in batches of 2 for
+# 3 epochs, 5 iterations an epoch, the first geometry-only (num_iters_geo_only
+# 0), the others full steps; the render cache holds every chunk (10 entries).
+# The first epoch's 4 full steps miss it whole (the first of them is also the
+# run's first full step and is reported apart), the third epoch's 5 hit it whole
+CLI_CHUNKS, CLI_BATCH, CLI_EPOCHS = 10, 2, 3
+CLI_ARGS = ["--synthetic_chunks", str(CLI_CHUNKS), "--batch_size", str(CLI_BATCH),
+            "--max_epoch", str(CLI_EPOCHS), "--num_iters_geo_only", "0",
+            "--cache_renders", str(CLI_CHUNKS)]
+
+
+@contextlib.contextmanager
+def recording_loop(steps, lookups):
+    """Record each Trainer.step the loop makes (training or validation, with
+    cached views or not, the launches inside it) and each RenderCache lookup
+    (the samples it recomputed, the launches inside it). Every launch count
+    is set to 0 as run_training starts, after the CLI has synthesised its
+    chunks (whose frames are rendered with K4 and K5)."""
+    from spsg_tpu_torch.training import loop as loop_mod
+
+    real_step, real_lookup = Trainer.step, loop_mod.RenderCache.lookup
+    real_run = loop_mod.run_training
+
+    def run_training(*a, **kw):
+        reset_all_launch_counts()
+        return real_run(*a, **kw)
+
+    def delta(before):
+        return {k: v - before[k] for k, v in all_launch_counts().items()}
+
+    def step(self, batch, flags, *a, **kw):
+        before = all_launch_counts()
+        out = real_step(self, batch, flags, *a, **kw)
+        steps.append(dict(train=flags.train, use_2d=flags.use_2d,
+                          cached=kw.get("precomp") is not None, launches=delta(before)))
+        return out
+
+    def lookup(self, *a, **kw):
+        before, misses = all_launch_counts(), self.misses
+        out = real_lookup(self, *a, **kw)
+        lookups.append(dict(recomputed=self.misses - misses, launches=delta(before)))
+        return out
+
+    Trainer.step, loop_mod.RenderCache.lookup, loop_mod.run_training = step, lookup, run_training
+    try:
+        yield
+    finally:
+        Trainer.step, loop_mod.RenderCache.lookup, loop_mod.run_training = (
+            real_step, real_lookup, real_run)
+
+
+def adam_rule(a, b, module, lr, steps_taken):
+    """Parameters of ``module`` of two trainers after the same steps from the
+    same state, held to Queue C's Adam rule: each element within 2 * lr per
+    step taken, and >= 99.9 % of the elements within 1e-5."""
+    pb = dict(getattr(b, module).named_parameters())
+    diffs = torch.cat([(p.detach() - pb[n].detach()).abs().reshape(-1)
+                       for n, p in getattr(a, module).named_parameters()])
+    largest, within = float(diffs.max()), float((diffs <= 1e-5).float().mean())
+    if not (largest <= 2 * lr * steps_taken and within >= 0.999):
+        raise SystemExit(f"chip_smoke: resumed run, {module}: parameters differ by up to "
+                         f"{largest:.3e} (rule {2 * lr * steps_taken:.3e}), {within:.5f} of "
+                         "them within 1e-5")
+    return dict(max_abs_diff=largest, share_within_1e5=within)
+
+
+def phase_train_cli(tmp, smi):
+    """The train CLI in this process (spsg_tpu_torch.cli.train.main), then a
+    resume of its last epoch from its checkpoint."""
+    from spsg_tpu_torch.cli import train as train_cli
+    from spsg_tpu_torch.utils import logging as port_logging
+
+    save = os.path.join(tmp, "train")
+    steps, lookups = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    with recording_loop(steps, lookups):
+        result = train_cli.main(CLI_ARGS + ["--save", save])
+    torch.cuda.synchronize()
+    seconds = time.time() - t
+    launches = all_launch_counts()  # the loop's own: set to 0 as run_training started
+    peak = torch.cuda.max_memory_allocated()
+
+    # what it wrote
+    ckpts = [f"model-epoch{e}.pt" for e in range(CLI_EPOCHS)]
+    missing = [f for f in ["args.txt", "log.csv", "log_val.csv"] + ckpts
+               if not os.path.isfile(os.path.join(save, f))]
+    if missing:
+        raise SystemExit(f"chip_smoke: the train CLI did not write {missing}")
+    names = port_logging._HEADER_NAMES
+    header = port_logging.make_header(["train"])[:-1] + [f"val_{h}" for h in names] + ["time"]
+    val = open(os.path.join(save, "log_val.csv")).read().splitlines()
+    rows = [dict(zip(header, map(float, line.split(",")))) for line in val[1:]]
+    if val[0] != ",".join(header) or len(rows) != CLI_EPOCHS or not all(
+            np.isfinite(v) for r in rows for v in r.values()):
+        raise SystemExit(f"chip_smoke: log_val.csv: {val}")
+    if any(rows[-1][k] == -1.0 for k in ("train_loss(depth)", "train_loss(disc)",
+                                         "val_loss(depth)", "val_loss(disc)")):
+        raise SystemExit(f"chip_smoke: log_val.csv's last row lacks the 2D losses: {rows[-1]}")
+
+    # the iterations, the cache and the launches of each step
+    per_epoch = CLI_CHUNKS // CLI_BATCH
+    train_steps = [st for st in steps if st["train"]]
+    full = [st for st in train_steps if st["use_2d"]]
+    cache = result.render_cache
+    if not (len(train_steps) == CLI_EPOCHS * per_epoch == result.iteration
+            and len(full) == len(train_steps) - 1 == len(lookups)
+            and all(st["cached"] for st in full) and cache.hits > 0):
+        raise SystemExit(f"chip_smoke: the loop ran {len(train_steps)} steps ({len(full)} full, "
+                         f"{len(lookups)} lookups) to iteration {result.iteration}, cache hits "
+                         f"{cache.hits}")
+    # a cached step marches the prediction only; a lookup that recomputes
+    # marches its sub-batch's input and target grids once each
+    if any(st["launches"]["raycast_march"] != 1 for st in full) or any(
+            lk["launches"]["raycast_march"] != (2 if lk["recomputed"] else 0) for lk in lookups):
+        raise SystemExit(f"chip_smoke: K4 launches of the cached steps "
+                         f"{[st['launches']['raycast_march'] for st in full]}, of the lookups "
+                         f"{[(lk['recomputed'], lk['launches']['raycast_march']) for lk in lookups]}")
+    iterations, full_index = [], iter(lookups)
+    for h, st in zip(result.timer.history, train_steps):
+        kind = "geometry_only"
+        if st["use_2d"]:
+            n = next(full_index)["recomputed"]
+            kind = ("first_full_step" if st is full[0] else "cache_hit" if n == 0
+                    else "cache_miss" if n == CLI_BATCH else "cache_partial")
+        iterations.append(dict(kind=kind, seconds=sum(h.values()),
+                               **{f"{k}_seconds": v for k, v in h.items()}))
+    by_kind = {}
+    for it in iterations:
+        by_kind.setdefault(it["kind"], []).append(it["seconds"])
+    if min(len(by_kind.get(k, [])) for k in ("cache_miss", "cache_hit")) < 3:
+        raise SystemExit(f"chip_smoke: fewer than 3 whole misses or whole hits after the first "
+                         f"full step: {[it['kind'] for it in iterations]}")
+    spread = {k: dict(n=len(v), median=sorted(v)[len(v) // 2], min=min(v), max=max(v))
+              for k, v in by_kind.items()}
+
+    # one checkpoint write of the whole training state
+    path = os.path.join(tmp, "checkpoint.pt")
+    torch.cuda.synchronize()
+    t = time.time()
+    state.save_checkpoint(path, result.trainer, CLI_EPOCHS)
+    ckpt_seconds = time.time() - t
+    ckpt_bytes = os.path.getsize(path)
+
+    # the last epoch again, resumed from the second epoch's checkpoint
+    resumed = train_cli.main(CLI_ARGS + ["--save", os.path.join(tmp, "resume"), "--no_vis",
+                                         "--retrain", os.path.join(save, ckpts[-2])])
+    a, b = resumed.trainer, result.trainer
+    epochs = [torch.load(os.path.join(d, ckpts[2]), weights_only=True)["epoch"]
+              for d in (save, os.path.join(tmp, "resume"))]
+    adam_steps = {name: [[int(st["step"]) for st in getattr(tr, name).state.values()]
+                         for tr in (a, b)] for name in ("optimizer", "disc_optimizer")}
+    if not (resumed.iteration == result.iteration and epochs == [CLI_EPOCHS] * 2
+            and all(x == y for x, y in adam_steps.values())):
+        raise SystemExit(f"chip_smoke: the resumed run ended at iteration {resumed.iteration}, "
+                         f"epochs {epochs}, Adam steps {adam_steps}; the unbroken one at "
+                         f"{result.iteration}")
+    cfg = b.cfg
+    resume = dict(
+        iteration=resumed.iteration, epoch=epochs[0],
+        adam_steps={k: sorted(set(v[0])) for k, v in adam_steps.items()},
+        generator=adam_rule(a, b, "generator", cfg.lr, per_epoch),
+        discriminator=adam_rule(a, b, "discriminator", cfg.d_lr_factor * cfg.lr, per_epoch),
+        buffers_max_abs_diff=max(float((v - b.generator.state_dict()[k]).abs().max())
+                                 for k, v in a.generator.state_dict().items()
+                                 if v.dtype.is_floating_point))
+    rec = dict(nvidia_smi=smi, argv=CLI_ARGS, seconds=seconds, launches=launches,
+               max_memory_allocated=peak, cache=dict(hits=cache.hits, misses=cache.misses),
+               iterations=iterations, seconds_per_iteration=spread,
+               # the loop's own host time: batch set-up, logging, and lookups that hit
+               host_outside_step_per_iteration=[
+                   it.get("setup_seconds", 0.0) + it.get("log_seconds", 0.0)
+                   + (it.get("cache_seconds", 0.0) if it["kind"] == "cache_hit" else 0.0)
+                   for it in iterations],
+               checkpoint=dict(seconds=ckpt_seconds, bytes=ckpt_bytes),
+               log_val_last_row={k: v for k, v in rows[-1].items() if v != -1.0},
+               resume=resume)
+    kinds = ", ".join(f"{k} {v['median']:.4f} ({v['min']:.4f}-{v['max']:.4f}, n {v['n']})"
+                      for k, v in spread.items())
+    print(f"train_cli: {smi}: seconds per iteration, median (range, n): {kinds}; "
+          f"host outside the step {max(rec['host_outside_step_per_iteration']):.4f} s at most, "
+          f"checkpoint {ckpt_bytes} bytes in {ckpt_seconds:.3f} s, peak {peak} bytes",
+          flush=True)
+    emit("train_cli", **rec)
     return launches
 
 
@@ -1639,15 +2049,22 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as tmp:
         serve = phase_path(tmp)
     train = phase_train()
-    train2d = phase_train2d()
+    train2d, train2d_mc = phase_train2d()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as tmp:
+        train_cli = phase_train_cli(tmp, smi)
 
     # the kernels of each path: serving runs the two forward kernels, the 3D
-    # training step all three conv kernels, the full step all six
+    # training step all three conv kernels, the full step all but the occupancy
+    # march, which only the missing-colour weights run; the train CLI as the
+    # full step
+    full_step = tuple(k for k in KERNELS if k != "raycast_occ")
     on_path = {"serve": ("conv3x3", "conv3x3_act_stats"), "train": CONV_KERNELS,
-               "train2d": tuple(KERNELS)}
+               "train2d": full_step, "train2d_missing_colour": tuple(KERNELS),
+               "train_cli": full_step}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        by_path = {"serve": serve[name], "train": train[name], "train2d": train2d[name]}
+        by_path = {"serve": serve[name], "train": train[name], "train2d": train2d[name],
+                   "train2d_missing_colour": train2d_mc[name], "train_cli": train_cli[name]}
         for path, names in on_path.items():
             if name in names and by_path[path] < 1:
                 raise SystemExit(f"chip_smoke: {name} was not launched on the {path} path")
@@ -1660,9 +2077,12 @@ def main(argv=None):
             detail = dict(dtypes=results[name])
         else:
             recs = rc_results[name]
-            # the prediction's grid at the path's size: the one with the most work
-            head = next(r for r in recs if r["main_path"] and r["grid"] == "prediction")
-            measured_at = dict(grid="prediction", dims=head["dims"], image=head["image"],
+            # at the path's size, the grid with the most work: the prediction's, and
+            # for the occupancy march the mask with the most samples
+            path_recs = [r for r in recs if r["main_path"]]
+            head = (max(path_recs, key=lambda r: r["samples"]) if name == "raycast_occ"
+                    else next(r for r in path_recs if r["grid"] == "prediction"))
+            measured_at = dict(grid=head["grid"], dims=head["dims"], image=head["image"],
                                dtype="float32")
             detail = dict(cases=recs)
         kernels.append(dict(

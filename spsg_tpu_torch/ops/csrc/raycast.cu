@@ -1,11 +1,12 @@
-// The differentiable TSDF raycaster's three kernels for Hopper (sm_90a):
-// the ray march (K4), the shade gather (K5) and the averaged backward
-// scatter (K6). Wrappers, plain PyTorch versions and the semantics they share
+// The TSDF raycaster's four kernels for Hopper (sm_90a): the ray march (K4),
+// the shade gather (K5), the averaged backward scatter (K6) and the occupancy
+// march (K7). Wrappers, plain PyTorch versions and the semantics they share
 // are in ops/raycast.py.
 //
 // None replaces a Pallas kernel: the JAX package left the raycaster to XLA
 // (spsg_tpu/ops/raycast.py: find_surface_crossings :404-696, _forward_images
-// :704-724, _raycast_attrs_bwd :739-776), as a lockstep while_loop of gathers.
+// :704-724, _raycast_attrs_bwd :739-776, raycast_occ :878-987), as lockstep
+// while_loops of gathers.
 // Translated op for op into PyTorch that loop would read "is any ray still
 // marching" back to the host at every round, and the scatter has no fused
 // ATen form. The CUDA shape is the original reference's: one thread per ray.
@@ -88,6 +89,23 @@
 // of the atomic adds changes from run to run, so the sums of voxels hit by
 // more than one pixel are not bitwise repeatable (a few ulps). Bound: bytes
 // (the gradients written once, the cotangents read once).
+//
+// K7 raycast_occ_kernel: does any lattice sample of the ray lie in an
+// occupied voxel (the reference's raycast_occ_cuda_kernel, a binary image for
+// the missing-colour weights). One thread per ray, a warp an 8x4 pixel tile
+// (tile_pixel, as K4). The ray set-up is the march's (ops/raycast.py
+// march_setup on the occupied voxels: their box, t0 snapped to the lattice,
+// t_stop); samples t_k = t0 + k * step for k = 0, 1, ... while t_k <= t_stop
+// and k < k_max, each the nearest voxel floor(p + 0.5) of p = o + t_k * d,
+// looked up in the occupancy bytes (a bool tensor as it is) where it lies in
+// the grid; the first occupied one ends the ray with a 1. The JAX package
+// walks the same samples in lockstep blocks with a coarse skip that is exact
+// (tests/test_raycast.py::test_raycast_occ_skip_matches_plain), so a walk of
+// every sample gives its image. Rounding as in the plain version (-fmad=false:
+// k * step, t0 + ., t * d, o + ., + 0.5 each rounded once). Bound: the grid
+// read once, the set-up and the image; or the samples up to each ray's first
+// occupied one at ~20 float32 operations each. The walk reads a byte a sample,
+// neighbouring lanes neighbouring voxels.
 
 #include <cuda_runtime.h>
 
@@ -526,6 +544,40 @@ __global__ void __launch_bounds__(kThreads) raycast_scatter_finalize_kernel(
   }
 }
 
+__global__ void raycast_occ_kernel(
+    const uint8_t* __restrict__ occ, const float* __restrict__ origin,
+    const float* __restrict__ dir, const float* __restrict__ t0s,
+    const float* __restrict__ t_stops, uint8_t* __restrict__ hit_out, int* __restrict__ samples_out,
+    int B, int Z, int Y, int X, int P, int W, float step, int k_max) {
+  const long long ray = tile_pixel(B, P, W);
+  if (ray < 0) return;
+  const int b = (int)(ray / P);
+  occ += (long long)b * Z * Y * X;
+  const float ox = origin[3 * b], oy = origin[3 * b + 1], oz = origin[3 * b + 2];
+  const float dx = dir[3 * ray], dy = dir[3 * ray + 1], dz = dir[3 * ray + 2];
+  const float t0 = t0s[ray], t_stop = t_stops[ray];
+  uint8_t hit = 0;
+  int k = 0;
+  for (; k < k_max; ++k) {
+    const float t = t0 + (float)k * step;
+    if (!(t <= t_stop)) break;
+    // the nearest voxel; compared as floats, so no out-of-range conversion
+    const float fx = floorf(ox + t * dx + 0.5f);
+    const float fy = floorf(oy + t * dy + 0.5f);
+    const float fz = floorf(oz + t * dz + 0.5f);
+    if (fx >= 0.f && fy >= 0.f && fz >= 0.f && fx < (float)X && fy < (float)Y &&
+        fz < (float)Z &&
+        __ldg(occ + ((long long)(int)fz * Y + (int)fy) * X + (int)fx)) {
+      hit = 1;
+      ++k;
+      break;
+    }
+  }
+  hit_out[ray] = hit;
+  // the samples taken (the occupied one included), for measuring the work
+  if (samples_out) samples_out[ray] = k;
+}
+
 unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 }  // namespace
@@ -598,6 +650,19 @@ int spsg_raycast_scatter(const float* g_color, const float* g_normal, const floa
   if (err != cudaSuccess) return (int)err;
   raycast_scatter_finalize_kernel<<<blocks_for(voxels), kThreads, 0, stream>>>(
       scratch, acc, d_sdf, d_color, d_normal, d_sem, voxels);
+  return (int)cudaGetLastError();
+}
+
+// `occ` (B, Z, Y, X) bytes, 0 = empty; `samples` may be null.
+int spsg_raycast_occ(const uint8_t* occ, const float* origin, const float* dir,
+                     const float* t0, const float* t_stop, uint8_t* hit, int* samples, int B,
+                     int Z, int Y, int X, int P, int W, float step, int k_max,
+                     cudaStream_t stream) {
+  if (B <= 0 || P <= 0 || W <= 0 || P % W != 0 || Z < 1 || Y < 1 || X < 1 ||
+      (long long)Z * Y * X >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  raycast_occ_kernel<<<blocks_for((long long)B * tiles_for(P, W) * 32), kThreads, 0, stream>>>(
+      occ, origin, dir, t0, t_stop, hit, samples, B, Z, Y, X, P, W, step, k_max);
   return (int)cudaGetLastError();
 }
 

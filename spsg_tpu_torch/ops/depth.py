@@ -80,17 +80,24 @@ def fill_depth_holes(depth: torch.Tensor, max_iters: int = 40):
     early when no holes remain (reference Depth2Normals.forward,
     depth_utils.py:84-94). Returns (filled (B, H, W), all_valid (B,) bool).
 
-    As in the JAX package the decision covers the whole batch: if any frame
-    has a hole, every frame is bilateral-filtered and iterated; a batch without
-    holes passes through untouched."""
-    if not _any(depth == 0.0):
-        out = depth
-    else:
-        out = median_fill(bilateral_filter(depth))
-        it = 0
-        while it < max_iters and _any(out == 0.0):
-            out = median_fill(out)
-            it += 1
+    Each frame decides for itself: a frame without holes passes through
+    untouched whatever its batch-mates hold, and the loop runs while a frame
+    that had holes still has one. A frame's result then does not depend on the
+    other frames of the batch (a median pass leaves a filled frame as it is),
+    so a frame's cached views equal the ones it would get in any other batch
+    (``training/loop.py::RenderCache``). The JAX package decides for the whole
+    batch: there, a frame without holes is filtered when a batch-mate has one
+    (ROADMAP.md, Queue C). The host reads are the same."""
+    had = (depth == 0.0).reshape(depth.shape[0], -1).any(dim=-1)  # (B,): frames with holes
+    if not _any(had):
+        return depth, torch.ones_like(had)
+    had = had[:, None, None]
+    out = median_fill(bilateral_filter(depth))
+    it = 0
+    while it < max_iters and _any((out == 0.0) & had):
+        out = median_fill(out)
+        it += 1
+    out = torch.where(had, out, depth)
     all_valid = ~(out.reshape(out.shape[0], -1) == 0.0).any(dim=-1)
     return out, all_valid
 
@@ -137,7 +144,8 @@ def camera_space_normals(pts: torch.Tensor) -> torch.Tensor:
 def depth_to_normals(depth: torch.Tensor, intrinsics: torch.Tensor, max_fill_iters: int = 40):
     """The Depth2Normals chain (reference depth_utils.py:66-99): bilateral-seeded
     median hole fill -> camera-space unprojection -> cross normals. Returns
-    (normals (B, H, W, 3), filled depth (B, H, W), all_valid (B,) bool)."""
+    (normals (B, H, W, 3), filled depth (B, H, W), all_valid (B,) bool).
+    The fill decides per frame (:func:`fill_depth_holes`)."""
     if max_fill_iters > 0:
         filled, all_valid = fill_depth_holes(depth, max_fill_iters)
     else:

@@ -18,7 +18,7 @@ attributes into per-view images, with the JAX package's semantics:
     over all pixels that hit it (no 64-pixel cap); the depth gradient goes to
     the voxel's SDF; nothing flows to the march, the view or the intrinsics.
 
-Three hand-written CUDA kernels (``csrc/raycast.cu``) carry it on a card; none
+Four hand-written CUDA kernels (``csrc/raycast.cu``) carry it on a card; none
 replaces a Pallas kernel (the JAX package left the raycaster to XLA):
 
   * :func:`march` (K4, ``raycast_march_map_kernel`` + ``raycast_march_kernel``):
@@ -36,7 +36,12 @@ replaces a Pallas kernel (the JAX package left the raycaster to XLA):
     ``raycast_scatter_kernel``, ``raycast_scatter_finalize_kernel``): the
     averaged scatter of the backward: the first pixel to hit a voxel owns it,
     every pixel of the voxel adds into the owner's row, and one pass over the
-    voxels writes each gradient once, divided by the count.
+    voxels writes each gradient once, divided by the count;
+  * :func:`occ_march` (K7, ``raycast_occ_kernel``), behind :func:`raycast_occ`:
+    the binary occupancy image of the missing-colour weights, one thread per
+    ray walking the lattice to its first sample whose nearest voxel is
+    occupied (the JAX package's lockstep loop would read "is any ray still
+    marching" back to the host at every round).
 
 Each has its plain PyTorch version beside it (``*_plain``). Dispatch is by
 where the tensors live and by nothing else: a CUDA tensor launches the kernel
@@ -72,7 +77,8 @@ COARSE_BLOCK = 8
 SCATTER_ROW = 24
 
 # launches of each kernel by its wrapper (and by nothing else)
-launch_counts = {"raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0}
+launch_counts = {"raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0,
+                 "raycast_occ": 0}
 _libs = {}
 
 
@@ -220,7 +226,10 @@ def march_setup(valid, view, intrinsics, cfg: RaycastConfig) -> MarchSetup:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Argument types of a library built from ``csrc/raycast.cu``."""
+    """Argument types of a library built from ``csrc/raycast.cu``. K7
+    (``spsg_raycast_occ``) is bound where the library has it, so that an
+    older ``raycast.cu`` without it binds too (``chip_smoke.py
+    --baseline-raycast-source``)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.spsg_raycast_march.restype = i
     lib.spsg_raycast_march.argtypes = [p] * 15 + [i] * 6 + [f, f, i, i, p]
@@ -228,6 +237,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.spsg_raycast_shade.argtypes = [p] * 10 + [i] * 3 + [p]
     lib.spsg_raycast_scatter.restype = i
     lib.spsg_raycast_scatter.argtypes = [p] * 11 + [i] * 3 + [p]
+    if hasattr(lib, "spsg_raycast_occ"):
+        lib.spsg_raycast_occ.restype = i
+        lib.spsg_raycast_occ.argtypes = [p] * 7 + [i] * 6 + [f, i, p]
     return lib
 
 
@@ -657,6 +669,108 @@ def scatter_plain(g_color, g_normal, g_semantic, g_depth, hit, hit_idx, n_voxels
     accn = acc[..., :-1] / torch.clamp(acc[..., -1:], min=1.0)
     return (accn[..., 6 + NUM_CLASSES].contiguous(), accn[..., 0:3].contiguous(),
             accn[..., 3:6].contiguous(), accn[..., 6:6 + NUM_CLASSES].contiguous())
+
+
+# ---------------------------------------------------------------------------
+# K7: the occupancy march
+# ---------------------------------------------------------------------------
+
+
+def occ_march(occ: torch.Tensor, setup: MarchSetup, cfg: RaycastConfig,
+              samples: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per ray, 1 if a lattice sample ``t0 + k * ray_increment`` (k = 0
+    first, up to ``t_stop`` and at most ``cfg.max_samples``) has an occupied
+    nearest voxel: (B,P) uint8. occ (B,Z,Y,X) bool. CUDA tensors go to the
+    kernel (K7), CPU tensors to :func:`occ_march_plain`; the two agree on
+    every pixel. On a card, int32 (B,P) ``samples`` receives per ray the
+    samples taken (to measure the work; :func:`occ_march_plain` counts them
+    too)."""
+    if _device_kind(occ, "raycast_occ") == "cpu":
+        return occ_march_plain(occ, setup, cfg)
+    B, Z, Y, X = occ.shape
+    P = setup.t0.shape[1]
+    if P % cfg.width:
+        raise ValueError(f"raycast_occ: {P} rays a row is not a multiple of width {cfg.width}")
+    _check_cuda("raycast_occ", occ, *setup)
+    hit = torch.empty((B, P), dtype=torch.uint8, device=occ.device)
+    with torch.cuda.device(occ.device):
+        err = _library().spsg_raycast_occ(
+            occ.data_ptr(), setup.origin.data_ptr(), setup.direction.data_ptr(),
+            setup.t0.data_ptr(), setup.t_stop.data_ptr(), hit.data_ptr(), _ptr(samples),
+            B, Z, Y, X, P, cfg.width, cfg.ray_increment, cfg.max_samples, _stream(occ))
+    _raise_on(err, "raycast_occ", occ.shape)
+    launch_counts["raycast_occ"] += 1
+    return hit
+
+
+def occ_march_plain(occ, setup: MarchSetup, cfg: RaycastConfig, return_samples: bool = False):
+    """Plain PyTorch version of :func:`occ_march` (any device): the JAX
+    package's lockstep loop without its coarse skip (which is exact),
+    ``march_block`` samples a round; it stops when no ray is left (a host read
+    per round on a card). With ``return_samples`` also (B,P) int64, per ray the
+    samples K7 takes: up to and including the first occupied one, or every
+    sample up to ``t_stop`` and the cap."""
+    B, Z, Y, X = occ.shape
+    dims = (Z, Y, X)
+    dev = occ.device
+    flat = occ.reshape(B, -1)
+    origin, direction, _, t0, t_stop = setup
+    P = t0.shape[1]
+    ox, oy, oz = (origin[:, None, i, None] for i in range(3))
+    dx, dy, dz = (direction[..., i, None] for i in range(3))
+    F_ = cfg.march_block
+    hit = torch.zeros((B, P), dtype=torch.bool, device=dev)
+    samples = torch.zeros((B, P), dtype=torch.int64, device=dev)
+    for k0 in range(0, cfg.max_samples, F_):
+        # the same float t as the kernel's: the sample index is exact
+        ks = torch.arange(k0, k0 + F_, dtype=torch.float32, device=dev)
+        t = t0[..., None] + ks * cfg.ray_increment
+        alive = ~hit & (t[..., 0] <= t_stop)
+        if not bool(alive.any()):
+            break
+        in_range = t <= t_stop[..., None]
+        ix, iy, iz = (torch.floor(o + t * d + 0.5).to(torch.int64)
+                      for o, d in ((ox, dx), (oy, dy), (oz, dz)))
+        inb = (ix >= 0) & (iy >= 0) & (iz >= 0) & (ix < X) & (iy < Y) & (iz < Z)
+        idx = _flat_index(ix.clamp(0, X - 1), iy.clamp(0, Y - 1), iz.clamp(0, Z - 1), dims)
+        got = torch.gather(flat, 1, idx.reshape(B, -1)).reshape(idx.shape) & inb & in_range
+        first = torch.argmax(got.to(torch.uint8), dim=-1)
+        newly = alive & got.any(dim=-1)
+        samples += torch.where(newly, first + 1, torch.where(alive, in_range.sum(dim=-1), 0))
+        hit |= newly
+    hit = hit.to(torch.uint8)
+    return (hit, samples) if return_samples else hit
+
+
+def _occ_grid(occ: torch.Tensor) -> torch.Tensor:
+    if occ.dim() != 4:
+        raise ValueError(f"raycast_occ: occ must be (B,Z,Y,X), got {tuple(occ.shape)}")
+    return (occ if occ.dtype == torch.bool else occ != 0).contiguous()
+
+
+def occ_setup(occ, view, intrinsics, cfg: RaycastConfig):
+    """(occ as a contiguous bool grid, the rays of :func:`march_setup` clipped
+    to the box of its occupied voxels)."""
+    occ = _occ_grid(occ)
+    with torch.no_grad():
+        return occ, march_setup(occ, view, intrinsics, cfg)
+
+
+def raycast_occ(occ, view, intrinsics, cfg: RaycastConfig) -> torch.Tensor:
+    """Binary occupancy raycast (the JAX package's ``raycast_occ``; reference
+    raycast_occ_cuda_kernel): 1 where a lattice sample of the pixel's ray has
+    an occupied nearest voxel. occ (B,Z,Y,X) bool or uint8 (0 = empty); view
+    (B,4,4) camera->grid; intrinsics (B,4). Returns (B,H,W) uint8. The rays are
+    the march's (:func:`march_setup` on the occupied voxels), walked by
+    :func:`occ_march` (K7 on a card)."""
+    occ, setup = occ_setup(occ, view, intrinsics, cfg)
+    return occ_march(occ, setup, cfg).reshape(occ.shape[0], cfg.height, cfg.width)
+
+
+def raycast_occ_plain(occ, view, intrinsics, cfg: RaycastConfig) -> torch.Tensor:
+    """Plain PyTorch version of :func:`raycast_occ` (any device)."""
+    occ, setup = occ_setup(occ, view, intrinsics, cfg)
+    return occ_march_plain(occ, setup, cfg).reshape(occ.shape[0], cfg.height, cfg.width)
 
 
 # ---------------------------------------------------------------------------

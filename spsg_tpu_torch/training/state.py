@@ -1,12 +1,20 @@
 """Generator and discriminator construction, initialisation, optimizers and
-generator checkpoints (PyTorch counterpart of ``spsg_tpu/training/state.py``).
-Checkpoints of the discriminator come with the training loop (ROADMAP.md)."""
+checkpoints (PyTorch counterpart of ``spsg_tpu/training/state.py``).
+
+A checkpoint is one ``torch.save`` file (tensors on the CPU):
+``{"epoch", "state_dict"}`` (the generator's parameters and BatchNorm
+statistics) and, when it holds the whole training state, ``"optimizer"`` (the
+generator's Adam: moments and per-parameter step counts) and, with a
+discriminator, ``"disc_state_dict"``, ``"sn_state"`` (its spectral ``u`` /
+``sigma``) and ``"disc_optimizer"``: what the JAX package's orbax checkpoint
+holds in its ``GenState`` / ``DiscState``. Serving reads ``"state_dict"``
+only."""
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
@@ -115,25 +123,100 @@ def disc_optimizer(cfg: TrainConfig, params) -> torch.optim.Adam:
                             weight_decay=cfg.weight_decay)
 
 
-def save_checkpoint(path: str, gen: Generator, epoch: int) -> None:
-    """``torch.save`` of ``{"epoch", "state_dict"}`` (tensors on the CPU)."""
+def save_checkpoint(path: str, model: Union[Generator, "Trainer"], epoch: int) -> None:
+    """``torch.save`` of a checkpoint (the module docstring's layout), tensors
+    on the CPU. ``model`` is a ``Trainer`` (the whole training state, as the
+    JAX package's ``save_checkpoint`` of both states) or a bare generator (its
+    weights only)."""
+    def cpu(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.detach().cpu()
+        if isinstance(tree, dict):
+            return {k: cpu(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(cpu(v) for v in tree)
+        return tree
+
+    gen = model if isinstance(model, torch.nn.Module) else model.generator
+    ckpt = {"epoch": int(epoch), "state_dict": cpu(gen.state_dict())}
+    if not isinstance(model, torch.nn.Module):
+        ckpt["optimizer"] = cpu(model.optimizer.state_dict())
+        if model.discriminator is not None:
+            ckpt["disc_state_dict"] = cpu(model.discriminator.state_dict())
+            ckpt["sn_state"] = cpu(model.sn_state)
+            ckpt["disc_optimizer"] = cpu(model.disc_optimizer.state_dict())
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    sd = {k: v.detach().cpu() for k, v in gen.state_dict().items()}
-    torch.save({"epoch": int(epoch), "state_dict": sd}, path)
+    torch.save(ckpt, path)
 
 
-def load_checkpoint(path: str, gen: Generator) -> Tuple[Generator, int]:
-    """Load a checkpoint written by :func:`save_checkpoint` (or by
-    ``tools/export_torch_checkpoint.py``) into ``gen``. Returns
-    ``(gen, epoch)``. Checkpoints of the original PyTorch reference (``.pth``)
-    use other module names and are not read yet (ROADMAP.md)."""
+def _read(path: str) -> dict:
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(ckpt, dict) or "state_dict" not in ckpt:
         raise ValueError(f"{path!r} is not a spsg_tpu_torch checkpoint ({{'epoch','state_dict'}})")
     if any(k.split(".")[1:2] and k.split(".")[1].isdigit() for k in ckpt["state_dict"]):
         raise NotImplementedError(
             f"{path!r} looks like a checkpoint of the original PyTorch reference; "
-            "loading those is not ported yet (ROADMAP.md)"
+            "loading those is not ported yet (ROADMAP.md, Queue A item 8)"
         )
-    gen.load_state_dict(ckpt["state_dict"], strict=True)
-    return gen, int(ckpt.get("epoch", 0))
+    return ckpt
+
+
+def _set_discriminator(trainer: "Trainer", ckpt: dict, path: str) -> None:
+    if trainer.discriminator is None:
+        raise ValueError(f"{path!r} holds a discriminator but none is configured "
+                         "(weight_disc_loss == 0)")
+    trainer.discriminator.load_state_dict(ckpt["disc_state_dict"], strict=True)
+    trainer.sn_state = {k: {kk: vv.to(trainer.device) for kk, vv in v.items()}
+                        for k, v in ckpt["sn_state"].items()}
+    if "disc_optimizer" in ckpt:
+        trainer.disc_optimizer.load_state_dict(ckpt["disc_optimizer"])
+
+
+def load_discriminator(path: str, trainer: "Trainer") -> None:
+    """The discriminator, its spectral state and its Adam from the checkpoint
+    at ``path`` into ``trainer`` (``--retrain_disc``); the generator slot of
+    that file is not read. Raises ``ValueError`` if the file holds no
+    discriminator (the JAX package's ``run_training`` does the same)."""
+    ckpt = _read(path)
+    if "disc_state_dict" not in ckpt:
+        raise ValueError(f"--retrain_disc {path!r}: checkpoint has no discriminator state")
+    _set_discriminator(trainer, ckpt, path)
+
+
+def load_checkpoint(path: str, model):
+    """Load a checkpoint written by :func:`save_checkpoint` (or by
+    ``tools/export_torch_checkpoint.py``) into ``model``, a ``Trainer`` or a
+    bare generator. Returns ``(model, epoch)``.
+
+    Into a ``Trainer``: the generator, and whatever else of the training state
+    the file holds, on the trainer's device: the generator's Adam (moments and
+    step counts; ``Optimizer.load_state_dict`` puts them beside the
+    parameters) and the discriminator with its spectral state and Adam. What
+    the file lacks keeps its fresh state: an export of a JAX checkpoint carries
+    no Adam moments (as the JAX package's ``.pth`` path), and one written
+    without a discriminator leaves the trainer's as initialised. Checkpoints of
+    the original PyTorch reference (``.pth``) use other module names and are
+    not read yet (ROADMAP.md)."""
+    ckpt = _read(path)
+    epoch = int(ckpt.get("epoch", 0))
+    if isinstance(model, torch.nn.Module):
+        model.load_state_dict(ckpt["state_dict"], strict=True)
+        return model, epoch
+    model.generator.load_state_dict(ckpt["state_dict"], strict=True)
+    if "optimizer" in ckpt:
+        model.optimizer.load_state_dict(ckpt["optimizer"])
+    if "disc_state_dict" in ckpt and model.discriminator is not None:
+        _set_discriminator(model, ckpt, path)
+    return model, epoch
+
+
+def load_any_checkpoint(path: str, model):
+    """A checkpoint of this package, or (``.pth``) one of the original PyTorch
+    reference, which is not read yet: it raises, naming ROADMAP.md (the JAX
+    package's ``load_any_checkpoint`` converts those). Returns ``(model,
+    epoch)`` as :func:`load_checkpoint`."""
+    if path.endswith(".pth"):
+        raise NotImplementedError(
+            f"{path!r}: loading checkpoints of the original PyTorch reference is not "
+            "ported yet (ROADMAP.md, Queue A item 8)")
+    return load_checkpoint(path, model)

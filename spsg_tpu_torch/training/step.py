@@ -22,11 +22,21 @@ either case. Deciding that predicate reads one flag back to the host per
 step; the depth chain's early exit reads at most ``max_depth_fill_iters + 1``
 more (``ops/depth.py``). ``skip_batch_on_bad_depth`` reads one more.
 
-Not ported (each raises ``NotImplementedError``): style/content losses (need
-VGG), ``weight_missing_color > 1`` under ``use_2d`` (needs the occupancy
-raycast ``raycast_occ``), and the cached view precomputation
-(``precompute_views`` / ``cache_renders``, which go with the training loop).
-The JAX package's compiler scheduling (``step_many``, ``compact_resid``,
+``weight_missing_color > 1`` weights the colour L1 and the discriminator's
+patches where the target surface lies in a region the input misses: two
+occupancy raycasts (``raycast_occ``, kernel K7 on a card) a step.
+:meth:`Trainer.precompute_views` computes what depends on the batch alone (the
+input and target march hits, the depth chain, the occupancy masks); a step fed
+those (``precomp``, as the training loop's ``RenderCache`` does) shades the
+cached hits and marches only the prediction, with the same results to the bit.
+The depth chain decides per frame whether to filter and fill
+(``ops/depth.py::fill_depth_holes``), so that a frame's views do not depend
+on its batch-mates; the JAX package decides for the whole batch (the two
+differ only on a batch that mixes frames with and without holes, ROADMAP.md
+Queue C).
+
+Not ported (raises ``NotImplementedError``): the style/content losses (need
+VGG). The JAX package's compiler scheduling (``step_many``, ``compact_resid``,
 ``remat``, ``fuse_raycast``, ``pair_raycast``) has no counterpart: the three
 raycasts run one after the other, which is the JAX package's default.
 
@@ -37,6 +47,7 @@ step.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
@@ -50,6 +61,7 @@ from ..losses import semantic as sem_losses
 from ..losses import twod as twod_losses
 from ..ops import depth as depth_ops
 from ..ops import normals3d
+from ..ops import raycast as raycast_ops
 from ..ops.raycast import RaycastConfig, raycast
 from .config import StepFlags, TrainConfig
 from .state import (
@@ -68,6 +80,28 @@ def _raycast_cfg(cfg: TrainConfig) -> RaycastConfig:
         thresh_sample_dist=cfg.thresh_sample_dist,
         march_block=cfg.march_block,
     )
+
+
+def _frames(batch):
+    """The batch's frames flattened to a B*F frame batch (reference RaycastRGBD
+    max_num_frames, style.py:9-16): (images_depth (B*F,H,W), images_color
+    (B*F,3,H,W) or None, view (B*F,4,4) camera->grid, intrinsics (B*F,4), and a
+    function that repeats a (B, ...) volume F times)."""
+    images_depth = batch["images_depth"]
+    images_color = batch.get("images_color")
+    view, intr = batch["images_view"], batch["images_intrinsic"]
+    n_frames = 1
+    if images_depth.dim() == 4:  # (B, F, H, W)
+        n_frames = images_depth.shape[1]
+        images_depth = images_depth.reshape((-1,) + tuple(images_depth.shape[2:]))
+        if images_color is not None:
+            images_color = images_color.reshape((-1,) + tuple(images_color.shape[2:]))
+        view, intr = view.reshape(-1, 4, 4), intr.reshape(-1, 4)
+
+    def rep(g):
+        return g.repeat_interleave(n_frames, dim=0) if n_frames > 1 else g
+
+    return images_depth, images_color, view, intr, rep
 
 
 def _sanitize(img, fill=0.0):
@@ -108,7 +142,7 @@ class Trainer:
     # -- public API ---------------------------------------------------------
 
     def step(self, batch, flags: StepFlags, generator: Optional[torch.Generator] = None,
-             gp_alpha=None) -> Dict[str, torch.Tensor]:
+             gp_alpha=None, precomp=None) -> Dict[str, torch.Tensor]:
         """One train step (``flags.train``) or validation pass (eval-mode
         BatchNorm, no update, no change of any state).
 
@@ -118,18 +152,25 @@ class Trainer:
         ``images_view`` (B[,F],4,4) and ``images_intrinsic`` (B[,F],4).
         ``generator`` (CPU ``torch.Generator``, default the trainer's own) draws
         the gradient penalty's ``alpha`` (``wgan_gp``), unless ``gp_alpha``
-        (B,1,1,1) is given. Returns the metrics under the JAX package's names as
-        0-dim tensors on the device."""
+        (B,1,1,1) is given. ``precomp`` is what :meth:`precompute_views` gives
+        for this batch, or a tuple of per-sample slices of it (the training
+        loop's cache entries), concatenated here; the 2D block then uses it in
+        place of the input and target marches and the depth chain. Returns the
+        metrics under the JAX package's names as 0-dim tensors on the device."""
         cfg = self.cfg
         self._check_ported(flags)
         batch = self._to_device(batch)
+        if isinstance(precomp, (list, tuple)):
+            precomp = {k: torch.cat([p[k] for p in precomp], dim=0) for k in precomp[0]}
+        if precomp is not None:
+            precomp = self._to_device(precomp)
         train = flags.train
         self.generator.train(train)
         skip_on_depth = train and flags.use_2d and cfg.skip_batch_on_bad_depth
         saved_buffers = ({k: v.clone() for k, v in self.generator.named_buffers()}
                          if skip_on_depth else None)
         with torch.set_grad_enabled(train):
-            loss_rest, metrics, aux = self._forward_losses(batch, flags)
+            loss_rest, metrics, aux = self._forward_losses(batch, flags, precomp)
         gate = aux["gate2d"]
         total_loss = loss_rest
         if flags.use_disc and self.discriminator is not None:
@@ -159,12 +200,42 @@ class Trainer:
         metrics["loss"] = total_loss
         return {k: v.detach() for k, v in metrics.items()}
 
-    def precompute_views(self, batch):
-        """The JAX package's cached view precomputation (input / target march
-        hits and the depth chain once per sample) goes with the training loop."""
-        raise NotImplementedError(
-            "precompute_views: the cached view precomputation goes with the training loop, "
-            "which is not ported yet (ROADMAP.md, Queue A item 7)")
+    def precompute_views(self, batch) -> Dict[str, torch.Tensor]:
+        """What the 2D block computes from the batch alone, once per (chunk,
+        frames) (``spsg_tpu/training/step.py::precompute_views``): the input
+        and projected-target marches, the depth chain and, with
+        ``weight_missing_color > 1``, the occupancy masks. None of it depends on
+        the parameters, and no sample's entries on another's (the depth chain
+        runs per frame), so ``step(..., precomp=...)`` gives the same losses and
+        updates to the bit as computing them in the step.
+
+        Returns, in the flattened (B*F, ...) frame layout, on the device:
+        ``in_hit`` / ``in_hit_idx`` / ``in_depth`` (B*F, P), the same
+        ``tgt_*`` with ``project_targets``, ``images_normals`` (B*F, H, W, 3),
+        ``frames_ok`` (B*F,) and, with ``weight_missing_color > 1``,
+        ``missing2d`` / ``tgt_mask2d`` (B*F, H, W) uint8. Reads
+        ``input``, ``target_sdf``, ``images_depth``, ``images_view`` and
+        ``images_intrinsic``."""
+        cfg = self.cfg
+        trunc = cfg.truncation
+        rc = _raycast_cfg(cfg)
+        batch = self._to_device(batch)
+        with torch.no_grad():
+            images_depth, _, view, intr, rep = _frames(batch)
+            target_sdf = rep(geo_losses.compute_targets(batch["target_sdf"], trunc))
+            input_sdf = rep(batch["input"][..., 0])
+            images_normals, _, frames_ok = depth_ops.depth_to_normals(
+                images_depth, intr, cfg.max_depth_fill_iters)
+            out = dict(images_normals=images_normals, frames_ok=frames_ok)
+            grids = [("in", input_sdf)] + ([("tgt", target_sdf)] if cfg.project_targets else [])
+            for name, sdf in grids:
+                hits = raycast_ops.find_surface_crossings(sdf, sdf.abs() < trunc, view, intr, rc)
+                out.update({f"{name}_hit": hits["hit"], f"{name}_hit_idx": hits["hit_idx"],
+                            f"{name}_depth": hits["depth"]})
+            if cfg.weight_missing_color > 1:
+                out["missing2d"], out["tgt_mask2d"] = self._occupancy_masks(
+                    input_sdf, target_sdf, view, intr)
+        return out
 
     # -- internals ----------------------------------------------------------
 
@@ -174,14 +245,6 @@ class Trainer:
                 raise NotImplementedError(
                     f"StepFlags.{name}: the style/content losses need VGG, which is not "
                     "ported yet (ROADMAP.md, Queue A item 9)")
-        if flags.use_2d and self.cfg.weight_missing_color > 1:
-            raise NotImplementedError(
-                "weight_missing_color > 1: the missing-colour weights need the occupancy "
-                "raycast (raycast_occ, kernel H3), which is not ported yet (ROADMAP.md)")
-        if flags.use_2d and self.cfg.cache_renders:
-            raise NotImplementedError(
-                "cache_renders: the cached view precomputation goes with the training "
-                "loop, which is not ported yet (ROADMAP.md, Queue A item 7)")
 
     def _to_device(self, batch):
         out = {}
@@ -193,6 +256,20 @@ class Trainer:
                     v = v.float()
                 out[k] = v.to(self.device, non_blocking=True)
         return out
+
+    def _occupancy_masks(self, input_sdf, target_sdf, view, intr):
+        """(missing2d, tgt_mask2d) (B, H, W) uint8: the rays that meet target
+        surface in 8^3 blocks without input geometry, and the rays that meet
+        the target's |sdf| < 1 shell, both within ``raycast_occ_depth_max``
+        (reference train.py:546-554, a shallower range than the colour
+        raycast's, train.py:146-148)."""
+        cfg = self.cfg
+        trunc = cfg.truncation
+        rc_occ = dataclasses.replace(_raycast_cfg(cfg),
+                                     depth_max=cfg.raycast_occ_depth_max / cfg.voxelsize)
+        missing3d = geo_losses.missing_geo_mask(input_sdf.abs() < trunc - 0.01, target_sdf, trunc)
+        return (raycast_ops.raycast_occ(missing3d, view, intr, rc_occ),
+                raycast_ops.raycast_occ(target_sdf.abs() < 1, view, intr, rc_occ))
 
     def _disc(self, x, sn_state, update: bool):
         return self.discriminator(x, sn_state, update_sn_stats=update)
@@ -215,7 +292,7 @@ class Trainer:
             real_l, fake_l = gan_losses.discriminator_loss(
                 cfg.disc_loss_type, d_real, d_fake,
                 aux["valid_patches"] if cfg.patch_disc else None,
-                None,
+                aux["weight_color_disc"] if cfg.patch_disc else None,
                 sample_weight_real=aux["sample_weight_real"] if weighted else None,
                 sample_weight_fake=aux["sample_weight_fake"] if weighted else None,
             )
@@ -254,7 +331,7 @@ class Trainer:
         metrics["loss_gen"] = gen_l.detach()
         return gen_l
 
-    def _forward_losses(self, batch, flags: StepFlags):
+    def _forward_losses(self, batch, flags: StepFlags, precomp=None):
         """Everything but the adversarial generator term (``_forward_losses``
         of the JAX package). Returns (loss, metrics, aux)."""
         cfg = self.cfg
@@ -303,43 +380,30 @@ class Trainer:
 
         zero = torch.zeros((), device=self.device)
         aux = dict(synth=None, target_img=None, valid_patches=None, gate2d=zero,
-                   gate_depth=zero, sample_weight_real=None, sample_weight_fake=None)
+                   gate_depth=zero, sample_weight_real=None, sample_weight_fake=None,
+                   weight_color_disc=None)
         if flags.use_2d:
             loss2d, metrics2d, aux2d = self._2d_losses(
-                batch, flags, target_sdf, pred_sdf_g, pred_color, pred_sem, surface_pred)
+                batch, flags, target_sdf, pred_sdf_g, pred_color, pred_sem, surface_pred,
+                precomp)
             loss = loss + loss2d
             metrics.update(metrics2d)
             aux.update(aux2d)
         return loss, metrics, aux
 
     def _2d_losses(self, batch, flags, target_sdf, pred_sdf_g, pred_color, pred_sem,
-                   surface_pred):
+                   surface_pred, precomp=None):
         """The 2D view-guided block (reference train.py:524-752) without the
-        adversarial terms. Returns (loss2d, metrics, aux)."""
+        adversarial terms; with ``precomp`` (:meth:`precompute_views`) the
+        input and target hits, the depth chain and the occupancy masks come
+        from it. Returns (loss2d, metrics, aux)."""
         cfg = self.cfg
         trunc = cfg.truncation
         rc = _raycast_cfg(cfg)
         metrics: Dict[str, torch.Tensor] = {}
 
-        # several frames a chunk: (B, F, ...) images flatten to a B*F frame
-        # batch and every volume repeats F times (reference RaycastRGBD
-        # max_num_frames, style.py:9-16)
-        images_depth = batch["images_depth"]
-        images_color = batch["images_color"]
-        if images_depth.dim() == 4:  # (B, F, H, W)
-            n_frames = images_depth.shape[1]
-            images_depth = images_depth.reshape((-1,) + tuple(images_depth.shape[2:]))
-            images_color = images_color.reshape((-1,) + tuple(images_color.shape[2:]))
-            view = batch["images_view"].reshape(-1, 4, 4)
-            intr = batch["images_intrinsic"].reshape(-1, 4)
-        else:
-            n_frames = 1
-            view = batch["images_view"]  # (B,4,4) cam->grid
-            intr = batch["images_intrinsic"]
+        images_depth, images_color, view, intr, rep = _frames(batch)
         images_color = images_color.permute(0, 2, 3, 1)  # (B*F,H,W,3)
-
-        def rep(g):
-            return g.repeat_interleave(n_frames, dim=0) if n_frames > 1 else g
 
         target_sdf = rep(target_sdf)
         pred_sdf_g = rep(pred_sdf_g)
@@ -352,11 +416,25 @@ class Trainer:
         input_grid = rep(batch["input"])
         target_colors255 = rep(batch["target_colors"])
 
-        images_normals, _, frames_ok = depth_ops.depth_to_normals(
-            images_depth, intr, cfg.max_depth_fill_iters)
+        if precomp is not None:
+            images_normals, frames_ok = precomp["images_normals"], precomp["frames_ok"]
+        else:
+            images_normals, _, frames_ok = depth_ops.depth_to_normals(
+                images_depth, intr, cfg.max_depth_fill_iters)
         # the reference skips the sample when holes remain (train.py:539-541)
         gate2d = frames_ok.all().float()
         view_inv_rot = torch.linalg.inv(view)[:, :3, :3]
+
+        # per-pixel colour weights where the input misses the target (train.py:546-554)
+        weight_color = None
+        if cfg.weight_missing_color > 1:
+            if precomp is not None:
+                missing2d, tgt_mask2d = precomp["missing2d"], precomp["tgt_mask2d"]
+            else:
+                missing2d, tgt_mask2d = self._occupancy_masks(
+                    input_grid[..., 0], target_sdf, view, intr)
+            weight_color = torch.where((tgt_mask2d != 0) & (missing2d != 0),
+                                       cfg.weight_missing_color, 1.0)
 
         with torch.no_grad():
             # input grids (train.py:556-577)
@@ -372,13 +450,19 @@ class Trainer:
             else:
                 sem_onehot = None
             # three separate raycasts, the input and the projected target
-            # without gradient (reference train.py:563,590,626)
-            rc_in = raycast(input_sdf, input_valid, input_grid[..., 1:4], input_normals, None,
-                            view, intr, rc)
+            # without gradient (reference train.py:563,590,626); cached hits
+            # are only shaded
+            def render(name, sdf, valid, color, normal, semantic):
+                if precomp is None:
+                    return raycast(sdf, valid, color, normal, semantic, view, intr, rc)
+                hits = {k: precomp[f"{name}_{k}"] for k in ("hit", "hit_idx", "depth")}
+                return raycast_ops.shade_hits(sdf, color, normal, semantic, hits, rc)
+
+            rc_in = render("in", input_sdf, input_valid, input_grid[..., 1:4], input_normals, None)
             rc_tgt = None
             if cfg.project_targets:
-                rc_tgt = raycast(target_sdf, tgt_valid, target_colors255 / 255.0, tgt_normals,
-                                 sem_onehot, view, intr, rc)
+                rc_tgt = render("tgt", target_sdf, tgt_valid, target_colors255 / 255.0,
+                                tgt_normals, sem_onehot)
 
         # prediction grids (train.py:617-632)
         pred_normals = normals3d.surface_normals(pred_sdf_g, surface_pred, view_inv_rot)
@@ -413,7 +497,7 @@ class Trainer:
 
         # colour L1 (train.py:642-648)
         if flags.pred_color and cfg.weight_color_loss > 0:
-            loss_color = twod_losses.color_l1_loss(rc_pred.color, images_color, None)
+            loss_color = twod_losses.color_l1_loss(rc_pred.color, images_color, weight_color)
             loss2d = loss2d + cfg.weight_color_loss * gate2d * loss_color
             metrics["loss_color"] = loss_color
 
@@ -423,12 +507,18 @@ class Trainer:
         valid_px = raycast_stack.detach() != NEG_INF
         num_valid = valid_px.sum()
         gate_numvalid = (num_valid > cfg.min_num_valid_2d).float()
-        valid_patches = None
+        valid_patches = weight_color_disc = None
         if (self.discriminator is not None and cfg.patch_disc
                 and cfg.patch_size < cfg.style_height):
             vp = self.discriminator.compute_valids(valid_px[..., -1:].float())
             valid_patches = vp[..., 0] > cfg.valid_thresh
             gate_numvalid = gate_numvalid * (valid_patches.sum() > 0).float()
+            if weight_color is not None:
+                # per-patch discriminator weights from the missing-colour map
+                # (train.py:657-661)
+                wcd = self.discriminator.compute_valids(weight_color[..., None])
+                weight_color_disc = (cfg.weight_missing_color * wcd
+                                     / torch.clamp(wcd.max(), min=1e-12))
 
         # 2D semantic CE (train.py:743-747)
         if flags.pred_semantic and not cfg.pred_3d_semantic and target2d_label is not None:
@@ -467,5 +557,6 @@ class Trainer:
                    # the depth-fill gate alone (the reference's whole-batch skip)
                    gate2d=gate2d * gate_numvalid, gate_depth=gate2d,
                    sample_weight_real=sample_weight_real,
-                   sample_weight_fake=sample_weight_fake, num_valid=num_valid)
+                   sample_weight_fake=sample_weight_fake, num_valid=num_valid,
+                   weight_color_disc=weight_color_disc)
         return loss2d, metrics, aux

@@ -75,6 +75,46 @@ def test_exported_checkpoint_loads_and_serves(tmp_path):
     _check_iou_txt(os.path.join(out, "IoU.txt"), summary)
 
 
+def test_exported_checkpoint_with_a_discriminator_loads_into_a_trainer(tmp_path):
+    """tools/export_torch_checkpoint.py carries the discriminator and its
+    spectral state across too: an orbax checkpoint of the JAX package written
+    here (nf_gen 4, a discriminator), exported and loaded into a port Trainer,
+    gives the same generator, discriminator and spectral state; both Adams
+    start afresh (the export carries no moments)."""
+    import jax
+
+    from spsg_tpu.training import TrainConfig as JaxTrainConfig
+    from spsg_tpu.training.state import init_states, save_checkpoint
+    from spsg_tpu_torch.models.convert import (
+        flax_to_torch_discriminator, flax_to_torch_generator)
+    from spsg_tpu_torch.training.step import Trainer
+
+    kw = dict(input_dim=H.CHUNK, nf_gen=4, nf_disc=4, style_width=48, style_height=32,
+              patch_size=16)
+    jcfg = JaxTrainConfig(**kw)
+    gs, ds = init_states(jcfg, jax.random.PRNGKey(3))
+    orbax_dir = str(tmp_path / "model-epoch4")
+    save_checkpoint(orbax_dir, gs, ds, 5)
+    pt = str(tmp_path / "epoch4.pt")
+    assert export_torch_checkpoint.export(orbax_dir, pt, jcfg) == 5
+
+    trainer = Trainer(TrainConfig(**kw), device="cpu", seed=0)
+    trainer, epoch = state.load_checkpoint(pt, trainer)
+    assert epoch == 5
+    gen = flax_to_torch_generator(H.to_numpy_tree(
+        {"params": gs.params, "batch_stats": gs.batch_stats}))
+    disc, sn = flax_to_torch_discriminator(H.to_numpy_tree(ds.params),
+                                           H.to_numpy_tree(ds.spectral_stats))
+    for got, want in ((trainer.generator.state_dict(), gen),
+                      (trainer.discriminator.state_dict(), disc)):
+        assert got.keys() == want.keys()
+        assert all(torch.equal(v, want[k]) for k, v in got.items())
+    assert sn.keys() == trainer.sn_state.keys() and len(sn) == 2  # 2 convs at 16-pixel patches
+    assert all(torch.equal(trainer.sn_state[k][kk], v) for k, s in sn.items()
+               for kk, v in s.items())
+    assert not trainer.optimizer.state and not trainer.disc_optimizer.state
+
+
 def test_checkpoint_round_trip_and_foreign_files(tmp_path):
     cfg = TrainConfig(input_dim=H.CHUNK, nf_gen=4)
     a = state.init_generator(cfg, torch.Generator().manual_seed(1), device="cpu")

@@ -1,8 +1,8 @@
 """The port's SDF-gradient normals (spsg_tpu_torch/ops/normals3d.py) and depth
 chain (spsg_tpu_torch/ops/depth.py) against the JAX package's on the CPU: the
 six tests of tests/test_depth_ops.py on the port, parity on rendered frames
-with punched holes (filled depth and all_valid within 1e-6; the hole decision
-covers the whole batch), normals with a rotation, and a finite SDF gradient where the normal's
+with punched holes (filled depth and all_valid within 1e-6; the port decides
+per frame, so it is held against the JAX chain on each frame alone), normals with a rotation, and a finite SDF gradient where the normal's
 gradient is zero."""
 
 import jax
@@ -99,7 +99,8 @@ def _punch(depth, which, seed=0):
 def test_depth_to_normals_matches_jax(frames, holes):
     depth, intr = frames
     if holes == "one_frame":
-        # frame 1 has no hole: the batch-wide decision still filters and iterates it
+        # frame 1 has no hole: it passes through untouched, where the JAX
+        # package's batch-wide decision filters and iterates it
         depth = _punch(np.where(depth == 0, 1.0, depth).astype(np.float32), [0])
     elif holes == "both_frames":
         depth = _punch(depth, [0, 1], seed=1)
@@ -108,8 +109,10 @@ def test_depth_to_normals_matches_jax(frames, holes):
         depth[1] = 0.0
     elif (depth == 0).any():
         depth = np.where(depth == 0, 1.0, depth).astype(np.float32)
-    jn, jf, jok = (np.asarray(a) for a in JD.depth_to_normals(jnp.asarray(depth),
-                                                               jnp.asarray(intr), 8))
+    # the port decides per frame (ROADMAP.md Queue C): JAX's chain on each frame alone
+    per = [JD.depth_to_normals(jnp.asarray(depth[i:i + 1]), jnp.asarray(intr[i:i + 1]), 8)
+           for i in range(len(depth))]
+    jn, jf, jok = (np.concatenate([np.asarray(p[k]) for p in per]) for k in range(3))
     tn, tf, tok = D.depth_to_normals(H.t(depth), H.t(intr), 8)
     np.testing.assert_array_equal(tok.numpy(), jok)
     np.testing.assert_allclose(tf.numpy(), jf, rtol=0, atol=1e-6)
@@ -120,9 +123,12 @@ def test_depth_to_normals_matches_jax(frames, holes):
     filtered = holes != "none"
     np.testing.assert_allclose(tn.numpy(), jn, rtol=0, atol=2e-5 if filtered else 1e-6)
     if holes == "one_frame":
-        # the frame without holes went through the bilateral filter all the same
-        assert not np.array_equal(tf.numpy()[1], depth[1])
+        np.testing.assert_array_equal(tf.numpy()[1], depth[1])
         assert jok.all()
+        # the deviation: the JAX package on the whole batch filters frame 1 all the same
+        _, jf_batch, _ = JD.depth_to_normals(jnp.asarray(depth), jnp.asarray(intr), 8)
+        assert not np.array_equal(np.asarray(jf_batch)[1], depth[1])
+        np.testing.assert_allclose(tf.numpy()[0], np.asarray(jf_batch)[0], rtol=0, atol=1e-6)
     if holes == "unfillable":
         assert list(jok) == [True, False]
 

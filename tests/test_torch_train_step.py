@@ -242,11 +242,9 @@ def test_colour_branch_is_skipped_when_not_asked_for():
     assert ran == ["geo_3a", "encoder_0a", "decoder_3a", "semantic_head_a"]
 
 
-# what the full step still leaves out, under the flags that reach it: the
-# missing-colour weights (need raycast_occ) under use_2d, and style/content
-# (need VGG) under use_2d and on their own
+# what the full step still leaves out, under the flags that reach it:
+# style/content (need VGG) under use_2d and on their own
 UNPORTED = {
-    "use_2d": (dict(weight_missing_color=3.0), dict(use_2d=True)),
     "use_disc": (dict(weight_disc_loss=0.5), dict(use_2d=True, use_disc=True,
                                                   compute_style=True)),
     "compute_style": ({}, dict(compute_style=True)),

@@ -8,9 +8,9 @@ initial weights of both networks (carried across by the weight bridges):
 metrics, both networks' gradients (the JAX optimizers keep them in their
 state) and their parameters and spectral statistics after the step.
 
-Four JAX steps are compiled here (the default flags, wgan_gp with percent
-weights, two frames a chunk, the 2D semantic loss); the other tests check the
-port on its own."""
+Five JAX steps are compiled here (the default flags, wgan_gp with percent
+weights, two frames a chunk, the 2D semantic loss, the missing-colour
+weights); the other tests check the port on its own."""
 
 import jax
 import jax.numpy as jnp
@@ -40,11 +40,16 @@ TINY = dict(input_dim=DIMS, nf_gen=4, nf_disc=4, batch_size=2, style_width=48, s
 FULL = dict(pred_sdf=True, pred_color=True, pred_semantic=True, use_2d=True, use_disc=True)
 
 
-def _numpy_batch(frames=1):
+def _numpy_batch(frames=1, punch=False):
     batch = jax_synthetic.make_chunk_batch(2, DIMS, image_dims=(48, 32), seed=1,
                                            with_frames=True)
     batch.pop("name")
     batch["weight_occ"] = np.float32(1.0)
+    if punch:
+        # an 8^3 block of the input emptied: its target surface is what
+        # weight_missing_color weights (~10 % of the pixels)
+        batch["input"] = batch["input"].copy()
+        batch["input"][:, 0:8, 8:16, 8:16, 0] = 3.0
     if frames > 1:
         for k in ("images_depth", "images_color", "images_view", "images_intrinsic"):
             batch[k] = np.stack([batch[k]] * frames, axis=1)
@@ -167,6 +172,9 @@ CASES = {
     "two_frames": {},
     # the semantic loss on the rendered labels instead of the voxels
     "semantic_2d": dict(pred_3d_semantic=False),
+    # colour L1 and discriminator patches weighted where the input misses the
+    # target (two occupancy raycasts, raycast_occ)
+    "missing_colour": dict(weight_missing_color=2.0),
 }
 
 
@@ -174,7 +182,8 @@ CASES = {
 def test_full_step_matches_the_jax_trainer(case):
     kw = CASES[case]
     jt, gs, ds, trainer = _pair(**kw)
-    batch = _numpy_batch(frames=2 if case == "two_frames" else 1)
+    batch = _numpy_batch(frames=2 if case == "two_frames" else 1,
+                         punch=case == "missing_colour")
     rng = jax.random.PRNGKey(1)
     out = jt.step(gs, ds, {k: jnp.asarray(v) for k, v in batch.items()}, rng,
                   JaxStepFlags(**FULL))
@@ -292,17 +301,6 @@ def test_discriminator_update_comes_before_the_adversarial_loss(case, monkeypatc
         assert all(int(s["step"]) == 1 for s in trainer.disc_optimizer.state.values())
     else:
         assert order == [] and _same(d1, disc)
-
-
-@pytest.mark.parametrize("what", ["cache_renders", "precompute_views"])
-def test_the_view_cache_is_left_to_the_training_loop(what):
-    trainer = _port_trainer(cache_renders=4 if what == "cache_renders" else 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "cache_renders":
-            trainer.step(_numpy_batch(), StepFlags(**FULL))
-        else:
-            trainer.precompute_views(_numpy_batch())
-    assert trainer.iteration == 0
 
 
 def test_trainer_runs_on_the_gpu_unless_asked_otherwise():

@@ -1,13 +1,18 @@
 #!/usr/bin/env python
 """Convert a checkpoint trained with the JAX package into the PyTorch port's
-``.pt`` file, so that ``spsg_tpu_torch`` can serve it.
+``.pt`` file, so that ``spsg_tpu_torch`` can serve it or continue the run
+(``python -m spsg_tpu_torch.cli.train --retrain out.pt``).
 
 Reads the orbax checkpoint directory with
 ``spsg_tpu.training.state.load_checkpoint`` (this needs jax, flax and orbax),
-carries the generator's parameters and BatchNorm statistics across
-``spsg_tpu_torch.models.convert`` and writes ``{"epoch", "state_dict"}`` with
-``torch.save``. This script is the only place where the two packages meet
-outside the tests.
+carries the generator's parameters and BatchNorm statistics and, when the
+checkpoint has a discriminator, its parameters and spectral statistics across
+``spsg_tpu_torch.models.convert``, and writes ``{"epoch", "state_dict"}`` (and
+``"disc_state_dict"``, ``"sn_state"``) with ``torch.save``. Adam's moments are
+not carried across: a run continued from the file starts both optimizers
+afresh, as the JAX package does from a reference ``.pth``
+(``spsg_tpu/training/state.py::load_any_checkpoint``). This script is the only
+place where the two packages meet outside the tests.
 
 The restore needs the shapes the run was made with. They are read from the
 ``args.txt`` that ``spsg_tpu.cli.train`` writes beside its checkpoints, or
@@ -55,23 +60,32 @@ def config_from_args_txt(path: str, overrides: dict):
 
 
 def export(checkpoint: str, out: str, cfg=None, with_disc=None) -> int:
-    """Write ``out`` from the orbax ``checkpoint``; returns the epoch."""
+    """Write ``out`` from the orbax ``checkpoint`` (the discriminator too when
+    ``with_disc``, by default when ``cfg`` has one); returns the epoch."""
     import jax
     import torch
 
     from spsg_tpu.training.config import TrainConfig
     from spsg_tpu.training.state import init_states, load_checkpoint
-    from spsg_tpu_torch.models.convert import flax_to_torch_generator
+    from spsg_tpu_torch.models.convert import (
+        flax_to_torch_discriminator, flax_to_torch_generator)
 
     cfg = cfg or TrainConfig()
     if with_disc is None:
         with_disc = cfg.weight_disc_loss > 0
     gen_state, disc_state = init_states(cfg, jax.random.PRNGKey(0), with_disc=with_disc)
-    gen_state, _, epoch = load_checkpoint(checkpoint, gen_state, disc_state)
-    variables = jax.tree_util.tree_map(
-        np.asarray, {"params": gen_state.params, "batch_stats": gen_state.batch_stats})
+    gen_state, disc_state, epoch = load_checkpoint(checkpoint, gen_state, disc_state)
+
+    def host(tree):
+        return jax.tree_util.tree_map(np.asarray, tree)
+
+    ckpt = {"epoch": int(epoch), "state_dict": flax_to_torch_generator(
+        host({"params": gen_state.params, "batch_stats": gen_state.batch_stats}))}
+    if disc_state is not None:
+        ckpt["disc_state_dict"], ckpt["sn_state"] = flax_to_torch_discriminator(
+            host(disc_state.params), host(disc_state.spectral_stats))
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
-    torch.save({"epoch": int(epoch), "state_dict": flax_to_torch_generator(variables)}, out)
+    torch.save(ckpt, out)
     return int(epoch)
 
 
