@@ -20,7 +20,10 @@ fails. Phases, each printing one JSON line:
            shapes the main paths give it (batch 1, and the (32,16,16) layer
            also at the paths' batches 8 and 2; the weight gradient also at the
            training batch's heaviest layer, (2,128,64,64) 100->40), in
-           float32 and bfloat16, with times: kernel, plain version, the one
+           float32 and bfloat16 (the two forward kernels also at the whole-scene
+           path's shapes: (1,128,160,192) 100->40 and 20->20, and
+           (1,128,260,328) 100->40, whose input passes 2^32 bytes), with
+           times: kernel, plain version, the one
            library call that computes the same function (F.conv3d, or
            torch.nn.grad.conv3d_weight for the weight gradient, in true
            float32; a yardstick, the port never calls it for these layers),
@@ -61,15 +64,35 @@ fails. Phases, each printing one JSON line:
            its count of samples per ray equal to occ_march_plain's; bound: the
            grid, the rays and the image at 3.35 TB/s, or the samples up to
            each ray's first occupied one at 20 float32 operations each; no
-           library yardstick
+           library yardstick; the ray set-up of raycast_occ must not wait for
+           the card (torch's sync debug mode counts 0 host syncs)
   path     the serving path through the entry points a user calls: the
            whole-scene CLI at full width (nf_gen 20, windows (128,64,64),
            stride 32, window batch 8, colour and semantics) on one synthetic
            (128,160,192) scene with seeded random weights; checks the launch
            counters (23 fused + 5 bare convs per window batch, 4 batches), the
-           outputs, IoU.txt; then one window batch with the kernels against
+           outputs, IoU.txt; the same scene fed raw (compact_scene, the CLI's
+           --compact_feed: the clamp, LAB and the mask on the card), counts
+           agreeing with the host-assembled run on 99.9 % of the voxels, seconds
+           of each; then one window batch with the kernels against
            the same batch with the kernels' plain versions, and a small scene
            on the GPU against the same scene on the CPU
+  scene    the single-shot whole-scene CLI (spsg_tpu_torch.cli.test_scene) at its
+           defaults (nf_gen 20, colour and semantics, max_input_height 128,
+           480x384 overhead renders) on its synthetic (128,160,192) scene, the
+           path's seeded weights written as a checkpoint of the original
+           reference (.pth, its module names): launches K1 5, K3 23, K4 3, K5 3;
+           the outputs (shapes, finite), the images and meshes written, every
+           render hitting; seconds per scene (host clock around
+           run_whole_scene, synchronised), voxels per second, each render's
+           seconds, peak memory; the .pt of the same weights gives the same
+           scene to the bit; the forward against its plain-conv twin (within
+           1e-3) at the scene's shape and at the reference's default bound
+           (128,260,328), with the latter's seconds and peak memory; device time
+           of the forward by kind; one scene in bfloat16 (seconds, peak memory,
+           its difference from float32, device time by kind); K4 and K5 against their plain
+           versions on the prediction's render (identical to the bit), with
+           times and bounds
   train    the 3D-loss training path: Trainer(TrainConfig()) at full width (nf_gen 20,
            chunks (128,64,64), batch 2, Adam) on synthetic chunks with seeded
            weights, 3D losses with colour and semantics switched on: the
@@ -120,7 +143,7 @@ fails. Phases, each printing one JSON line:
            the same iteration, epoch and Adam step counts, the parameters held
            to Queue C's Adam rule
   kernels  one line {"kernels": [...]}: per kernel its launches on the
-           paths (serve, train, train2d, train2d_missing_colour, train_cli;
+           paths (serve, scene, train, train2d, train2d_missing_colour, train_cli;
            each counter set to 0 just before the path's run and read just
            after) and its numbers at the heaviest main-path shape (for the
            raycaster's, the prediction grid at the path's size; for K7 the
@@ -200,9 +223,10 @@ import torch.nn.functional as F  # noqa: E402
 from spsg_tpu_torch.cli import test_scene_as_chunks as cli  # noqa: E402
 from spsg_tpu_torch.inference import chunked  # noqa: E402
 from spsg_tpu_torch.losses import geo as geo_losses  # noqa: E402
+from spsg_tpu_torch.models import convert  # noqa: E402
 from spsg_tpu_torch.models.generator import use_true_float32  # noqa: E402
 from spsg_tpu_torch.ops import _build, conv3x3 as conv_ops  # noqa: E402
-from spsg_tpu_torch.ops import depth as depth_ops, raycast as rc_ops  # noqa: E402
+from spsg_tpu_torch.ops import depth as depth_ops, normals3d, raycast as rc_ops  # noqa: E402
 from spsg_tpu_torch.training import StepFlags, TrainConfig  # noqa: E402
 from spsg_tpu_torch.training import state  # noqa: E402
 from spsg_tpu_torch.training.step import Trainer  # noqa: E402
@@ -264,6 +288,14 @@ DX_SHAPES = [
 ]
 # the weight gradient alone at the training batch's heaviest layer (x: 420 MB)
 DW_SHAPES = [(2, 128, 64, 64, 100, 40, True)]
+# K1 and K3 at the whole-scene path's shapes (the test_scene CLI): decoder_3a and a
+# 20->20 layer over the (128,160,192) scene, and decoder_3a at the reference's
+# default bound (128,260,328), whose input passes 2^32 bytes
+SCENE_SHAPES = [
+    (1, 128, 160, 192, 100, 40, True),
+    (1, 128, 160, 192, 20, 20, True),
+    (1, 128, 260, 328, 100, 40, True),
+]
 FULL_3D = dict(pred_sdf=True, pred_color=True, pred_semantic=True)
 # libraries of other versions of the kernels' sources (--baseline-source,
 # --baseline-dw-source, --baseline-raycast-source), by source name
@@ -396,9 +428,10 @@ def check_y(y, ref, dtype, what):
     return err.max().item()
 
 
-def compare_one(shape, dtype, gen, forward_only=False):
-    """Kernels against plain versions at one shape: all three, or with
-    ``forward_only`` conv3x3 alone. Returns {kernel name: record}."""
+def compare_one(shape, dtype, gen, forward_only=False, dw=True):
+    """Kernels against plain versions at one shape: all three, with
+    ``forward_only`` conv3x3 alone, without ``dw`` the two forward kernels.
+    Returns {kernel name: record}."""
     B, Z, Y, X, Ci, Co, on_path = shape
     x = torch.randn(B, Z, Y, X, Ci, generator=gen).to(dtype).to(DEV)
     w = (torch.randn(3, 3, 3, Ci, Co, generator=gen) / (27 * Ci) ** 0.5).to(dtype).to(DEV)
@@ -456,7 +489,8 @@ def compare_one(shape, dtype, gen, forward_only=False):
     rec.update(bound_ms=bound_ms, bound_by=bound_by, bound_rate=BOUND_LABEL[dtype],
                tflops=flops / rec["ms"] / 1e9, eff=bound_ms / rec["ms"])
     out["conv3x3_act_stats"] = rec
-    out["conv3x3_dw"] = compare_dw(shape, dtype, gen, x, xc, reps, plain_reps, tag)
+    if dw:
+        out["conv3x3_dw"] = compare_dw(shape, dtype, gen, x, xc, reps, plain_reps, tag)
     return out
 
 
@@ -571,6 +605,10 @@ def phase_compare():
         for shape in SHAPES:
             for name, rec in compare_one(shape, dtype, gen).items():
                 results[name][str(dtype).split(".")[1]].append(rec)
+            torch.cuda.empty_cache()
+        for shape in SCENE_SHAPES:
+            for name, rec in compare_one(shape, dtype, gen, dw=False).items():
+                results[name][str(dtype).split(".")[1]].append(dict(rec, path="scene"))
             torch.cuda.empty_cache()
         for shape in DX_SHAPES:
             rec = compare_one(shape, dtype, gen, forward_only=True)["conv3x3"]
@@ -909,13 +947,12 @@ def compare_occ(occ, view, intr, cfg, tag, on_path):
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                plain_ms=cuda_ms(lambda: rc_ops.occ_march_plain(occ, setup, cfg), 2),
                library_ms=None,
-               # the wrapper as the step calls it: the ray set-up in PyTorch, then K7.
-               # The set-up copies Python scalars to the card (ops/raycast.py::_div,
-               # _rdiv), a blocking copy each that waits for the stream, so this
-               # times calls at the host's pace, not the device's
+               # the wrapper as the step calls it: the ray set-up in PyTorch, then K7
                ms_with_setup=device_ms(lambda: rc_ops.raycast_occ(occ, view, intr, cfg), 20))
     # how often the wrapper waits for the card (torch's sync debug mode warns once
-    # for each operation that does)
+    # for each operation that does; its other warning, that the mode is a
+    # prototype, is not counted): never, since the set-up fills its divisors on
+    # the card (ops/raycast.py::_div, _rdiv)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -923,7 +960,11 @@ def compare_occ(occ, view, intr, cfg, tag, on_path):
             rc_ops.raycast_occ(occ, view, intr, cfg)
         finally:
             torch.cuda.set_sync_debug_mode("default")
+    caught = [w for w in caught if "prototype" not in str(w.message)]
     rec["host_syncs_with_setup"] = len(caught)
+    if caught:
+        raise SystemExit(f"chip_smoke: raycast_occ {tag}: the ray set-up waited for the card "
+                         f"{len(caught)} times: {[str(w.message)[:80] for w in caught]}")
     fn = (lambda: rc_ops.occ_march(occ, setup, cfg))
     # a baseline raycast.cu from before K7 has no occupancy march to time
     baseline = (on_raycast_library(fn, BASELINE["raycast"])
@@ -1069,9 +1110,9 @@ def device_time_record(groups, names, top):
                 top_kernels_ms=[[k[:80], v / 1e3] for k, v in first])
 
 
-def profile_window_batch(gen, cb, mb):
-    """Device time of one window-batch forward by kind of kernel, from
-    torch.profiler."""
+def profile_forward(gen, cb, mb):
+    """Device time of one forward (a window batch, or a whole scene) by kind
+    of kernel, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1085,12 +1126,50 @@ def profile_window_batch(gen, cb, mb):
     return device_time_record(groups, names, 8)
 
 
-def phase_path(tmp):
-    cfg = TrainConfig()  # reference defaults: nf_gen 20, (128,64,64), colour + semantics
+OUTPUTS = ("occ", "sdf", "color", "semantic")
+
+
+def against_plain_twin(gen, plain, x, m, what):
+    """One eval forward of ``gen`` (the hand kernels: 28 launches) and of its
+    twin whose convs are the kernels' plain versions (no launch) on (x, m):
+    every output within 1e-3 of the twin's and finite. Returns (seconds of
+    gen's forward, max abs difference by output, max abs output by output)."""
+    conv_ops.reset_launch_counts()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t = time.time()
+        a = gen(x, m, pred_color=True, pred_semantic=True)
+        torch.cuda.synchronize()
+        seconds = time.time() - t
+        n_kernel = sum(conv_ops.launch_counts.values())
+        b = plain(x, m, pred_color=True, pred_semantic=True)
+        torch.cuda.synchronize()
+    if n_kernel != 28 or sum(conv_ops.launch_counts.values()) != 28:
+        raise SystemExit(f"chip_smoke: {what}: the plain-version generator launched a kernel, "
+                         "or the other one did not")
+    diffs = {}
+    for name, p, q in zip(OUTPUTS, a, b):
+        d = (p - q).abs().max().item()
+        if not (d <= 1e-3 and torch.isfinite(p).all()):
+            raise SystemExit(f"chip_smoke: {what}, generator output {name}: kernels vs plain "
+                             f"versions differ by {d:.3e}")
+        diffs[name] = d
+    return seconds, diffs, {n: p.abs().max().item() for n, p in zip(OUTPUTS, a)}
+
+
+def seeded_generator(cfg):
+    """The serving paths' generator: seeded random weights, activations kept
+    O(1), BatchNorm statistics away from (0, 1), the occupancy head centred."""
     gen = state.init_generator(cfg, torch.Generator().manual_seed(0), DEV)
     scale_conv_weights(gen, 2.0)
     randomise_bn_statistics(gen, 1)
     centre_occupancy_head(gen, (128, 64, 64))
+    return gen
+
+
+def phase_path(tmp):
+    cfg = TrainConfig()  # reference defaults: nf_gen 20, (128,64,64), colour + semantics
+    gen = seeded_generator(cfg)
     ckpt = os.path.join(tmp, "model-seed0.pt")
     state.save_checkpoint(ckpt, gen, 0)
     del gen
@@ -1105,7 +1184,7 @@ def phase_path(tmp):
         out = real_run(generator, scene_input, scene_mask, *a, **kw)
         torch.cuda.synchronize()
         seen.update(out=out, seconds=time.time() - t, generator=generator,
-                    scene_input=scene_input, scene_mask=scene_mask)
+                    scene_input=scene_input, scene_mask=scene_mask, args=a, kwargs=kw)
         return out
 
     out_dir = os.path.join(tmp, "output")
@@ -1149,6 +1228,26 @@ def phase_path(tmp):
         vis_files=len(os.listdir(os.path.join(out_dir, "vis"))),
     )
 
+    # the same scene fed raw (compact_scene, the CLI's --compact_feed): the clamp,
+    # LAB and the mask on the card, against the host-assembled run above
+    from spsg_tpu_torch.data import synthetic
+
+    s = synthetic.make_scene(dims=dims, seed=100)  # the CLI's synthetic scene
+    compact = dict(sdf=s.sdf_input.astype(np.float32), colors=s.input_colors, color_space="lab")
+    torch.cuda.synchronize()
+    t = time.time()
+    out_c = chunked.run_chunked_inference(seen["generator"], None, None, *seen["args"],
+                                          **dict(seen["kwargs"], compact_scene=compact))
+    torch.cuda.synchronize()
+    agree = float((out_c.counts == out.counts).mean())
+    if not agree >= 0.999:
+        raise SystemExit(f"chip_smoke: compact_scene: counts agree with the host-assembled run "
+                         f"on {agree:.5f} of the voxels")
+    rec["compact_feed"] = dict(seconds_per_scene=time.time() - t, counts_agree=agree,
+                               host_assembled_seconds_per_scene=seen["seconds"],
+                               geo_iou=out_c.geo_intersection / out_c.geo_union)
+    del s, out_c
+
     # one window batch: kernels against the plain versions of the same layers
     gen = seen["generator"].eval()
     plain = state.make_generator(cfg, DEV, plain_convs=True).eval()
@@ -1158,31 +1257,10 @@ def phase_path(tmp):
     smask = np.pad(seen["scene_mask"], ((0, 0), (0, 64), (0, 64), (0, 0)))
     cb = torch.from_numpy(np.stack([sin[:, y:y + 64, x:x + 64] for y, x in pos])).to(DEV)
     mb = torch.from_numpy(np.stack([smask[:, y:y + 64, x:x + 64] for y, x in pos])).to(DEV)
-    conv_ops.reset_launch_counts()
-    with torch.no_grad():
-        torch.cuda.synchronize()
-        t = time.time()
-        a = gen(cb, mb, pred_color=True, pred_semantic=True)
-        torch.cuda.synchronize()
-        rec["forward_seconds_window_batch"] = time.time() - t
-        n_kernel = sum(conv_ops.launch_counts.values())
-        b = plain(cb, mb, pred_color=True, pred_semantic=True)
-        torch.cuda.synchronize()
-    if n_kernel != 28 or sum(conv_ops.launch_counts.values()) != 28:
-        raise SystemExit("chip_smoke: the plain-version generator launched a kernel, or the "
-                         "other one did not")
-    rec["window_batch_device_time"] = profile_window_batch(gen, cb, mb)
-    diffs = {}
-    rec["output_abs_max"] = {n: p.abs().max().item()
-                             for n, p in zip(("occ", "sdf", "color", "semantic"), a)}
-    for name, p, q in zip(("occ", "sdf", "color", "semantic"), a, b):
-        d = (p - q).abs().max().item()
-        if not (d <= 1e-3 and torch.isfinite(p).all()):
-            raise SystemExit(f"chip_smoke: generator output {name}: kernels vs plain versions "
-                             f"differ by {d:.3e}")
-        diffs[name] = d
-    rec["kernels_vs_plain_max_abs_diff"] = diffs
-    del a, b, plain, gen, cb, mb
+    (rec["forward_seconds_window_batch"], rec["kernels_vs_plain_max_abs_diff"],
+     rec["output_abs_max"]) = against_plain_twin(gen, plain, cb, mb, "window batch")
+    rec["window_batch_device_time"] = profile_forward(gen, cb, mb)
+    del plain, gen, cb, mb
     torch.cuda.empty_cache()
 
     # a small scene, GPU against CPU (the reference the CPU tests hold to JAX)
@@ -1211,6 +1289,234 @@ def phase_path(tmp):
                          f"sdf differs by {sdf_diff:.3e}")
     rec["small_scene_gpu_vs_cpu"] = dict(counts_agree=float(same.mean()), sdf_max_abs_diff=sdf_diff)
     emit("path", **rec)
+    return launches
+
+
+# --------------------------------------------------------------------------- scene
+SCENE_DIMS = (128, 160, 192)  # the test_scene CLI's synthetic scene (its defaults)
+BIG_SCENE = (128, 260, 328)   # the reference's default bound (test_scene.py:33-37, 63)
+SCENE_IMAGE = (480, 384)
+SCENE_FILES = ["input", "input-normals", "target", "target-normals", "target-depth",
+               "target-semantics", "pred", "pred-normals", "pred-depth", "pred-semantics"]
+
+
+def reference_state_dict(gen):
+    """``gen``'s weights under the original PyTorch reference's module names,
+    as a reference .pth holds them (the inverse of
+    models/convert.py::reference_to_torch_generator)."""
+    sd = {k: v.cpu() for k, v in gen.state_dict().items()}
+    bn = ("weight", "bias", "running_mean", "running_var")
+    out = {}
+    for prefix, layout in convert.REFERENCE_GENERATOR_LAYOUT.items():
+        for conv_i, bn_i, name in layout:
+            if f"{name}.weight" not in sd:
+                continue
+            out[f"{prefix}.{conv_i}.weight"] = sd[f"{name}.weight"]
+            out[f"{prefix}.{conv_i}.bias"] = sd[f"{name}.bias"]
+            if bn_i is not None:
+                out.update({f"{prefix}.{bn_i}.{leaf}": sd[f"{name}.bn.{leaf}"] for leaf in bn})
+                out[f"{prefix}.{bn_i}.num_batches_tracked"] = torch.tensor(0)
+    for prefix, (name, bn_i) in convert.REFERENCE_HEAD_BN.items():
+        out.update({f"{prefix}.{bn_i}.{leaf}": sd[f"{name}.{leaf}"] for leaf in bn})
+    return out
+
+
+def scene_render_kernels(args, cfg):
+    """K4 and K5 against their plain versions on one of the scene CLI's
+    renders (``args``: what it handed render_views): the march identical to
+    the bit (compare_march, with its times and bound), the shade of the
+    render's own attributes (colour, surface normals, semantics) identical to
+    the bit, with times and bound as in compare_shade_scatter."""
+    sdf, valid, colors01, sem, view, intr = args[:6]
+
+    def dev(a):
+        a = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+        return a.to(DEV)[None].contiguous()
+
+    s, v = dev(sdf), dev(valid)
+    tag = f"scene prediction {tuple(sdf.shape)} {SCENE_IMAGE}"
+    march_rec, (hit, _, depth, hit_idx) = compare_march(
+        s, v, torch.from_numpy(view[None]).to(DEV), torch.from_numpy(intr[None]).to(DEV), cfg,
+        tag, False)
+    n = s[0].numel()
+    rot = torch.from_numpy(np.linalg.inv(view)[None, :3, :3].astype(np.float32)).to(DEV)
+    attrs = (dev(colors01).reshape(1, n, 3),
+             normals3d.surface_normals(s, v, rot).reshape(1, n, 3).contiguous(),
+             dev(sem).reshape(1, n, sem.shape[-1]))
+    got = rc_ops.shade(*attrs, hit, hit_idx, depth)
+    torch.cuda.synchronize()
+    if not bits_equal(got, rc_ops.shade_plain(*attrs, hit, hit_idx, depth)):
+        raise SystemExit(f"chip_smoke: raycast_shade {tag}: kernel and plain version differ")
+    table = torch.cat(attrs, dim=-1)
+    shade_rec = dict(
+        hits=int(hit.sum()), max_abs_err=0.0, bound_ms=shade_bound_ms(hit, hit_idx, attrs),
+        bound_by="bytes",
+        plain_ms=cuda_ms(lambda: rc_ops.shade_plain(*attrs, hit, hit_idx, depth), 10),
+        library_ms=device_ms(lambda: table[0, hit_idx[0].long()], 50),
+        ms=device_ms(lambda: rc_ops.shade(*attrs, hit, hit_idx, depth), 50))
+    base = dict(grid="scene_prediction", dims=list(sdf.shape), image=list(SCENE_IMAGE),
+                main_path=False, path="scene")
+    return dict(base, **march_rec), dict(base, **shade_rec)
+
+
+def timed_scene(run, gen, scene_input, scene_mask, kw):
+    """run(gen, ...) synchronised on the host clock, with its peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    out = run(gen, scene_input, scene_mask, **kw)
+    torch.cuda.synchronize()
+    return out, time.time() - t, torch.cuda.max_memory_allocated()
+
+
+def phase_scene(tmp, rc_results):
+    """The whole-scene CLI (spsg_tpu_torch.cli.test_scene) at its defaults from
+    a reference-format .pth of the serving paths' seeded weights, and around
+    it: the .pt of the same weights, the forward against its plain-conv twin at
+    the scene's shape and at the reference's default bound, a bf16 scene, and
+    K4 / K5 against their plain versions on the prediction's render."""
+    from spsg_tpu_torch.cli import test_scene as scene_cli
+    from spsg_tpu_torch.inference import whole_scene
+
+    cfg = TrainConfig()  # nf_gen 20, colour + semantics, max_input_height 128
+    gen = seeded_generator(cfg)
+    pt, pth = os.path.join(tmp, "scene-seed0.pt"), os.path.join(tmp, "scene-seed0.pth")
+    state.save_checkpoint(pt, gen, 0)
+    torch.save({"epoch": 0, "state_dict": reference_state_dict(gen), "optimizer": {}}, pth)
+    del gen
+
+    # the CLI keeps the scene to itself: record what it passes on
+    seen, renders = {}, []
+    real_run, real_render = whole_scene.run_whole_scene, scene_cli.render_views
+
+    def recording_run(generator, scene_input, scene_mask, **kw):
+        seen["peak_before"] = torch.cuda.max_memory_allocated()
+        out, seconds, peak = timed_scene(real_run, generator, scene_input, scene_mask, kw)
+        seen.update(out=out, seconds=seconds, forward_peak=peak, generator=generator,
+                    scene_input=scene_input, scene_mask=scene_mask, kwargs=kw)
+        return out
+
+    def recording_render(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.time()
+        images = real_render(*args, **kw)  # numpy images: the card is done
+        renders.append(dict(args=args, seconds=time.time() - t,
+                            hits=int(np.isfinite(images["depth"]).sum())))
+        return images
+
+    out_dir = os.path.join(tmp, "scene")
+    whole_scene.run_whole_scene, scene_cli.render_views = recording_run, recording_render
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launch_counts()
+    t = time.time()
+    try:
+        scene_cli.main(["--synthetic_scenes", "1", "--model_path", pth, "--output", out_dir])
+    finally:
+        whole_scene.run_whole_scene, scene_cli.render_views = real_run, real_render
+    cli_seconds = time.time() - t
+    launches = all_launch_counts()
+    peak = max(seen["peak_before"], torch.cuda.max_memory_allocated())
+
+    want = {"conv3x3_act_stats": 23, "conv3x3": 5, "conv3x3_dw": 0, "raycast_march": 3,
+            "raycast_shade": 3, "raycast_scatter": 0, "raycast_occ": 0}
+    if launches != want:
+        raise SystemExit(f"chip_smoke: launches on the scene path {launches}, expected {want}")
+    out = seen["out"]
+    shapes = [o.shape for o in out]
+    if shapes != [SCENE_DIMS, SCENE_DIMS, SCENE_DIMS + (3,), SCENE_DIMS + (14,)] or not all(
+            np.isfinite(o).all() for o in out) or not (np.abs(out[1]) < 3.0).any():
+        raise SystemExit(f"chip_smoke: the whole-scene outputs are not what they should be: "
+                         f"{shapes}")
+    names = set(os.listdir(out_dir))
+    missing = sorted(({f"synthetic_scene_0_{k}.png" for k in SCENE_FILES}
+                      | {"synthetic_scene_0_pred-mesh.ply"}) - names)
+    if missing or len(renders) != 3 or not all(r["hits"] > 0 for r in renders):
+        raise SystemExit(f"chip_smoke: the scene CLI wrote {sorted(names)}, missing {missing}; "
+                         f"renders {[r['hits'] for r in renders]}")
+    vox = float(np.prod(SCENE_DIMS))
+    rec = dict(scene=list(SCENE_DIMS), image=list(SCENE_IMAGE), launches=launches,
+               seconds_per_scene=seen["seconds"], voxels_per_second=vox / seen["seconds"],
+               cli_seconds=cli_seconds, max_memory_allocated=peak,
+               forward_max_memory_allocated=seen["forward_peak"],
+               render_seconds={k: r["seconds"] for k, r in
+                               zip(("input", "target", "prediction"), renders)},
+               render_hits={k: r["hits"] for k, r in zip(("input", "target", "prediction"), renders)},
+               files=len(names))
+
+    # the .pt of the same weights: the same generator, the same outputs to the bit
+    gen = seen["generator"].eval()
+    g_pt, _ = state.load_checkpoint(pt, state.make_generator(cfg, DEV))
+    same_weights = all(torch.equal(v, gen.state_dict()[k]) for k, v in g_pt.state_dict().items())
+    again = real_run(g_pt, seen["scene_input"], seen["scene_mask"], **seen["kwargs"])
+    if not (same_weights and all(np.array_equal(a, b) for a, b in zip(again, out))):
+        raise SystemExit("chip_smoke: the scene from the .pth differs from the scene from the .pt "
+                         f"of the same weights (weights equal: {same_weights})")
+    rec["pth_equals_pt"] = True
+    del g_pt, again
+
+    # the forward at the scene's shape: device time by kind, and against the
+    # plain-conv twin (K1 / K3 at these shapes against their plain versions)
+    inp, msk, _ = whole_scene.pad_scene(seen["scene_input"], seen["scene_mask"], 3.0,
+                                        seen["kwargs"]["max_height"])
+    x, m = torch.from_numpy(inp[None]).to(DEV), torch.from_numpy(msk[None]).to(DEV)
+    plain = state.make_generator(cfg, DEV, plain_convs=True).eval()
+    plain.load_state_dict(gen.state_dict())
+    (rec["forward_seconds"], rec["kernels_vs_plain_max_abs_diff"],
+     rec["output_abs_max"]) = against_plain_twin(gen, plain, x, m, "scene")
+    rec["forward_device_time"] = profile_forward(gen, x, m)
+
+    # the reference's default bound: the scene in a (128, 260, 328) box
+    big = np.zeros(BIG_SCENE + (4,), np.float32)
+    big[..., 0] = -3.0
+    big[:, :SCENE_DIMS[1], :SCENE_DIMS[2]] = inp
+    big_mask = np.zeros(BIG_SCENE + (1,), np.float32)
+    big_mask[:, :SCENE_DIMS[1], :SCENE_DIMS[2]] = msk
+    _, seconds, big_peak = timed_scene(real_run, gen, big, big_mask, seen["kwargs"])
+    xb, mb = torch.from_numpy(big[None]).to(DEV), torch.from_numpy(big_mask[None]).to(DEV)
+    _, diffs, _ = against_plain_twin(gen, plain, xb, mb, f"scene {BIG_SCENE}")
+    rec["reference_bound"] = dict(scene=list(BIG_SCENE), seconds_per_scene=seconds,
+                                  voxels_per_second=float(np.prod(BIG_SCENE)) / seconds,
+                                  max_memory_allocated=big_peak,
+                                  kernels_vs_plain_max_abs_diff=diffs)
+    del plain, x, m, xb, mb, big, big_mask
+    torch.cuda.empty_cache()
+
+    # one scene in bf16 (the kernels' bf16 variants, bf16 library convs, f32 heads)
+    g16 = state.make_generator(dataclasses.replace(cfg, compute_dtype="bfloat16"), DEV)
+    g16.load_state_dict(gen.state_dict())
+    reset_all_launch_counts()
+    out16, seconds, peak16 = timed_scene(real_run, g16, seen["scene_input"], seen["scene_mask"],
+                                         seen["kwargs"])
+    launches16 = all_launch_counts()
+    if launches16 != dict(want, raycast_march=0, raycast_shade=0) or not all(
+            np.isfinite(o).all() for o in out16):
+        raise SystemExit(f"chip_smoke: the bf16 scene launched {launches16}, or is not finite")
+    rec["bfloat16"] = dict(
+        seconds_per_scene=seconds, voxels_per_second=vox / seconds, max_memory_allocated=peak16,
+        launches=launches16,
+        max_abs_diff_from_float32={n: float(np.abs(a - b).max())
+                                   for n, a, b in zip(OUTPUTS, out16, out)},
+        rms_diff_from_float32={n: float(np.sqrt(np.mean((a - b) ** 2.0)))
+                               for n, a, b in zip(OUTPUTS, out16, out)})
+    x, m = torch.from_numpy(inp[None]).to(DEV), torch.from_numpy(msk[None]).to(DEV)
+    rec["bfloat16"]["forward_device_time"] = profile_forward(g16.eval(), x, m)
+    del g16, out16, x, m
+
+    # K4 / K5 on the prediction's render, against their plain versions
+    cfg_rc = renders[2]["args"][6]
+    march_rec, shade_rec = scene_render_kernels(renders[2]["args"], cfg_rc)
+    rc_results["raycast_march"].append(march_rec)
+    rc_results["raycast_shade"].append(shade_rec)
+    rec["prediction_render"] = {k: {kk: r[kk] for kk in ("hits", "ms", "plain_ms", "library_ms",
+                                                         "bound_ms", "bound_by")}
+                                for k, r in (("raycast_march", march_rec),
+                                             ("raycast_shade", shade_rec))}
+    rec["prediction_render"]["raycast_march"]["samples_per_ray"] = march_rec["samples_per_ray"]
+    print(f"scene: {SCENE_DIMS} {seen['seconds']:.4f} s a scene "
+          f"({vox / seen['seconds']:.4g} voxels/s), peak {peak} bytes; {BIG_SCENE} "
+          f"{rec['reference_bound']['seconds_per_scene']:.4f} s, peak {big_peak} bytes; bf16 "
+          f"{rec['bfloat16']['seconds_per_scene']:.4f} s, peak {peak16} bytes", flush=True)
+    emit("scene", **rec)
     return launches
 
 
@@ -2048,6 +2354,7 @@ def main(argv=None):
     rc_results = phase_compare_raycast()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as tmp:
         serve = phase_path(tmp)
+        scene = phase_scene(tmp, rc_results)
     train = phase_train()
     train2d, train2d_mc = phase_train2d()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as tmp:
@@ -2058,12 +2365,15 @@ def main(argv=None):
     # march, which only the missing-colour weights run; the train CLI as the
     # full step
     full_step = tuple(k for k in KERNELS if k != "raycast_occ")
-    on_path = {"serve": ("conv3x3", "conv3x3_act_stats"), "train": CONV_KERNELS,
+    on_path = {"serve": ("conv3x3", "conv3x3_act_stats"),
+               "scene": ("conv3x3", "conv3x3_act_stats", "raycast_march", "raycast_shade"),
+               "train": CONV_KERNELS,
                "train2d": full_step, "train2d_missing_colour": tuple(KERNELS),
                "train_cli": full_step}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        by_path = {"serve": serve[name], "train": train[name], "train2d": train2d[name],
+        by_path = {"serve": serve[name], "scene": scene[name], "train": train[name],
+                   "train2d": train2d[name],
                    "train2d_missing_colour": train2d_mc[name], "train_cli": train_cli[name]}
         for path, names in on_path.items():
             if name in names and by_path[path] < 1:

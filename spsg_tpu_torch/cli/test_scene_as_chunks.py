@@ -33,8 +33,9 @@ def build_parser():
     p.add_argument("--target_data_path", default="", help="path to target scenes")
     p.add_argument("--test_file_list", default="", help="file list of test scenes")
     p.add_argument("--model_path", default="",
-                   help="checkpoint (.pt) to test ('' = random init); convert a JAX "
-                   "checkpoint with tools/export_torch_checkpoint.py")
+                   help="checkpoint to test: .pt of this package or .pth of the reference "
+                   "('' = random init); convert a JAX checkpoint with "
+                   "tools/export_torch_checkpoint.py")
     p.add_argument("--output", default="./output", help="output folder")
     p.add_argument("--synthetic_scenes", type=int, default=0)
     p.add_argument("--truncation", type=float, default=3)
@@ -61,9 +62,10 @@ def build_parser():
     p.add_argument("--stride", type=int, default=32)
     p.add_argument("--window_batch", type=int, default=8)
     p.add_argument("--compact_feed", action="store_true",
-                   help="device-side sample assembly; not ported yet (raises)")
+                   help="feed raw f32-sdf + u8-rgb to the device and run clamp/LAB/mask "
+                   "there; incompatible with --augment_rgb_scaling")
     p.add_argument("--compute_dtype", type=str, default="",
-                   help="'bfloat16' at the generator level is not ported yet (raises)")
+                   help="'bfloat16' runs the generator's blocks in bf16 (the heads in f32)")
     # flags that steer the JAX package's compiler; accepted, without effect here
     for flag in ("--scan_windows", "--stitch_slices", "--zslab_conv", "--folded_conv"):
         p.add_argument(flag, action="store_true",
@@ -74,14 +76,16 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.compact_feed:
-        raise NotImplementedError("--compact_feed is not ported yet (ROADMAP.md)")
+    if args.compact_feed and args.augment_rgb_scaling:
+        raise SystemExit(
+            "--compact_feed assembles the sample on the device and does not "
+            "implement hue augmentation; drop --augment_rgb_scaling")
     import torch
 
     from ..data import category
     from ..inference import chunked
     from ..training import TrainConfig
-    from ..training.state import init_generator, load_checkpoint, resolve_device
+    from ..training.state import init_generator, load_any_checkpoint, resolve_device
     from ..utils import visualize
 
     device = resolve_device("cpu" if args.device == "cpu" else f"cuda:{args.gpu}")
@@ -102,7 +106,7 @@ def main(argv=None):
     )
     generator = init_generator(cfg, torch.Generator().manual_seed(0), device)
     if args.model_path:
-        generator, _ = load_checkpoint(args.model_path, generator)
+        generator, _ = load_any_checkpoint(args.model_path, generator)
         print("loaded model:", args.model_path)
 
     # scene iteration is STREAMED — one scene's arrays in host RAM at a time
@@ -122,6 +126,9 @@ def main(argv=None):
                     args.color_space, None,
                 )
                 sample["name"] = f"synthetic_scene_{i}"
+                if args.compact_feed:
+                    sample["raw_sdf_input"] = s.sdf_input.astype(np.float32)
+                    sample["raw_input_colors"] = s.input_colors
                 yield sample
 
         num_scenes = args.synthetic_scenes
@@ -141,6 +148,7 @@ def main(argv=None):
             color_truncation=args.color_truncation,
             augment_hue=args.augment_rgb_scaling,
             aug_scale_range=(args.augment_scale_min, args.augment_scale_max),
+            keep_raw=args.compact_feed,
         )
 
         def _iter_scenes():
@@ -161,13 +169,18 @@ def main(argv=None):
     num_vis = 0
     for si, sample in enumerate(_iter_scenes()):
         print(f"[ {si} | {num_scenes} ] {sample['name']} {sample['input'].shape}")
+        compact = None
+        if args.compact_feed:
+            compact = dict(sdf=sample["raw_sdf_input"], colors=sample["raw_input_colors"],
+                           color_space=args.color_space)
         out = chunked.run_chunked_inference(
             generator,
-            sample["input"],
-            sample["mask"],
+            None if compact is not None else sample["input"],
+            None if compact is not None else sample["mask"],
             sample["target_sdf"],
             sample.get("known"),
             sample.get("semantics"),
+            compact_scene=compact,
             truncation=args.truncation,
             chunk_dims=chunk_dims,
             stride=args.stride,

@@ -254,8 +254,8 @@ def _check_ported(args) -> None:
             "VGG, which is not ported yet (ROADMAP.md, Queue A item 9)")
     if args.compute_dtype:
         raise NotImplementedError(
-            f"--compute_dtype {args.compute_dtype}: reduced-precision compute at the "
-            "generator level is not ported yet (ROADMAP.md, Queue A item 8)")
+            f"--compute_dtype {args.compute_dtype}: training in reduced precision is "
+            "not ported yet (ROADMAP.md, Queue A item 8)")
     if args.distributed:
         raise NotImplementedError(
             "--distributed: multi-host training is not ported yet (ROADMAP.md, Queue A "

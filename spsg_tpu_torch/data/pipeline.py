@@ -505,8 +505,7 @@ class SceneDataset:
     ):
         # keep_raw: also return the pre-assembly raw input grids (f32 sdf +
         # u8 rgb) so eval can feed them to the device directly and run
-        # clamp/LAB/mask there (inference/chunked.py compact_scene, not yet
-        # implemented by this package)
+        # clamp/LAB/mask there (inference/chunked.py compact_scene)
         self.keep_raw = keep_raw
         self.pairs = [
             (f, os.path.join(target_path, os.path.basename(f)))

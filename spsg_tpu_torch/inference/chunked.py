@@ -25,7 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..data import category
+from ..data import category, colorspace
 from ..training.state import resolve_device
 
 
@@ -43,6 +43,30 @@ class SceneOutputs:
     class_intersection: np.ndarray  # (14,)
     class_union: np.ndarray  # (14,)
     class_weight: np.ndarray  # (14,) target voxel counts per class
+
+
+def prep_compact_scene(sdf, rgb, truncation, lab, pads):
+    """Device-side compact-scene assembly: ``data/pipeline.py::assemble_sample``'s
+    math (scene_dataloader.py:222-253: the truncation clamp, RGB -> [0,1] LAB,
+    colours of empty voxels zeroed, the input mask) on the raw scene, then the
+    window padding with the reference fill values (test_scene_as_chunks.py:166-180:
+    sdf -> -truncation, colours and mask -> 0). ``sdf`` (Z,Y,X) float32 and
+    ``rgb`` (Z,Y,X,3) uint8 are tensors on the device; ``pads`` = (z, y, x).
+    Returns (scene (Z+pz,Y+py,X+px,4), mask (..., 1)) float32."""
+    Z, Y, X = sdf.shape
+    empty = sdf.abs() > truncation
+    m = ((sdf <= -1) & ~empty).float()
+    col = rgb.float() / 255.0
+    if lab:
+        col = colorspace.rgb_to_lab01(col, xp=torch)
+    col = torch.where(empty[..., None], 0.0, col)
+    sin = torch.cat([torch.clamp(sdf, -truncation, truncation)[..., None], col], dim=-1)
+    widths = (0, 0, 0, pads[2], 0, pads[1], 0, pads[0])
+    sin = F.pad(sin, widths)
+    sin[Z:, :, :, 0] = -truncation
+    sin[:, Y:, :, 0] = -truncation
+    sin[:, :, X:, 0] = -truncation
+    return sin, F.pad(m[..., None], widths)
 
 
 def window_positions(scene_dims_yx, stride) -> np.ndarray:
@@ -275,28 +299,51 @@ def run_chunked_inference(
     ``torch.no_grad()``. ``device`` defaults to the GPU and raises if there is
     none; pass ``"cpu"`` to run on the CPU.
 
+    ``compact_scene`` feeds the device the raw scene instead of the assembled
+    float32 sample: ``{"sdf": (Z,Y,X) float raw input SDF, "colors": (Z,Y,X,3)
+    uint8 RGB, "color_space": "lab"|"rgb"}``; the clamp, the colour encoding,
+    the input mask and the padding then run on the device
+    (:func:`prep_compact_scene`), and ``scene_input`` / ``scene_mask`` may be
+    None. Its colours must be uint8 and its SDF floating (``TypeError``
+    otherwise), as in the JAX package.
+
     ``scan_windows`` and ``stitch_slices`` steer the JAX package's dispatch
     and stitching; here there is one form of each (a Python loop over window
     batches, slice read-modify-write stitching) and both are accepted without
-    effect. ``compact_scene`` and ``mesh`` are not ported yet and raise."""
-    if compact_scene is not None:
-        raise NotImplementedError(
-            "compact_scene (device-side sample assembly) is not ported yet (ROADMAP.md)")
+    effect. ``mesh`` is not ported yet and raises."""
     if mesh is not None:
         raise NotImplementedError(
-            "mesh= (windows sharded over several devices) is not ported yet (ROADMAP.md)")
+            "mesh= (windows sharded over several devices) is not ported yet (ROADMAP.md, "
+            "Queue A item 11)")
+    raw_sdf = raw_rgb = None
+    if compact_scene is not None:
+        raw_sdf = compact_scene["sdf"]
+        raw_rgb = compact_scene["colors"]
+        # a float RGB cast to uint8 would be truncated, not divided by 255
+        if raw_rgb.dtype != np.uint8:
+            raise TypeError(
+                f"compact_scene['colors'] must be uint8 in [0,255], got {raw_rgb.dtype}")
+        if not np.issubdtype(raw_sdf.dtype, np.floating):
+            raise TypeError(f"compact_scene['sdf'] must be floating, got {raw_sdf.dtype}")
+        scene_zyx = raw_sdf.shape[:3]
+    else:
+        scene_zyx = scene_input.shape[:3]
     device = resolve_device(device)
     # crop height (test_scene_as_chunks.py:120-132)
-    if max_height > 0 and scene_input.shape[0] > max_height:
-        scene_input = scene_input[:max_height]
-        scene_mask = scene_mask[:max_height]
+    if max_height > 0 and scene_zyx[0] > max_height:
+        if compact_scene is not None:
+            raw_sdf = raw_sdf[:max_height]
+            raw_rgb = raw_rgb[:max_height]
+        else:
+            scene_input = scene_input[:max_height]
+            scene_mask = scene_mask[:max_height]
         if target_sdf is not None:
             target_sdf = target_sdf[:max_height]
         if known is not None:
             known = known[:max_height]
         if target_semantics is not None:
             target_semantics = target_semantics[:max_height]
-    scene_dims = scene_input.shape[:3]
+    scene_dims = raw_sdf.shape[:3] if compact_scene is not None else scene_input.shape[:3]
     cz, cy, cx = chunk_dims
     Z, Y, X = (int(d) for d in scene_dims)
 
@@ -310,7 +357,9 @@ def run_chunked_inference(
     positions = []
     for y, x in window_positions(scene_dims[1:], stride):
         if skip_empty_windows:
-            win = scene_input[:cz, y:y + cy, x:x + cx, 0]
+            # raw or clamped alike: |clip(s, +-t)| < t iff |s| < t
+            win = (raw_sdf[:cz, y:y + cy, x:x + cx] if compact_scene is not None
+                   else scene_input[:cz, y:y + cy, x:x + cx, 0])
             if not np.any(np.abs(win) < truncation):
                 continue
         positions.append((int(y), int(x)))
@@ -324,13 +373,20 @@ def run_chunked_inference(
     # window slice never clamps; it lives on the device and windows are
     # sliced there.
     pad_z = max(0, cz - Z)
-    widths = ((0, pad_z), (0, cy), (0, cx), (0, 0))
-    scene_in_pad = np.pad(scene_input.astype(np.float32), widths)
-    scene_in_pad[Z:, :, :, 0] = -truncation
-    scene_in_pad[:, Y:, :, 0] = -truncation
-    scene_in_pad[:, :, X:, 0] = -truncation
-    scene_in_dev = torch.from_numpy(scene_in_pad).to(device)
-    scene_mask_dev = torch.from_numpy(np.pad(scene_mask.astype(np.float32), widths)).to(device)
+    if compact_scene is not None:
+        scene_in_dev, scene_mask_dev = prep_compact_scene(
+            torch.from_numpy(np.ascontiguousarray(raw_sdf, dtype=np.float32)).to(device),
+            torch.from_numpy(np.ascontiguousarray(raw_rgb)).to(device), float(truncation),
+            compact_scene.get("color_space", "lab") == "lab", (pad_z, cy, cx))
+    else:
+        widths = ((0, pad_z), (0, cy), (0, cx), (0, 0))
+        scene_in_pad = np.pad(scene_input.astype(np.float32), widths)
+        scene_in_pad[Z:, :, :, 0] = -truncation
+        scene_in_pad[:, Y:, :, 0] = -truncation
+        scene_in_pad[:, :, X:, 0] = -truncation
+        scene_in_dev = torch.from_numpy(scene_in_pad).to(device)
+        scene_mask_dev = torch.from_numpy(
+            np.pad(scene_mask.astype(np.float32), widths)).to(device)
 
     st = _Stitcher(scene_dims, chunk_dims, stride, pad, truncation, pred_color,
                    pred_semantic, target_sdf, known, target_semantics, device)

@@ -21,6 +21,12 @@ The discriminator half: the JAX package's ``params`` (``sn_conv_<k>`` and
 ``Discriminator2D`` state_dict (``convs.<k>.{weight (Cout,Cin,kh,kw), bias}``,
 ``final.{weight,bias}``) and its spectral state ``{"sn_conv_<k>": {"u",
 "sigma"}}``; ``u`` keeps its (1, Cout) shape.
+
+Checkpoints of the original PyTorch reference (``.pth``): its generator's and
+discriminator's state_dicts become this package's under the reference's
+layout tables (:func:`reference_to_torch_generator`,
+:func:`reference_to_torch_discriminator`), as the JAX package's converter maps
+them onto its variables.
 """
 
 from __future__ import annotations
@@ -132,3 +138,124 @@ def torch_to_flax_discriminator(state_dict, sn_state=None):
         stats[f"SpectralNorm_{k}"] = {f"{conv}/kernel/{what}": v.detach().cpu().numpy()
                                       for what, v in node.items()}
     return params, stats
+
+
+# ---------------------------------------------------------------------------
+# checkpoints of the original PyTorch reference (``.pth``)
+# ---------------------------------------------------------------------------
+
+# The reference generator's nn.Sequential members (torch/model.py:194-325):
+# module prefix -> ordered (conv index, BatchNorm index or None, block of this
+# package). The layout tables of the JAX package's models/convert.py, copied.
+REFERENCE_GENERATOR_LAYOUT = {
+    "geo_0": [(0, 2, "geo_0a"), (3, 5, "geo_0b"), (6, 8, "geo_0c")],
+    "geo_1": [(0, 2, "geo_1a"), (3, 5, "geo_1b"), (6, 8, "geo_1c"), (9, 11, "geo_1d")],
+    "geo_2": [(0, 2, "geo_2a"), (3, 5, "geo_2b")],
+    "geo_occ": [(0, 2, "geo_occ_a"), (3, None, "geo_occ_b")],
+    "geo_3": [(0, 2, "geo_3a"), (3, 5, "geo_3b"), (6, None, "geo_3c")],
+    "encoder_0": [(0, 2, "encoder_0a"), (3, 5, "encoder_0b"), (6, 8, "encoder_0c")],
+    "encoder_geo": [(0, 2, "encoder_geo")],
+    "encoder_1": [(0, 2, "encoder_1a"), (3, 5, "encoder_1b"), (6, 8, "encoder_1c")],
+    "decoder_2": [(0, 2, "decoder_2a"), (3, 5, "decoder_2b"), (6, 8, "decoder_2c")],
+    "decoder_3": [
+        (0, 2, "decoder_3a"),
+        (3, 5, "decoder_3b"),
+        (6, 8, "decoder_3c"),
+        (9, 11, "decoder_3d"),
+        (12, None, "decoder_3e"),
+    ],
+    # the heads start with a standalone BatchNorm (model.py:303-325)
+    "color_head": [(2, 4, "color_head_a"), (5, 7, "color_head_b"), (8, None, "color_head_c")],
+    "semantic_head": [
+        (2, 4, "semantic_head_a"),
+        (5, 7, "semantic_head_b"),
+        (8, None, "semantic_head_c"),
+    ],
+}
+# module prefix -> (this package's BatchNorm, index of the reference's)
+REFERENCE_HEAD_BN = {"color_head": ("color_head_bn0", 0),
+                     "semantic_head": ("semantic_head_bn0", 0)}
+_REFERENCE_BN = ("weight", "bias", "running_mean", "running_var")
+
+
+def is_reference_state_dict(state_dict) -> bool:
+    """True for a state_dict with the reference's module names (``geo_0.0.weight``,
+    ``discriminator_net.0.conv2d.weight_orig``): members of an nn.Sequential
+    are numbered, this package names its blocks."""
+    return any(k.split(".")[1:2] and k.split(".")[1].isdigit() for k in state_dict)
+
+
+def is_reference_discriminator(state_dict) -> bool:
+    return any(k.startswith("discriminator_net.") for k in state_dict)
+
+
+def _tensor(v) -> torch.Tensor:
+    return (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))).detach().clone()
+
+
+def reference_to_torch_generator(state_dict) -> Dict[str, torch.Tensor]:
+    """A reference Generator state_dict -> this package's generator
+    state_dict. Conv weights keep their (O, I, kz, ky, kx) layout; BatchNorm
+    scale, shift and running statistics come across (``num_batches_tracked`` is
+    dropped). A branch the reference model was built without (no
+    ``pass_geo_feats``: no ``encoder_geo``) is skipped, as the JAX package
+    skips it."""
+    sd = state_dict
+    out: Dict[str, torch.Tensor] = {}
+    for prefix, layout in REFERENCE_GENERATOR_LAYOUT.items():
+        if f"{prefix}.{layout[0][0]}.weight" not in sd:
+            continue
+        for conv_i, bn_i, name in layout:
+            for leaf in ("weight", "bias"):
+                out[f"{name}.{leaf}"] = _tensor(sd[f"{prefix}.{conv_i}.{leaf}"])
+            if bn_i is not None:
+                for leaf in _REFERENCE_BN:
+                    out[f"{name}.bn.{leaf}"] = _tensor(sd[f"{prefix}.{bn_i}.{leaf}"])
+    for prefix, (name, bn_i) in REFERENCE_HEAD_BN.items():
+        if f"{prefix}.{bn_i}.weight" in sd:
+            for leaf in _REFERENCE_BN:
+                out[f"{name}.{leaf}"] = _tensor(sd[f"{prefix}.{bn_i}.{leaf}"])
+    return out
+
+
+def reference_to_torch_discriminator(state_dict):
+    """A reference Discriminator2D state_dict -> (this package's discriminator
+    state_dict, spectral state for the convs that carry power-iteration vectors).
+
+    The reference wraps each 4x4 stride-2 conv in ``torch.nn.utils.spectral_norm``
+    (model.py:19-24): ``weight_orig`` becomes the kernel and ``weight_u`` the
+    stored ``u`` (1, Cout). ``sigma`` = u^T W v is recomputed in float32 from
+    ``weight_v`` (or, without it, from v = normalise(W^T u)) as the JAX
+    package's converter does; a call reads only ``u``. The Sequential's members
+    are ``0``, then ``p1``, ``p2``, ... (model.py:57-76); the 1x1 ``final`` conv
+    is not spectral-normalised."""
+    sd = {k: np.asarray(v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v)
+          for k, v in state_dict.items()}
+    out: Dict[str, torch.Tensor] = {}
+    sn = {}
+    k = 0
+    while True:
+        base = f"discriminator_net.{'0' if k == 0 else f'p{k}'}.conv2d"
+        wkey = f"{base}.weight_orig" if f"{base}.weight_orig" in sd else f"{base}.weight"
+        if wkey not in sd:
+            break
+        w = sd[wkey]  # (O, I, kh, kw), this package's layout too
+        out[f"convs.{k}.weight"] = _tensor(w)
+        if f"{base}.bias" in sd:
+            out[f"convs.{k}.bias"] = _tensor(sd[f"{base}.bias"])
+        if f"{base}.weight_u" in sd:
+            u = sd[f"{base}.weight_u"].astype(np.float32)  # (O,)
+            wm = w.reshape(w.shape[0], -1).astype(np.float32)  # (O, I*kh*kw)
+            if f"{base}.weight_v" in sd:
+                v = sd[f"{base}.weight_v"].astype(np.float32)
+            else:
+                v = wm.T @ u
+                v /= max(float(np.linalg.norm(v)), 1e-12)
+            sigma = float(u @ (wm @ v))
+            sn[f"sn_conv_{k}"] = {"u": torch.from_numpy(u[None, :].copy()),
+                                  "sigma": torch.tensor(sigma, dtype=torch.float32)}
+        k += 1
+    for leaf in ("weight", "bias"):
+        if f"final.{leaf}" in sd:
+            out[f"final.{leaf}"] = _tensor(sd[f"final.{leaf}"])
+    return out, sn

@@ -28,6 +28,17 @@ Parity notes: conv -> LeakyReLU(0.2) -> BatchNorm ordering; BatchNorm follows
 the JAX package, not ``nn.BatchNorm3d``: the running variance is updated with
 the *biased* batch variance ``max(E[x^2] - E[x]^2, 0)`` (momentum 0.1 in
 PyTorch's convention = flax 0.9, eps 1e-5).
+
+``GeneratorConfig.dtype="bfloat16"`` is the JAX package's generator-level
+bf16: parameters stay float32; the input and every block compute in bf16 (the
+conv kernels' bf16 variants, bf16 library convs), rounding where Flax rounds:
+a conv's output, its bias add and LeakyReLU in bf16, BatchNorm in float32 with
+its output rounded to bf16 (Flax's ``_normalize``). The four heads
+(``geo_occ_b``, ``geo_3c``, ``color_head_c``, ``semantic_head_c``) have no
+dtype in the JAX package, so they promote their bf16 input to float32 and
+compute in float32, as here. The fused kernel adds the bias and applies the
+LeakyReLU to its float32 sum before it rounds once, where Flax rounds three
+times (ROADMAP.md Queue C states the tolerance that results).
 """
 
 from __future__ import annotations
@@ -66,7 +77,7 @@ class GeneratorConfig:
     max_dilation: int = 1
     input_mask: bool = True  # nf_in_color > 3 (model.py:172)
     num_classes: int = NUM_CLASSES
-    dtype: Optional[str] = None  # 'bfloat16' at this level is not ported yet
+    dtype: Optional[str] = None  # 'bfloat16': the blocks compute in bf16, the heads in f32
 
 
 def leaky_relu(x):
@@ -84,7 +95,8 @@ class BatchNorm(nn.Module):
     biased variance ``max(E[x^2] - E[x]^2, 0)`` in float32, running statistics
     updated with that same biased variance. ``stats=(sum, sumsq)`` hands in
     the sums the fused conv kernel already computed (train mode); in eval
-    mode they are ignored."""
+    mode they are ignored. A bfloat16 input is normalised in float32 and the
+    result rounded to bfloat16 (Flax's ``BatchNorm(dtype=bfloat16)``)."""
 
     def __init__(self, channels: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -111,7 +123,7 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean) * mul + self.bias
+        return ((x - mean) * mul + self.bias).to(x.dtype)
 
 
 class ConvBlock(nn.Module):
@@ -119,15 +131,20 @@ class ConvBlock(nn.Module):
     channel-last ``(B, Z, Y, X, C)`` tensor (reference ordering inside every
     nn.Sequential of model.py).
 
+    ``dtype`` is the compute type (``torch.bfloat16``); None computes in
+    float32, whatever the input's type (Flax's promotion of the input with the
+    float32 kernel).
+
     ``plain_convs`` is a testing hook: it sends eligible layers through the
     kernels' plain versions on any device, so that a run with the kernels can
     be held against a run without them. It is not consulted as a fallback."""
 
     def __init__(self, cin: int, features: int, kernel: int = 3, stride: int = 1,
                  padding: int = 1, dilation: int = 1, act: bool = True, bn: bool = True,
-                 plain_convs: bool = False):
+                 dtype: Optional[torch.dtype] = None, plain_convs: bool = False):
         super().__init__()
         self.stride, self.padding, self.dilation, self.act = stride, padding, dilation, act
+        self.dtype = dtype or torch.float32
         self.plain_convs = plain_convs
         self.eligible = kernel == 3 and stride == 1 and padding == 1 and dilation == 1
         self.weight = nn.Parameter(torch.empty(features, cin, kernel, kernel, kernel))
@@ -138,8 +155,10 @@ class ConvBlock(nn.Module):
         self.bn = BatchNorm(features) if bn else None
 
     def forward(self, x):
+        dt = self.dtype
+        x = x.to(dt)
         if self.eligible:
-            wk = self.weight.permute(2, 3, 4, 1, 0).contiguous()  # (3,3,3,Cin,Cout)
+            wk = self.weight.permute(2, 3, 4, 1, 0).to(dt).contiguous()  # (3,3,3,Cin,Cout)
             x = x.contiguous()
             if self.act and self.bn is not None:
                 fused = (conv_ops.conv3x3_act_stats_plain if self.plain_convs
@@ -147,11 +166,11 @@ class ConvBlock(nn.Module):
                 y, s, ss = fused(x, wk, self.bias)
                 return self.bn(y, (s, ss))
             conv = conv_ops.conv3x3_plain if self.plain_convs else conv_ops.conv3x3
-            x = conv(x, wk) + self.bias
+            x = conv(x, wk) + self.bias.to(dt)
         else:
-            y = F.conv3d(x.permute(0, 4, 1, 2, 3), self.weight, self.bias, self.stride,
+            y = F.conv3d(x.permute(0, 4, 1, 2, 3), self.weight.to(dt), None, self.stride,
                          self.padding, self.dilation)
-            x = y.permute(0, 2, 3, 4, 1).contiguous()
+            x = (y.permute(0, 2, 3, 4, 1) + self.bias.to(dt)).contiguous()
         if self.act:
             x = leaky_relu(x)
         if self.bn is not None:
@@ -171,18 +190,15 @@ def upsample2x(x):
 class Generator(nn.Module):
     def __init__(self, cfg: GeneratorConfig = GeneratorConfig(), plain_convs: bool = False):
         super().__init__()
-        if cfg.dtype is not None:
-            raise NotImplementedError(
-                f"GeneratorConfig.dtype={cfg.dtype!r}: reduced-precision compute at the "
-                "generator level is not ported yet (ROADMAP.md); the conv kernels "
-                "themselves take bfloat16"
-            )
+        if cfg.dtype not in (None, "bfloat16"):
+            raise ValueError(f"GeneratorConfig.dtype={cfg.dtype!r}: None or 'bfloat16'")
         self.cfg = cfg
         nf = cfg.nf
         dil = min(2, cfg.max_dilation)
+        self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
-        def block(cin, features, kernel=3, stride=1, padding=1, **kw):
-            return ConvBlock(cin, features, kernel, stride, padding,
+        def block(cin, features, kernel=3, stride=1, padding=1, dtype=self.dtype, **kw):
+            return ConvBlock(cin, features, kernel, stride, padding, dtype=dtype,
                              plain_convs=plain_convs, **kw)
 
         # geometry branch (model.py:194-242)
@@ -196,10 +212,11 @@ class Generator(nn.Module):
         self.geo_2a = block(2 * nf, nf)
         self.geo_2b = block(nf, nf)
         self.geo_occ_a = block(nf, nf // 2)
-        self.geo_occ_b = block(nf // 2, 1, act=False, bn=False)
+        # the four heads compute in float32 (they have no dtype in the JAX package)
+        self.geo_occ_b = block(nf // 2, 1, act=False, bn=False, dtype=None)
         self.geo_3a = block(nf, nf // 2)
         self.geo_3b = block(nf // 2, nf // 2)
-        self.geo_3c = block(nf // 2, 1, act=False, bn=False)
+        self.geo_3c = block(nf // 2, 1, act=False, bn=False, dtype=None)
 
         # color/semantics branch (model.py:244-325)
         n_enc_in = 4 if cfg.input_mask else 3
@@ -225,11 +242,11 @@ class Generator(nn.Module):
         self.color_head_bn0 = BatchNorm(n_dec)
         self.color_head_a = block(n_dec, nf)
         self.color_head_b = block(nf, nf // 2)
-        self.color_head_c = block(nf // 2, 3, act=False, bn=False)
+        self.color_head_c = block(nf // 2, 3, act=False, bn=False, dtype=None)
         self.semantic_head_bn0 = BatchNorm(n_dec)
         self.semantic_head_a = block(n_dec, nf)
         self.semantic_head_b = block(nf, nf)
-        self.semantic_head_c = block(nf, cfg.num_classes, act=False, bn=False)
+        self.semantic_head_c = block(nf, cfg.num_classes, act=False, bn=False, dtype=None)
 
     def forward(self, x, mask, pred_color: bool, pred_sdf: bool = True,
                 pred_semantic: bool = False):
@@ -293,7 +310,7 @@ class Generator(nn.Module):
             dec = self.decoder_3c(dec)
             dec = self.decoder_3d(dec)
             dec = self.decoder_3e(dec)
-            dec = torch.cat([dec, x], dim=-1)
+            dec = torch.cat([dec, x.to(dec.dtype)], dim=-1)
 
             if pred_color:
                 c = leaky_relu(self.color_head_bn0(dec))

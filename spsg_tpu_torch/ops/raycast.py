@@ -126,13 +126,14 @@ class RaycastOutput(NamedTuple):
 
 def _div(a: torch.Tensor, s: float) -> torch.Tensor:
     """``a / s`` rounded once. A Python scalar divisor would let PyTorch's CUDA
-    kernel multiply by its reciprocal instead, which rounds twice."""
-    return a / a.new_tensor(s)
+    kernel multiply by its reciprocal instead, which rounds twice. The divisor
+    is filled on the device: a copy from the host would wait for the stream."""
+    return a / a.new_full((), s)
 
 
 def _rdiv(s: float, a: torch.Tensor) -> torch.Tensor:
     """``s / a`` rounded once (``s / tensor`` is ``reciprocal(a) * s``)."""
-    return a.new_tensor(s) / a
+    return a.new_full((), s) / a
 
 
 def _norm3(v: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,8 @@ generator's Adam: moments and per-parameter step counts) and, with a
 discriminator, ``"disc_state_dict"``, ``"sn_state"`` (its spectral ``u`` /
 ``sigma``) and ``"disc_optimizer"``: what the JAX package's orbax checkpoint
 holds in its ``GenState`` / ``DiscState``. Serving reads ``"state_dict"``
-only."""
+only. :func:`load_any_checkpoint` also reads the original PyTorch reference's
+checkpoints (``.pth``), converting its module names."""
 
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import Tuple, Union
 
 import torch
 
+from ..models import convert
 from ..models.discriminator import Discriminator2D, SpectralState, init_spectral_state
 from ..models.generator import Generator, GeneratorConfig, use_true_float32
 from .config import TrainConfig
@@ -149,15 +151,10 @@ def save_checkpoint(path: str, model: Union[Generator, "Trainer"], epoch: int) -
     torch.save(ckpt, path)
 
 
-def _read(path: str) -> dict:
+def _load(path: str) -> dict:
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(ckpt, dict) or "state_dict" not in ckpt:
-        raise ValueError(f"{path!r} is not a spsg_tpu_torch checkpoint ({{'epoch','state_dict'}})")
-    if any(k.split(".")[1:2] and k.split(".")[1].isdigit() for k in ckpt["state_dict"]):
-        raise NotImplementedError(
-            f"{path!r} looks like a checkpoint of the original PyTorch reference; "
-            "loading those is not ported yet (ROADMAP.md, Queue A item 8)"
-        )
+        raise ValueError(f"{path!r} is not a checkpoint ({{'epoch','state_dict'}})")
     return ckpt
 
 
@@ -175,12 +172,17 @@ def _set_discriminator(trainer: "Trainer", ckpt: dict, path: str) -> None:
 def load_discriminator(path: str, trainer: "Trainer") -> None:
     """The discriminator, its spectral state and its Adam from the checkpoint
     at ``path`` into ``trainer`` (``--retrain_disc``); the generator slot of
-    that file is not read. Raises ``ValueError`` if the file holds no
-    discriminator (the JAX package's ``run_training`` does the same)."""
-    ckpt = _read(path)
-    if "disc_state_dict" not in ckpt:
+    that file is not read. A discriminator checkpoint of the original reference
+    loads as :func:`load_any_checkpoint` loads it. Raises ``ValueError`` if the
+    file holds no discriminator (the JAX package's ``run_training`` does the
+    same)."""
+    ckpt = _load(path)
+    if convert.is_reference_discriminator(ckpt["state_dict"]):
+        _load_reference(path, ckpt, trainer)
+    elif "disc_state_dict" in ckpt:
+        _set_discriminator(trainer, ckpt, path)
+    else:
         raise ValueError(f"--retrain_disc {path!r}: checkpoint has no discriminator state")
-    _set_discriminator(trainer, ckpt, path)
 
 
 def load_checkpoint(path: str, model):
@@ -194,10 +196,18 @@ def load_checkpoint(path: str, model):
     parameters) and the discriminator with its spectral state and Adam. What
     the file lacks keeps its fresh state: an export of a JAX checkpoint carries
     no Adam moments (as the JAX package's ``.pth`` path), and one written
-    without a discriminator leaves the trainer's as initialised. Checkpoints of
-    the original PyTorch reference (``.pth``) use other module names and are
-    not read yet (ROADMAP.md)."""
-    ckpt = _read(path)
+    without a discriminator leaves the trainer's as initialised. A checkpoint
+    of the original PyTorch reference (its module names) raises ``ValueError``:
+    :func:`load_any_checkpoint` converts those."""
+    ckpt = _load(path)
+    if convert.is_reference_state_dict(ckpt["state_dict"]):
+        raise ValueError(
+            f"{path!r} is a checkpoint of the original PyTorch reference (its module "
+            "names); load it with load_any_checkpoint")
+    return _restore(path, ckpt, model)
+
+
+def _restore(path: str, ckpt: dict, model):
     epoch = int(ckpt.get("epoch", 0))
     if isinstance(model, torch.nn.Module):
         model.load_state_dict(ckpt["state_dict"], strict=True)
@@ -210,13 +220,43 @@ def load_checkpoint(path: str, model):
     return model, epoch
 
 
+def _load_reference(path: str, ckpt: dict, model):
+    """A checkpoint of the original PyTorch reference (``{'epoch', 'state_dict',
+    'optimizer'}``, reference train.py:781-786) into ``model``, as the JAX
+    package's ``load_any_checkpoint`` loads a ``.pth``: a generator's weights
+    into the generator, a discriminator's (``discriminator_net.*``) into the
+    trainer's discriminator and its spectral state; the reference's Adam
+    moments are not carried over, so the optimizer of what was loaded starts
+    afresh."""
+    sd = ckpt["state_dict"]
+    trainer = None if isinstance(model, torch.nn.Module) else model
+    if convert.is_reference_discriminator(sd):
+        if trainer is None or trainer.discriminator is None:
+            raise ValueError(f"{path!r} is a discriminator checkpoint but no discriminator "
+                             "is configured (weight_disc_loss == 0)")
+        disc_sd, sn = convert.reference_to_torch_discriminator(sd)
+        trainer.discriminator.load_state_dict(disc_sd, strict=True)
+        # a conv whose power-iteration vectors the file lacks keeps its own
+        trainer.sn_state.update({k: {kk: vv.to(trainer.device) for kk, vv in v.items()}
+                                 for k, v in sn.items()})
+        trainer.disc_optimizer.state.clear()
+        return
+    gen = model if trainer is None else trainer.generator
+    gen.load_state_dict(convert.reference_to_torch_generator(sd), strict=True)
+    if trainer is not None:
+        trainer.optimizer.state.clear()
+
+
 def load_any_checkpoint(path: str, model):
-    """A checkpoint of this package, or (``.pth``) one of the original PyTorch
-    reference, which is not read yet: it raises, naming ROADMAP.md (the JAX
-    package's ``load_any_checkpoint`` converts those). Returns ``(model,
-    epoch)`` as :func:`load_checkpoint`."""
-    if path.endswith(".pth"):
-        raise NotImplementedError(
-            f"{path!r}: loading checkpoints of the original PyTorch reference is not "
-            "ported yet (ROADMAP.md, Queue A item 8)")
-    return load_checkpoint(path, model)
+    """A checkpoint of this package (:func:`load_checkpoint`), or one of the
+    original PyTorch reference: a ``.pth`` or any file whose ``state_dict`` has
+    the reference's module names, converted on the fly
+    (``models/convert.py``). Such a file restores the weights and the epoch it
+    stores; a discriminator file goes to the trainer's discriminator (a
+    ``ValueError`` without one) and leaves the generator as it is. Returns
+    ``(model, epoch)`` as :func:`load_checkpoint`."""
+    ckpt = _load(path)
+    if path.endswith(".pth") or convert.is_reference_state_dict(ckpt["state_dict"]):
+        _load_reference(path, ckpt, model)
+        return model, int(ckpt.get("epoch", 0))
+    return _restore(path, ckpt, model)

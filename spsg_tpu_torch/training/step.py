@@ -36,7 +36,8 @@ differ only on a batch that mixes frames with and without holes, ROADMAP.md
 Queue C).
 
 Not ported (raises ``NotImplementedError``): the style/content losses (need
-VGG). The JAX package's compiler scheduling (``step_many``, ``compact_resid``,
+VGG) and training in bfloat16 (``TrainConfig.compute_dtype``; the generator
+serves in bfloat16). The JAX package's compiler scheduling (``step_many``, ``compact_resid``,
 ``remat``, ``fuse_raycast``, ``pair_raycast``) has no counterpart: the three
 raycasts run one after the other, which is the JAX package's default.
 
@@ -123,6 +124,11 @@ class Trainer:
 
     def __init__(self, cfg: TrainConfig, device="cuda", seed: int = 0,
                  plain_convs: bool = False):
+        if cfg.compute_dtype:
+            raise NotImplementedError(
+                f"TrainConfig.compute_dtype={cfg.compute_dtype!r}: training in reduced "
+                "precision is not ported yet (ROADMAP.md, Queue A item 8); the generator "
+                "itself serves in bfloat16")
         self.cfg = cfg
         self.device = resolve_device(device)
         rng = torch.Generator().manual_seed(seed)

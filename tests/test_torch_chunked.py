@@ -168,11 +168,19 @@ def test_window_batch_size_invariance():
     np.testing.assert_array_equal(a.class_union, b.class_union)
 
 
-@pytest.mark.parametrize("kw", [dict(compact_scene={"sdf": None}), dict(mesh=object())])
+@pytest.mark.parametrize("kw", [
+    dict(compact_scene={"sdf": np.zeros((16, 16, 16), np.float32),
+                        "colors": np.zeros((16, 16, 16, 3), np.float32)}),
+    dict(mesh=object())])
 def test_unported_options_raise(kw):
+    """mesh= is not ported and raises, naming ROADMAP.md; compact_scene is
+    (tests/test_torch_compact_feed.py) and refuses float colours, as the JAX
+    package does."""
     gen = _port_setup()
     sample = _sample(CHUNK, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    err, match = ((NotImplementedError, "ROADMAP") if "mesh" in kw
+                  else (TypeError, "must be uint8"))
+    with pytest.raises(err, match=match):
         chunked.run_chunked_inference(
             gen, sample["input"], sample["mask"], None, None, None,
             chunk_dims=CHUNK, device="cpu", **kw)

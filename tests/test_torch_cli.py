@@ -131,11 +131,15 @@ def test_checkpoint_round_trip_and_foreign_files(tmp_path):
     w = a.decoder_3a.weight
     assert float(w.detach().abs().max()) <= 1 / np.sqrt(w[0].numel())
     assert float(a.decoder_3a.bias.detach().abs().max()) == 0
-    # a checkpoint of the original reference is refused by name, not misread
+    # a checkpoint of the original reference is recognised by its names, not
+    # misread: load_checkpoint sends it to load_any_checkpoint, which converts
+    # it (tests/test_torch_reference_checkpoint.py) and refuses this torso
     foreign = str(tmp_path / "ref.pth")
     torch.save({"epoch": 1, "state_dict": {"geo_0.0.weight": torch.zeros(1)}}, foreign)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="load_any_checkpoint"):
         state.load_checkpoint(foreign, b)
+    with pytest.raises(KeyError, match="geo_0.0.bias"):
+        state.load_any_checkpoint(foreign, b)
 
 
 @pytest.mark.parametrize("entry", ["cli", "run_chunked_inference", "make_generator"])
@@ -156,7 +160,13 @@ def test_default_device_without_a_gpu_raises(entry, tmp_path, monkeypatch):
     assert not os.path.exists(tmp_path / "o")
 
 
-@pytest.mark.parametrize("argv", [["--compact_feed"], ["--compute_dtype", "bfloat16"]])
+@pytest.mark.parametrize("argv", [["--compact_feed", "--augment_rgb_scaling"],
+                                  ["--compute_dtype", "float16"]])
 def test_cli_unported_options_raise(argv, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """--compact_feed and --compute_dtype bfloat16 are ported
+    (tests/test_torch_compact_feed.py, tests/test_torch_generator_bf16.py);
+    what the CLI still refuses: the compact feed with hue augmentation, as the
+    JAX package's CLI does, and a compute type other than bfloat16."""
+    err = SystemExit if "--compact_feed" in argv else ValueError
+    with pytest.raises(err, match="augment_rgb_scaling|bfloat16"):
         cli.main(TINY + ["--output", str(tmp_path / "o")] + argv)

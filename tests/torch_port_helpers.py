@@ -9,6 +9,7 @@ import jax
 import numpy as np
 import torch
 
+from spsg_tpu.models.convert import _GENERATOR_LAYOUT, _HEAD_BN
 from spsg_tpu.training.config import TrainConfig as JaxTrainConfig
 from spsg_tpu.training.state import init_states, load_checkpoint
 from spsg_tpu_torch.models.convert import flax_to_torch_generator
@@ -94,3 +95,29 @@ def chunk_inputs(batch=2, dims=CHUNK, seed=0):
 
 def t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def reference_generator_state_dict(variables, seed):
+    """A reference Generator state_dict (torch/model.py module names) holding
+    ``variables`` (the JAX package's tree, numpy), plus the
+    ``num_batches_tracked`` counters a reference file carries."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = {}
+    for prefix, layout in _GENERATOR_LAYOUT.items():
+        for conv_i, bn_i, name in layout:
+            conv = params[name]["Conv_0"]
+            sd[f"{prefix}.{conv_i}.weight"] = np.transpose(conv["kernel"], (4, 3, 0, 1, 2))
+            sd[f"{prefix}.{conv_i}.bias"] = conv["bias"]
+            if bn_i is not None:
+                bn, st = params[name]["BatchNorm_0"], stats[name]["BatchNorm_0"]
+                sd.update({f"{prefix}.{bn_i}.weight": bn["scale"],
+                           f"{prefix}.{bn_i}.bias": bn["bias"],
+                           f"{prefix}.{bn_i}.running_mean": st["mean"],
+                           f"{prefix}.{bn_i}.running_var": st["var"],
+                           f"{prefix}.{bn_i}.num_batches_tracked": np.int64(seed)})
+    for prefix, (name, bn_i) in _HEAD_BN.items():
+        sd.update({f"{prefix}.{bn_i}.weight": params[name]["scale"],
+                   f"{prefix}.{bn_i}.bias": params[name]["bias"],
+                   f"{prefix}.{bn_i}.running_mean": stats[name]["mean"],
+                   f"{prefix}.{bn_i}.running_var": stats[name]["var"]})
+    return {k: torch.as_tensor(np.ascontiguousarray(v)) for k, v in sd.items()}
