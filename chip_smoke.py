@@ -125,6 +125,30 @@ fails. Phases, each printing one JSON line:
            bit to what that step computed (hits, normals, frames_ok, masks);
            a 16^3 / nf 4 / 48x32 full step on the GPU against the same step
            on the CPU
+  metrics  the metrics CLI (spsg_tpu_torch.cli.metrics, on the card) over the scene
+           phase's outputs, before its temporary directory goes: chamfer and IoU
+           on its meshes, SSIM and Feature-l1 on its prediction and target
+           renders (480x384), FID between its four prediction and four target
+           renders; the versions of scipy, PIL, pandas and matplotlib; no hand
+           kernel launched; Inception-v3 on the eight renders: seconds per
+           image (host clock, one forward an image, synchronised by the copy
+           back), peak memory, device time of one image; its pool features,
+           its logits and Feature-l1 on the card against the CPU's, within 1e-4
+           of the largest entry
+  train2d_style
+           the full step with the VGG style / content losses (Trainer(...,
+           vgg=...), TrainConfig() width, both weights 1 and both flags on,
+           LAB colour, the VGG on its fixed-seed weights): the launch counters
+           as in train2d, loss_style / loss_content finite and positive, the
+           same step with both weights 0 (the same forward within 1e-5, the
+           generator's gradients apart by more than 1e-3 of a leaf's largest
+           entry: the style gradient reaches the generator through K5 / K6);
+           one warm-up and three timed steps (median seconds, peak memory);
+           device time of one step by kind, the style block traced alone and
+           moved into "vgg" (both VGG forwards, the backward to the render, the
+           Gram products, the LAB conversion); the VGG forward at 320x256 on
+           the card against the CPU's, within 1e-4 of the largest |feature|; a
+           16^3 / nf 4 / 48x32 style step on the GPU against the CPU
   train_cli
            the train CLI as a user calls it (spsg_tpu_torch.cli.train.main, in
            this process) at TrainConfig() width on 10 synthetic chunks in
@@ -143,7 +167,8 @@ fails. Phases, each printing one JSON line:
            the same iteration, epoch and Adam step counts, the parameters held
            to Queue C's Adam rule
   kernels  one line {"kernels": [...]}: per kernel its launches on the
-           paths (serve, scene, train, train2d, train2d_missing_colour, train_cli;
+           paths (serve, scene, train, train2d, train2d_missing_colour,
+           train2d_style, train_cli;
            each counter set to 0 just before the path's run and read just
            after) and its numbers at the heaviest main-path shape (for the
            raycaster's, the prediction grid at the path's size; for K7 the
@@ -1829,16 +1854,31 @@ def profile_train2d_step(trainer, batch, flags):
     """Device time of one full step by kind: the step's parts traced one after
     the other (generator forward with the 2D block; the discriminator's step
     and the adversarial forward; the generator's backward; its Adam), kernels
-    told apart by name; the depth chain traced alone on the same frames."""
+    told apart by name; the depth chain traced alone on the same frames. With
+    style or content in ``flags``, the style block (``Trainer._style_content``:
+    LAB to RGB, both VGG forwards, the Gram products, the losses, and its
+    backward to the render) is traced alone too, on the render the step gave
+    it, and its time moves out of the forward and backward kinds into "vgg"."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     dev_batch = trainer._to_device(batch)
     trainer.generator.train()
     params = list(trainer.generator.parameters())
-    with profile(activities=acts) as p_fwd:
-        loss_rest, metrics, aux = trainer._forward_losses(dev_batch, StepFlags(**flags))
-        torch.cuda.synchronize()
+    style_inputs = {}
+    real_style = trainer._style_content
+
+    def recording_style(render, images, missing2d, fl):
+        style_inputs.update(render=render.detach(), images=images, missing2d=missing2d)
+        return real_style(render, images, missing2d, fl)
+
+    trainer._style_content = recording_style
+    try:
+        with profile(activities=acts) as p_fwd:
+            loss_rest, metrics, aux = trainer._forward_losses(dev_batch, StepFlags(**flags))
+            torch.cuda.synchronize()
+    finally:
+        del trainer._style_content
     with profile(activities=acts) as p_disc:
         gen_l = trainer._discriminator_step(StepFlags(**flags), aux, metrics, None, None)
         total = loss_rest + trainer.cfg.weight_discgen_loss * aux["gate2d"] * gen_l
@@ -1859,12 +1899,12 @@ def profile_train2d_step(trainer, batch, flags):
         torch.cuda.synchronize()
     kinds, names = {}, {}
     everything = {k: "discriminator" for k in ("hand_conv", "library_conv", "elementwise")}
+    forward = {"hand_conv": "hand_conv_forward", "library_conv": "library_conv_forward",
+               "elementwise": "elementwise_forward_and_losses"}
+    backward = {"hand_conv": "hand_conv_dx", "library_conv": "library_conv_backward",
+                "elementwise": "elementwise_backward"}
     for prof, rename in (
-            (p_fwd, {"hand_conv": "hand_conv_forward", "library_conv": "library_conv_forward",
-                     "elementwise": "elementwise_forward_and_losses"}),
-            (p_disc, everything),
-            (p_bwd, {"hand_conv": "hand_conv_dx", "library_conv": "library_conv_backward",
-                     "elementwise": "elementwise_backward"}),
+            (p_fwd, forward), (p_disc, everything), (p_bwd, backward),
             (p_opt, {k: "optimizer" for k in ("hand_conv", "library_conv", "elementwise")})):
         g, n = device_time_by_kind(prof, rename)
         for k, v in g.items():
@@ -1876,6 +1916,29 @@ def profile_train2d_step(trainer, batch, flags):
     kinds["depth_chain"] = depth_us
     kinds["elementwise_forward_and_losses"] = kinds.get("elementwise_forward_and_losses",
                                                         0.0) - depth_us
+    if style_inputs:
+        render = style_inputs["render"].clone().requires_grad_(True)
+        with profile(activities=acts) as p_sf:
+            ls, lc = trainer._style_content(render, style_inputs["images"],
+                                            style_inputs["missing2d"], StepFlags(**flags))
+            torch.cuda.synchronize()
+        with profile(activities=acts) as p_sb:
+            (ls + lc).backward()
+            torch.cuda.synchronize()
+        kinds["vgg"] = 0.0
+        vgg_names = {}
+        for prof, rename in ((p_sf, forward), (p_sb, backward)):
+            g, n = device_time_by_kind(prof, rename)
+            for k, v in g.items():
+                kinds[k] = kinds.get(k, 0.0) - v
+                kinds["vgg"] += v
+            for k, v in n.items():
+                vgg_names[k] = vgg_names.get(k, 0.0) + v
+        rec = device_time_record(kinds, names, 12)
+        if isinstance(rec, dict):
+            rec["vgg_top_kernels_ms"] = [[k[:80], v / 1e3] for k, v in
+                                         sorted(vgg_names.items(), key=lambda kv: -kv[1])[:8]]
+        return rec
     return device_time_record(kinds, names, 12)
 
 
@@ -2143,6 +2206,247 @@ def phase_train2d():
     return launches, launches_mc
 
 
+# --------------------------------------------------------------------------- train2d_style
+FULL_STYLE = dict(FULL_2D, compute_style=True, compute_content=True)
+
+
+def fixed_seed_vgg(device):
+    """load_vgg_for_style on ``device``; whether it fell back to the fixed-seed
+    weights (this repository ships no VGG19 weights)."""
+    from spsg_tpu_torch.models.vgg import load_vgg_for_style
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        vgg = load_vgg_for_style(device=device)
+    return vgg, any("FIXED-SEED" in str(w.message) for w in caught)
+
+
+def phase_train2d_style():
+    """The full step with the VGG style / content losses at TrainConfig()
+    width (both weights 1, both flags on), the VGG on fixed-seed weights."""
+    from spsg_tpu_torch.data import colorspace, synthetic
+
+    cfg = TrainConfig(weight_style_loss=1.0, weight_content_loss=1.0)
+    batch = synthetic.make_chunk_batch(cfg.batch_size, cfg.input_dim,
+                                       (cfg.style_width, cfg.style_height), seed=7,
+                                       with_frames=True, device=DEV)
+    batch.pop("name")
+    batch["weight_occ"] = np.float32(cfg.weight_occ_loss)
+    flags = StepFlags(**FULL_STYLE)
+    vgg, fixed_seed = fixed_seed_vgg(DEV)
+    rec = dict(config=dict(nf_gen=cfg.nf_gen, input_dim=list(cfg.input_dim),
+                           batch_size=cfg.batch_size, image=[cfg.style_width, cfg.style_height],
+                           color_space=cfg.color_space, weight_style_loss=cfg.weight_style_loss,
+                           weight_content_loss=cfg.weight_content_loss, flags=FULL_STYLE),
+               vgg_fixed_seed_weights=fixed_seed)
+
+    trainer = Trainer(cfg, DEV, seed=0, vgg=vgg)
+    scale_conv_weights(trainer.generator, 2.0)
+    centre_train_occupancy(trainer, batch)
+    # the same step, the same weights, both style weights 0
+    zero = Trainer(dataclasses.replace(cfg, weight_style_loss=0.0, weight_content_loss=0.0),
+                   DEV, seed=0, vgg=vgg)
+    zero.generator.load_state_dict(trainer.generator.state_dict())
+    zero.discriminator.load_state_dict(trainer.discriminator.state_dict())
+    zero.sn_state = {k: {kk: vv.clone() for kk, vv in v.items()}
+                     for k, v in trainer.sn_state.items()}
+
+    # (a) one step: launches, peak memory, the style losses; the step with both
+    # weights 0 on the same batch: the same forward, another generator gradient
+    reset_all_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = trainer.step(batch, flags)
+    torch.cuda.synchronize()
+    launches = all_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if launches != WANT_2D:
+        raise SystemExit(f"chip_smoke: launches of one style step {launches}, expected {WANT_2D}")
+    style = {k: float(metrics[k]) for k in ("loss_style", "loss_content")}
+    if not all(np.isfinite(v) and v > 0 for v in style.values()):
+        raise SystemExit(f"chip_smoke: the style step's losses are not finite and positive: "
+                         f"{style}")
+    zero_metrics = zero.step(batch, flags)
+    same_forward = {k: rel_diff(zero_metrics[k], metrics[k]) for k in style}
+    # the style gradient reaches the generator through the render: K5 forward, K6
+    # backward; without it the gradients are another step's
+    moved = compare_grads(trainer, zero, None, "style step vs weights 0")
+    if not (moved["grad_max_rel_diff"] > 1e-3 and max(same_forward.values()) <= 1e-5):
+        raise SystemExit(f"chip_smoke: the style terms do not move the generator's gradients "
+                         f"({moved}), or the two forwards differ ({same_forward})")
+    rec.update(launches_per_step=launches, max_memory_allocated=peak,
+               first_step_metrics={k: float(v) for k, v in metrics.items()},
+               weights_0_vs_1=dict(style_losses_rel_diff=same_forward,
+                                   generator_gradients=moved))
+    del zero
+    torch.cuda.empty_cache()
+
+    # (b) one warm-up step, then three timed steps
+    trainer.step(batch, flags)
+    seconds, losses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.time()
+        m = trainer.step(batch, flags)
+        torch.cuda.synchronize()
+        seconds.append(time.time() - t)
+        losses.append({k: float(v) for k, v in m.items()})
+    if not (all(np.isfinite(v) for m in losses for v in m.values())
+            and all(torch.isfinite(p).all() for p in trainer.generator.parameters())):
+        raise SystemExit(f"chip_smoke: style steps gave non-finite values: {losses}")
+    rec.update(seconds_per_step=sorted(seconds)[1], seconds_per_step_all=seconds,
+               max_memory_allocated_steady=torch.cuda.max_memory_allocated(),
+               losses_style=[m["loss_style"] for m in losses],
+               losses_content=[m["loss_content"] for m in losses])
+    rec["step_device_time"] = profile_train2d_step(trainer, batch, FULL_STYLE)
+
+    # (c) the VGG forward on the card against its CPU forward, on the step's
+    # target frames in RGB (2, 256, 320, 3)
+    images = torch.as_tensor(batch["images_color"], device=DEV).permute(0, 2, 3, 1)
+    x = colorspace.lab01_to_rgb(images)
+    vgg_cpu, _ = fixed_seed_vgg("cpu")
+    vgg_cpu.load_state_dict({k: v.cpu() for k, v in vgg.state_dict().items()})
+    with torch.no_grad():
+        gpu = vgg(x)[0].cpu()
+        cpu = vgg_cpu(x.cpu())[0]
+    scale = cpu.abs().max().item()
+    err = (gpu - cpu).abs().max().item() / scale
+    if not err <= 1e-4:
+        raise SystemExit(f"chip_smoke: the VGG forward on the card differs from the CPU's by "
+                         f"{err:.3e} of the largest |feature|")
+    rec["vgg_gpu_vs_cpu"] = dict(shape=list(x.shape), max_abs_err_rel=err, largest_feature=scale)
+    del trainer, vgg_cpu, images, x
+    torch.cuda.empty_cache()
+
+    # (d) a small style step on the GPU against the same step on the CPU
+    small = TrainConfig(input_dim=(16, 16, 16), nf_gen=4, nf_disc=4, style_width=48,
+                        style_height=32, patch_size=16, max_depth_fill_iters=8,
+                        min_num_valid_2d=10, weight_style_loss=1.0, weight_content_loss=1.0)
+    sbatch = synthetic.make_chunk_batch(2, (16, 16, 16), (48, 32), seed=1, with_frames=True,
+                                        device="cpu")
+    sbatch.pop("name")
+    sbatch["weight_occ"] = np.float32(1.0)
+    pair = {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(small, dev, seed=3, vgg=fixed_seed_vgg(dev)[0])
+        scale_conv_weights(tr.generator, 2.0)
+        pair[dev] = (tr, {k: float(v) for k, v in tr.step(sbatch, flags).items()})
+    rec["small_step_gpu_vs_cpu"] = dict(
+        metrics_rel_diff=compare_metrics(pair["cuda"][1], pair["cpu"][1],
+                                         "16^3 style step, GPU vs CPU"),
+        metrics_gpu=pair["cuda"][1])
+    device = rec["step_device_time"]
+    vgg_ms = device["by_kind_ms"].get("vgg") if isinstance(device, dict) else "not measured"
+    print(f"train2d_style: {rec['seconds_per_step']:.4f} s a step, peak {peak} bytes, "
+          f"vgg device time {vgg_ms} ms", flush=True)
+    emit("train2d_style", **rec)
+    return launches
+
+
+# --------------------------------------------------------------------------- metrics
+SCENE_NAME = "synthetic_scene_0"
+# the scene's renders a FID set is made of: the prediction's and the target's
+FID_KINDS = ("", "-normals", "-depth", "-semantics")
+
+
+def phase_metrics(tmp, scene_dir):
+    """The metrics CLI on the card over the scene phase's outputs: chamfer and
+    IoU on its meshes (voxel units: --voxel_size 1), SSIM and Feature-l1 on
+    its prediction and target renders, FID between its four prediction and
+    four target renders; Inception-v3's seconds per image, peak memory and
+    device time; its features and logits on the card against the CPU's."""
+    import importlib
+
+    from PIL import Image
+
+    from spsg_tpu_torch.cli import metrics as metrics_cli
+    from spsg_tpu_torch.inference import metrics as M
+
+    versions = {}
+    for name in ("scipy", "PIL", "pandas", "matplotlib"):
+        try:
+            versions[name] = importlib.import_module(name).__version__
+        except ImportError:
+            versions[name] = None
+    print(f"metrics: host packages {json.dumps(versions)}", flush=True)
+    if versions["scipy"] is None or versions["PIL"] is None:
+        raise SystemExit(f"chip_smoke: the metrics need scipy and PIL: {versions}")
+
+    meshes = ["--pred_suffix", "_pred-mesh.ply", "--target_suffix", "_target-mesh.ply"]
+    pngs = ["--pred_suffix", "_pred.png", "--target_suffix", "_target.png"]
+    fid_dirs = {}
+    for side in ("pred", "target"):
+        d = fid_dirs[side] = os.path.join(tmp, f"fid_{side}")
+        os.makedirs(d)
+        for kind in FID_KINDS:
+            src = os.path.join(scene_dir, f"{SCENE_NAME}_{side}{kind}.png")
+            os.symlink(src, os.path.join(d, f"{SCENE_NAME}{kind or '-colour'}.png"))
+    runs = {
+        "chamfer": ["--pred_dir", scene_dir, "--target_dir", scene_dir] + meshes,
+        "iou": ["--pred_dir", scene_dir, "--target_dir", scene_dir, "--voxel_size", "1"] + meshes,
+        "ssim": ["--pred_dir", scene_dir, "--target_dir", scene_dir] + pngs,
+        "feature_l1": ["--pred_dir", scene_dir, "--target_dir", scene_dir] + pngs,
+        "fid": ["--pred_dir", fid_dirs["pred"], "--target_dir", fid_dirs["target"],
+                "--pred_suffix", ".png", "--target_suffix", ".png"],
+    }
+    rec = dict(host_packages=versions, cli={})
+    reset_all_launch_counts()
+    for metric, argv in runs.items():
+        out = os.path.join(tmp, f"{metric}.txt")
+        t = time.time()
+        summary = metrics_cli.main(["--metric", metric, "--output", out] + argv)
+        seconds = time.time() - t
+        value = summary.get("fid") if metric == "fid" else summary.get("mean")
+        if value is None or not np.isfinite(value) or not os.path.isfile(out):
+            raise SystemExit(f"chip_smoke: metrics CLI --metric {metric} gave {summary}")
+        rec["cli"][metric] = dict(value=value, seconds=seconds)
+    if any(all_launch_counts().values()):
+        raise SystemExit(f"chip_smoke: the metrics launched a hand kernel: {all_launch_counts()}")
+
+    # Inception-v3 on the card: the eight renders, one forward an image
+    images = [np.array(Image.open(os.path.join(fid_dirs[side], f)).convert("RGB")) / 255.0
+              for side in ("pred", "target") for f in sorted(os.listdir(fid_dirs[side]))]
+    M.image_features(images[:1], DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    feats = M.image_features(images, DEV)  # numpy: the card is done
+    per_image = (time.time() - t) / len(images)
+    peak = torch.cuda.max_memory_allocated()
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        M.image_features(images[:1], DEV)
+        torch.cuda.synchronize()
+    device = device_time_record(*device_time_by_kind(prof, {"library_conv": "inception_conv"}), 6)
+    cpu_feats = M.image_features(images, "cpu")
+    scale = float(np.abs(cpu_feats).max())
+    feat_err = float(np.abs(feats - cpu_feats).max()) / scale
+    (_, la), (_, lb) = M._inception_outputs(images[:2], DEV)
+    (_, ca), (_, cb) = M._inception_outputs(images[:2], "cpu")
+    logit_scale = max(ca.abs().max().item(), cb.abs().max().item())
+    logit_err = max((la.cpu() - ca).abs().max().item(),
+                    (lb.cpu() - cb).abs().max().item()) / logit_scale
+    fl_gpu = M.feature_l1(images[0], images[4], DEV)
+    fl_cpu = M.feature_l1(images[0], images[4], "cpu")
+    if not (feat_err <= 1e-4 and logit_err <= 1e-4
+            and abs(fl_gpu - fl_cpu) <= 1e-4 * logit_scale):
+        raise SystemExit(f"chip_smoke: Inception-v3 on the card differs from the CPU: features "
+                         f"{feat_err:.3e}, logits {logit_err:.3e} of the largest entry; "
+                         f"Feature-l1 {fl_gpu} vs {fl_cpu}")
+    rec["inception"] = dict(
+        images=len(images), image=list(images[0].shape), seconds_per_image=per_image,
+        max_memory_allocated=peak, device_time_one_image=device,
+        features_gpu_vs_cpu=feat_err, logits_gpu_vs_cpu=logit_err,
+        feature_l1_gpu=fl_gpu, feature_l1_cpu=fl_cpu)
+    cli_line = ", ".join(f"{k} {v['value']:.6g} ({v['seconds']:.2f} s)"
+                         for k, v in rec["cli"].items())
+    print(f"metrics: Inception-v3 {per_image * 1e3:.2f} ms an image, peak {peak} bytes; "
+          f"{cli_line}", flush=True)
+    emit("metrics", **rec)
+
+
 # --------------------------------------------------------------------------- train_cli
 # the train CLI at TrainConfig() width: 10 synthetic chunks in batches of 2 for
 # 3 epochs, 5 iterations an epoch, the first geometry-only (num_iters_geo_only
@@ -2355,26 +2659,29 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as tmp:
         serve = phase_path(tmp)
         scene = phase_scene(tmp, rc_results)
+        phase_metrics(tmp, os.path.join(tmp, "scene"))
     train = phase_train()
     train2d, train2d_mc = phase_train2d()
+    train2d_style = phase_train2d_style()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as tmp:
         train_cli = phase_train_cli(tmp, smi)
 
     # the kernels of each path: serving runs the two forward kernels, the 3D
-    # training step all three conv kernels, the full step all but the occupancy
-    # march, which only the missing-colour weights run; the train CLI as the
-    # full step
+    # training step all three conv kernels, the full step (with style / content
+    # too) all but the occupancy march, which only the missing-colour weights
+    # run; the train CLI as the full step
     full_step = tuple(k for k in KERNELS if k != "raycast_occ")
     on_path = {"serve": ("conv3x3", "conv3x3_act_stats"),
                "scene": ("conv3x3", "conv3x3_act_stats", "raycast_march", "raycast_shade"),
                "train": CONV_KERNELS,
                "train2d": full_step, "train2d_missing_colour": tuple(KERNELS),
-               "train_cli": full_step}
+               "train2d_style": full_step, "train_cli": full_step}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         by_path = {"serve": serve[name], "scene": scene[name], "train": train[name],
                    "train2d": train2d[name],
-                   "train2d_missing_colour": train2d_mc[name], "train_cli": train_cli[name]}
+                   "train2d_missing_colour": train2d_mc[name],
+                   "train2d_style": train2d_style[name], "train_cli": train_cli[name]}
         for path, names in on_path.items():
             if name in names and by_path[path] < 1:
                 raise SystemExit(f"chip_smoke: {name} was not launched on the {path} path")

@@ -17,10 +17,12 @@ Examples:
 Runs on the GPU (``--gpu N`` picks the card) unless ``--device cpu`` is given;
 with no GPU and no ``--device cpu`` it raises. Checkpoints are ``torch.save``
 files (``training/state.py``): ``model-epoch{e}.pt``, ``model-iter{it}-epoch{e}.pt``,
-``model-preempt-iter{it}.pt``. Not ported yet (each raises, naming
-ROADMAP.md): ``--weight_style_loss`` / ``--weight_content_loss`` > 0,
-``--compute_dtype bfloat16`` and ``--distributed``. The flags that steer the
-JAX package's compiler are accepted and have no effect.
+``model-preempt-iter{it}.pt``. ``--weight_style_loss`` / ``--weight_content_loss``
+> 0 build the VGG19 extractor on the same device (``models/vgg.py``; its weights
+from $SPSG_VGG_WEIGHTS, a packaged ``models/vgg19_conv8.npz`` or the torch hub
+cache, else fixed-seed weights with a warning). Not ported yet (each raises,
+naming ROADMAP.md): ``--compute_dtype bfloat16`` and ``--distributed``. The
+flags that steer the JAX package's compiler are accepted and have no effect.
 """
 
 from __future__ import annotations
@@ -248,14 +250,10 @@ class SyntheticChunkDataset:
 
 
 def _check_ported(args) -> None:
-    if args.weight_style_loss > 0 or args.weight_content_loss > 0:
-        raise NotImplementedError(
-            "--weight_style_loss / --weight_content_loss: the style/content losses need "
-            "VGG, which is not ported yet (ROADMAP.md, Queue A item 9)")
     if args.compute_dtype:
         raise NotImplementedError(
             f"--compute_dtype {args.compute_dtype}: training in reduced precision is "
-            "not ported yet (ROADMAP.md, Queue A item 8)")
+            "not ported yet (ROADMAP.md, Queue A item 8b)")
     if args.distributed:
         raise NotImplementedError(
             "--distributed: multi-host training is not ported yet (ROADMAP.md, Queue A "
@@ -316,6 +314,12 @@ def main(argv=None):
         val_ds = ChunkDataset(val_files, num_overfit=160 if overfit else 0, **kw) if val_files else None
         print("#train files =", len(train_ds))
 
+    vgg = None
+    if cfg.weight_style_loss > 0 or cfg.weight_content_loss > 0:
+        from ..models.vgg import load_vgg_for_style
+
+        vgg = load_vgg_for_style(device=device)
+
     with torch_trace(args.profile_dir or None):
         return run_training(
             cfg,
@@ -328,6 +332,7 @@ def main(argv=None):
             retrain_disc=args.retrain_disc,
             vis_at_epoch_end=not args.no_vis,
             device=device,
+            vgg=vgg,
         )
 
 

@@ -27,6 +27,12 @@ discriminator's state_dicts become this package's under the reference's
 layout tables (:func:`reference_to_torch_generator`,
 :func:`reference_to_torch_discriminator`), as the JAX package's converter maps
 them onto its variables.
+
+The perceptual extractors: the JAX package's VGG19 params
+(:func:`vgg_params_from_jax`) and its Inception-v3 pytree
+(:func:`inception_params_from_jax`) become this package's modules'
+state_dicts, kernels transposed HWIO -> OIHW, so that a test can hand both
+packages the same weights.
 """
 
 from __future__ import annotations
@@ -259,3 +265,45 @@ def reference_to_torch_discriminator(state_dict):
         if f"final.{leaf}" in sd:
             out[f"final.{leaf}"] = _tensor(sd[f"final.{leaf}"])
     return out, sn
+
+
+# ---------------------------------------------------------------------------
+# the perceptual feature extractors (``models/vgg.py``, ``models/inception.py``)
+# ---------------------------------------------------------------------------
+
+
+def _oihw(hwio) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(
+        np.transpose(np.asarray(hwio, np.float32), (3, 2, 0, 1))))
+
+
+def vgg_params_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``VGGFeatures`` params (``conv_i/{kernel (3,3,Cin,Cout),
+    bias}``, numpy leaves) -> the ``VGGFeatures`` state_dict of this package
+    (``conv_i.{weight (Cout,Cin,3,3), bias}``)."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        out[f"{name}.weight"] = _oihw(p["kernel"])
+        out[f"{name}.bias"] = torch.from_numpy(np.array(p["bias"], np.float32))
+    return out
+
+
+def inception_params_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The JAX package's Inception-v3 pytree (per conv ``{w (kh,kw,Cin,Cout),
+    scale, bias, mean, var}``, and ``fc: {w (2048,1000), b}``; numpy leaves) ->
+    the ``InceptionV3`` state_dict of this package under torchvision's key
+    names (``<conv>.conv.weight``, ``<conv>.bn.{weight,bias,running_mean,
+    running_var,num_batches_tracked}``, ``fc.{weight,bias}``)."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        if name == "fc":
+            out["fc.weight"] = torch.from_numpy(
+                np.ascontiguousarray(np.asarray(p["w"], np.float32).T))
+            out["fc.bias"] = torch.from_numpy(np.array(p["b"], np.float32))
+            continue
+        out[f"{name}.conv.weight"] = _oihw(p["w"])
+        for mine, theirs in (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"),
+                             ("var", "running_var")):
+            out[f"{name}.bn.{theirs}"] = torch.from_numpy(np.array(p[mine], np.float32))
+        out[f"{name}.bn.num_batches_tracked"] = torch.tensor(0)
+    return out

@@ -157,6 +157,7 @@ def run_training(
     seed: int = 0,
     vis_at_epoch_end: bool = True,
     device="cuda",
+    vgg=None,
 ) -> TrainResult:
     """Train to ``max_epoch`` (default ``cfg.max_epoch``) on ``device`` (the
     GPU unless the caller asks for the CPU).
@@ -176,9 +177,11 @@ def run_training(
     epochs and at the last, ``model-epoch{epoch}.pt`` stored with ``epoch +
     1``; every ``ckpt_every_iters`` iterations ``model-iter{it}-epoch{epoch}.pt``.
     SIGTERM / SIGINT write ``model-preempt-iter{it}.pt`` at the next step
-    boundary and return; the previous handlers are restored."""
+    boundary and return; the previous handlers are restored. ``vgg`` is the
+    style / content extractor (``models/vgg.py::load_vgg_for_style``), which
+    the steps need once ``StepFlags.for_iter`` schedules style or content."""
     os.makedirs(save_dir, exist_ok=True)
-    trainer = Trainer(cfg, device, seed=seed)
+    trainer = Trainer(cfg, device, seed=seed, vgg=vgg)
     epoch0 = start_epoch
     if retrain:
         _, epoch0 = state_lib.load_any_checkpoint(retrain, trainer)

@@ -6,9 +6,11 @@ forward, 3D occupancy / SDF / semantic losses and, with ``StepFlags.use_2d``,
 the 2D view-guided block: SDF-gradient normals, three raycasts (input,
 projected target, prediction; the first two without gradient, so one
 backward scatter a step), the depth chain on the target frame, depth and
-colour L1 and the 2D semantic CE. With ``use_disc`` the discriminator is
-updated on the detached render first, then the generator's adversarial loss
-is taken against the *updated* discriminator, and one backward of
+colour L1, the VGG style / content losses (``compute_style`` /
+``compute_content``, with a ``vgg`` extractor) and the 2D semantic CE. With
+``use_disc`` the discriminator is updated on the detached render first, then
+the generator's adversarial loss is taken against the *updated*
+discriminator, and one backward of
 ``loss_rest + weight_discgen * gate * gen_loss`` reaches the generator
 (train.py:726-732). Hand-written CUDA kernels on a card: the generator's
 convs (``ops/conv3x3.py``) and the raycaster's march, shade and scatter
@@ -35,11 +37,19 @@ on its batch-mates; the JAX package decides for the whole batch (the two
 differ only on a batch that mixes frames with and without holes, ROADMAP.md
 Queue C).
 
-Not ported (raises ``NotImplementedError``): the style/content losses (need
-VGG) and training in bfloat16 (``TrainConfig.compute_dtype``; the generator
-serves in bfloat16). The JAX package's compiler scheduling (``step_many``, ``compact_resid``,
-``remat``, ``fuse_raycast``, ``pair_raycast``) has no counterpart: the three
-raycasts run one after the other, which is the JAX package's default.
+The style / content block converts the render and the target frame from LAB
+to RGB when ``color_space == "lab"``, sanitising the render's ``-inf`` pixels
+*before* the conversion, as the JAX package does: a NaN made there would be
+hidden from the forward by the select that restores ``-inf`` but not from the
+backward, which would carry it into the raycaster's scatter. The target's
+features carry no gradient and are computed under ``torch.no_grad()``; the
+VGG's parameters are frozen, outside both optimizers and the checkpoint.
+
+Not ported (raises ``NotImplementedError``): training in bfloat16
+(``TrainConfig.compute_dtype``; the generator serves in bfloat16). The JAX
+package's compiler scheduling (``step_many``, ``compact_resid``, ``remat``,
+``fuse_raycast``, ``pair_raycast``) has no counterpart: the three raycasts run
+one after the other, which is the JAX package's default.
 
 PyTorch idiom: the state lives in the modules, their optimizers and the
 discriminator's spectral state, not in a state object threaded through the
@@ -55,10 +65,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..data import category
+from ..data import category, colorspace
 from ..losses import gan as gan_losses
 from ..losses import geo as geo_losses
 from ..losses import semantic as sem_losses
+from ..losses import style as style_losses
 from ..losses import twod as twod_losses
 from ..ops import depth as depth_ops
 from ..ops import normals3d
@@ -120,14 +131,16 @@ class Trainer:
     iteration count. ``seed`` draws the initial weights (generator first, then
     the discriminator, from one CPU ``torch.Generator``); ``plain_convs`` is
     the generator's testing hook (the kernels' plain versions on any
-    device)."""
+    device). ``vgg`` (``models/vgg.py::VGGFeatures``) is the style / content
+    extractor, moved to the trainer's device and frozen; the steps that
+    compute style or content need it."""
 
     def __init__(self, cfg: TrainConfig, device="cuda", seed: int = 0,
-                 plain_convs: bool = False):
+                 plain_convs: bool = False, vgg=None):
         if cfg.compute_dtype:
             raise NotImplementedError(
                 f"TrainConfig.compute_dtype={cfg.compute_dtype!r}: training in reduced "
-                "precision is not ported yet (ROADMAP.md, Queue A item 8); the generator "
+                "precision is not ported yet (ROADMAP.md, Queue A item 8b); the generator "
                 "itself serves in bfloat16")
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -139,6 +152,7 @@ class Trainer:
         if cfg.weight_disc_loss > 0:
             self.discriminator, self.sn_state = init_discriminator(cfg, rng, self.device)
             self.disc_optimizer = disc_optimizer(cfg, self.discriminator.parameters())
+        self.vgg = None if vgg is None else vgg.to(self.device).eval().requires_grad_(False)
         # the step's own randomness (the gradient penalty's alpha)
         self.rng = torch.Generator().manual_seed(seed + 1)
         self.class_weights = torch.as_tensor(
@@ -164,7 +178,7 @@ class Trainer:
         place of the input and target marches and the depth chain. Returns the
         metrics under the JAX package's names as 0-dim tensors on the device."""
         cfg = self.cfg
-        self._check_ported(flags)
+        self._check_flags(flags)
         batch = self._to_device(batch)
         if isinstance(precomp, (list, tuple)):
             precomp = {k: torch.cat([p[k] for p in precomp], dim=0) for k in precomp[0]}
@@ -245,12 +259,12 @@ class Trainer:
 
     # -- internals ----------------------------------------------------------
 
-    def _check_ported(self, flags: StepFlags) -> None:
+    def _check_flags(self, flags: StepFlags) -> None:
         for name in ("compute_style", "compute_content"):
-            if getattr(flags, name):
-                raise NotImplementedError(
-                    f"StepFlags.{name}: the style/content losses need VGG, which is not "
-                    "ported yet (ROADMAP.md, Queue A item 9)")
+            if getattr(flags, name) and self.vgg is None:
+                raise ValueError(
+                    f"StepFlags.{name}: the style/content losses need a VGG extractor; "
+                    "pass Trainer(..., vgg=models.vgg.load_vgg_for_style(device=...))")
 
     def _to_device(self, batch):
         out = {}
@@ -397,6 +411,30 @@ class Trainer:
             aux.update(aux2d)
         return loss, metrics, aux
 
+    def _style_content(self, render_color, images_color, missing2d, flags):
+        """(style, content) losses of the prediction's colour render (B*F,H,W,3)
+        against the target frames (B*F,H,W,3), both in the network's colour
+        space, the render ``-inf`` where it has no hit (JAX ``step.py:712-749``).
+        ``missing2d`` (B*F,H,W) or None restricts them to the missing regions."""
+        style_pred, style_tgt = render_color, images_color
+        if self.cfg.color_space == "lab":
+            invalid = style_pred == NEG_INF
+            style_pred = torch.where(
+                invalid, NEG_INF, colorspace.lab01_to_rgb(_sanitize(style_pred)))
+            style_tgt = colorspace.lab01_to_rgb(style_tgt)
+        style_pred, style_tgt = twod_losses.preprocess_rendered_target_images(
+            style_pred, style_tgt)
+        if missing2d is not None:
+            # with weight_missing_color > 1 the reference restricts style and
+            # content to the missing regions: target pixels are copied into
+            # every render pixel outside them (train.py:679-681, style.py:24-29)
+            style_pred = torch.where(missing2d[..., None] != 0, style_pred, style_tgt)
+        f_out = self.vgg(style_pred)
+        with torch.no_grad():
+            f_tgt = self.vgg(style_tgt)
+        return style_losses.style_content_loss(f_out, f_tgt, flags.compute_style,
+                                               flags.compute_content)
+
     def _2d_losses(self, batch, flags, target_sdf, pred_sdf_g, pred_color, pred_sem,
                    surface_pred, precomp=None):
         """The 2D view-guided block (reference train.py:524-752) without the
@@ -432,7 +470,7 @@ class Trainer:
         view_inv_rot = torch.linalg.inv(view)[:, :3, :3]
 
         # per-pixel colour weights where the input misses the target (train.py:546-554)
-        weight_color = None
+        weight_color = missing2d = None
         if cfg.weight_missing_color > 1:
             if precomp is not None:
                 missing2d, tgt_mask2d = precomp["missing2d"], precomp["tgt_mask2d"]
@@ -525,6 +563,17 @@ class Trainer:
                 wcd = self.discriminator.compute_valids(weight_color[..., None])
                 weight_color_disc = (cfg.weight_missing_color * wcd
                                      / torch.clamp(wcd.max(), min=1e-12))
+
+        # style / content (train.py:663-686)
+        if flags.compute_style or flags.compute_content:
+            l_style, l_content = self._style_content(rc_pred.color, images_color, missing2d,
+                                                     flags)
+            loss2d = loss2d + gate2d * gate_numvalid * (
+                cfg.weight_style_loss * l_style + cfg.weight_content_loss * l_content)
+            if flags.compute_style:
+                metrics["loss_style"] = l_style
+            if flags.compute_content:
+                metrics["loss_content"] = l_content
 
         # 2D semantic CE (train.py:743-747)
         if flags.pred_semantic and not cfg.pred_3d_semantic and target2d_label is not None:

@@ -1,18 +1,25 @@
 """The port's train CLI (spsg_tpu_torch/cli/train.py) on the CPU at 16^3 /
 nf 4: what it writes (args.txt, log.csv with the JAX CLI's header,
 log_val.csv, model-epoch*.pt), the serving CLI on its checkpoint, --retrain
-and --retrain_disc, the options it does not port yet, the JAX CLI's compiler
-flags, and its refusal to run on a CPU it was not asked to use."""
+and --retrain_disc, the style / content losses with a VGG converted from a
+fabricated torchvision file, the options it does not port yet, the JAX CLI's
+compiler flags, and its refusal to run on a CPU it was not asked to use."""
 
 import json
 import os
+import runpy
+import sys
 
+import numpy as np
 import pytest
 import torch
 
 from spsg_tpu.utils.logging import make_header
 from spsg_tpu_torch.cli import test_scene_as_chunks as serve_cli
 from spsg_tpu_torch.cli import train as cli
+
+import test_torch_style as style_tests
+import torch_port_helpers as H
 
 TINY = ["--device", "cpu", "--synthetic_chunks", "4", "--input_dim", "16", "--nf_gen", "4",
         "--num_iters_geo_only", "1"]
@@ -96,8 +103,7 @@ def test_retrain_disc_takes_the_discriminator_of_another_run(geo_run, tmp_path):
                          "--retrain_disc", os.path.join(geo_run[0], "model-epoch0.pt")])
 
 
-@pytest.mark.parametrize("argv", [["--weight_style_loss", "1"], ["--weight_content_loss", "1"],
-                                  ["--compute_dtype", "bfloat16"], ["--distributed"]])
+@pytest.mark.parametrize("argv", [["--compute_dtype", "bfloat16"], ["--distributed"]])
 def test_unported_options_raise(argv, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli.main(GEO + argv + ["--save", str(tmp_path / "run")])
@@ -119,3 +125,34 @@ def test_cli_without_a_gpu_raises_unless_asked_for_the_cpu(tmp_path, monkeypatch
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli.main(argv + ["--save", str(tmp_path / "run")])
     assert not os.path.exists(tmp_path / "run")
+
+
+def test_cli_trains_with_style_and_content(tmp_path, monkeypatch):
+    """--weight_style_loss / --weight_content_loss with the VGG from an .npz
+    that tools/convert_vgg19.py wrote from a fabricated torchvision file
+    ($SPSG_VGG_WEIGHTS): 20 full steps with style and content from the first
+    (--num_iters_before_content 0), so log.csv has its train row, and both
+    columns in it are finite and positive."""
+    pth, npz = str(tmp_path / "vgg19.pth"), str(tmp_path / "vgg19_conv8.npz")
+    style_tests.fabricate_vgg19_pth(pth)
+    monkeypatch.setattr(sys, "argv", ["convert_vgg19.py", "--src", pth, "--out", npz])
+    runpy.run_path(os.path.join(H.REPO, "tools", "convert_vgg19.py"), run_name="__main__")
+    monkeypatch.setenv("SPSG_VGG_WEIGHTS", npz)
+    save = str(tmp_path / "style")
+    # the later --synthetic_chunks wins
+    result = cli.main(FULL + ["--synthetic_chunks", "40", "--max_epoch", "1",
+                              "--num_iters_geo_only", "0", "--num_iters_before_content", "0",
+                              "--weight_style_loss", "1", "--weight_content_loss", "1",
+                              "--no_vis", "--save", save])
+    assert result.iteration == 20
+    vgg = result.trainer.vgg
+    assert vgg is not None and result.trainer.device.type == "cpu"
+    assert torch.equal(vgg.conv_1.weight.cpu(), torch.load(pth)["features.0.weight"])
+    header, row = open(os.path.join(save, "log.csv")).read().splitlines()
+    values = dict(zip(header.split(","), row.split(",")))
+    for col in ("train_loss(style)", "train_loss(content)"):
+        v = float(values[col])
+        assert np.isfinite(v) and v > 0, (col, v)
+    # the VGG is not trained and not saved
+    saved = torch.load(os.path.join(save, "model-epoch0.pt"), weights_only=True)
+    assert not any("conv_1" in k for k in saved["state_dict"])

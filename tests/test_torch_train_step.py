@@ -242,8 +242,8 @@ def test_colour_branch_is_skipped_when_not_asked_for():
     assert ran == ["geo_3a", "encoder_0a", "decoder_3a", "semantic_head_a"]
 
 
-# what the full step still leaves out, under the flags that reach it:
-# style/content (need VGG) under use_2d and on their own
+# what the step refuses, under the flags that reach it: style / content
+# without a VGG extractor (Trainer(..., vgg=...)), under use_2d and on their own
 UNPORTED = {
     "use_disc": (dict(weight_disc_loss=0.5), dict(use_2d=True, use_disc=True,
                                                   compute_style=True)),
@@ -256,7 +256,7 @@ UNPORTED = {
 def test_unported_flags_raise(flag):
     cfg_kw, flags = UNPORTED[flag]
     trainer = Trainer(TrainConfig(**{**TINY, **cfg_kw}), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="VGG"):
         trainer.step(_numpy_batch(), StepFlags(**flags))
     assert trainer.iteration == 0
 
