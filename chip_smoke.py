@@ -166,13 +166,47 @@ fails. Phases, each printing one JSON line:
            chunks. Then the third epoch again, resumed from model-epoch1.pt:
            the same iteration, epoch and Adam step counts, the parameters held
            to Queue C's Adam rule
+  train2d_bf16
+           the full step of train2d at TrainConfig() width with
+           compute_dtype="bfloat16" (the generator's blocks in bf16; its
+           parameters, Adam state, heads and losses and the discriminator in
+           float32): the launches as in train2d, every block's conv through the
+           bf16 variants of K1-K3 and the four heads' (4 forward, 4 dx, 4 dW) in
+           float32, counted by storage type; parameters and Adam state finite
+           float32; its metrics against the float32 step's on the same batch and
+           weights (3D within 1e-2 relative, 2D and adversarial within 5e-2:
+           ROADMAP.md Queue C); one warm-up and three timed steps (median
+           seconds, peak memory); device time by kind beside train2d's; the
+           16^3 / nf 4 / 48x32 bf16 step on the GPU against the CPU, same bounds
+  datagen  dataset generation on the card: a seeded 6.0 x 5.0 x 2.8 m room
+           (floor, four walls, no ceiling, 12 boxes, faces cut to ~0.1 m: ~25k
+           faces, vertex colours), virtual_scan at 2 cm voxels (grid
+           (146,256,306), 274 MB of state) along 96 frames on a 1.2 m circle at
+           1.5 m looking outward and down, 320x256 at ScanConfig's intrinsics,
+           chance_drop_frames 0.8: K8 once a frame; the native rasterizer loaded;
+           seconds of the scan, per frame the host rasterizer, the upload and
+           K8's device time (8 frames, queued behind a spin), save_grid's
+           seconds, peak memory; the scan's frames replayed through K8 and
+           integrate_plain on the card: identical to the bit (all four fields)
+           after 8 frames and at the end, and the end equal to the scan's own
+           grid; K8's bound: per frame the voxels with a valid depth (sdf, weight,
+           free_ctr, colour: 24 bytes read and written) and both images at
+           3.35 TB/s, no library yardstick; a small scan (floor, voxel 0.08, 6
+           frames) through the CLI on the GPU and the CPU: the six files
+           identical byte for byte; then the CLI on the card: scan at its
+           defaults on the room written as PLY (K8 48 times), chunk of the
+           room's __inc__ / __cmp__ at (128,64,64), semantics from a labeled
+           region PLY, filelist; one chunk through data/pipeline.ChunkDataset
+           with the shapes of a training chunk. category (matplotlib) is not
+           driven: a line says so
   kernels  one line {"kernels": [...]}: per kernel its launches on the
            paths (serve, scene, train, train2d, train2d_missing_colour,
-           train2d_style, train_cli;
+           train2d_style, train2d_bf16, train_cli, datagen;
            each counter set to 0 just before the path's run and read just
            after) and its numbers at the heaviest main-path shape (for the
            raycaster's, the prediction grid at the path's size; for K7 the
-           mask with the most samples), with every shape (and, for the convs,
+           mask with the most samples; for K8 the mean of 8 of the room scan's
+           frames), with every shape (and, for the convs,
            both storage types) nested inside
   last     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}
 
@@ -246,6 +280,7 @@ if not torch.cuda.is_available():
 import torch.nn.functional as F  # noqa: E402
 
 from spsg_tpu_torch.cli import test_scene_as_chunks as cli  # noqa: E402
+from spsg_tpu_torch.datagen import fusion as tsdf  # noqa: E402
 from spsg_tpu_torch.inference import chunked  # noqa: E402
 from spsg_tpu_torch.losses import geo as geo_losses  # noqa: E402
 from spsg_tpu_torch.models import convert  # noqa: E402
@@ -278,6 +313,8 @@ KERNELS = {
     "raycast_shade": ("spsg_tpu_torch/ops/csrc/raycast.cu", "spsg_tpu/ops/raycast.py:704"),
     "raycast_scatter": ("spsg_tpu_torch/ops/csrc/raycast.cu", "spsg_tpu/ops/raycast.py:739"),
     "raycast_occ": ("spsg_tpu_torch/ops/csrc/raycast.cu", "spsg_tpu/ops/raycast.py:878"),
+    # the TSDF integrate of dataset generation (spsg_tpu/datagen/fusion.py, XLA)
+    "tsdf_integrate": ("spsg_tpu_torch/ops/csrc/tsdf.cu", "spsg_tpu/datagen/fusion.py:77"),
 }
 CONV_KERNELS = ("conv3x3", "conv3x3_act_stats", "conv3x3_dw")
 RAYCAST_KERNELS = ("raycast_march", "raycast_shade", "raycast_scatter", "raycast_occ")
@@ -333,12 +370,13 @@ def emit(phase, **kw):
 
 
 def all_launch_counts():
-    return {**conv_ops.launch_counts, **rc_ops.launch_counts}
+    return {**conv_ops.launch_counts, **rc_ops.launch_counts, **tsdf.launch_counts}
 
 
 def reset_all_launch_counts():
     conv_ops.reset_launch_counts()
     rc_ops.reset_launch_counts()
+    tsdf.reset_launch_counts()
 
 
 def cuda_ms(fn, reps):
@@ -1226,7 +1264,8 @@ def phase_path(tmp):
     launches = all_launch_counts()
 
     want = {"conv3x3_act_stats": 23 * 4, "conv3x3": 5 * 4, "conv3x3_dw": 0,
-            "raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0, "raycast_occ": 0}
+            "raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0, "raycast_occ": 0,
+            "tsdf_integrate": 0}
     if launches != want:
         raise SystemExit(f"chip_smoke: launches on the main path {launches}, expected {want}")
     out = seen["out"]
@@ -1443,7 +1482,7 @@ def phase_scene(tmp, rc_results):
     peak = max(seen["peak_before"], torch.cuda.max_memory_allocated())
 
     want = {"conv3x3_act_stats": 23, "conv3x3": 5, "conv3x3_dw": 0, "raycast_march": 3,
-            "raycast_shade": 3, "raycast_scatter": 0, "raycast_occ": 0}
+            "raycast_shade": 3, "raycast_scatter": 0, "raycast_occ": 0, "tsdf_integrate": 0}
     if launches != want:
         raise SystemExit(f"chip_smoke: launches on the scene path {launches}, expected {want}")
     out = seen["out"]
@@ -1680,7 +1719,8 @@ def phase_train():
     # (b) launch counters of one step: 28 eligible convs forward, 25 backward (the
     # three convs of the colour head have no loss without the 2D terms); no raycast
     want = {"conv3x3_act_stats": 23, "conv3x3": 5 + 25, "conv3x3_dw": 25,
-            "raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0, "raycast_occ": 0}
+            "raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0, "raycast_occ": 0,
+            "tsdf_integrate": 0}
     if launches != want:
         raise SystemExit(f"chip_smoke: launches of one train step {launches}, expected {want}")
     rec = dict(config=dict(nf_gen=cfg.nf_gen, input_dim=list(cfg.input_dim),
@@ -1729,7 +1769,8 @@ def phase_train():
     torch.cuda.synchronize()
     geo_seconds = time.time() - t
     want = {"conv3x3_act_stats": 9, "conv3x3": 2 + 11, "conv3x3_dw": 11,
-            "raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0, "raycast_occ": 0}
+            "raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0, "raycast_occ": 0,
+            "tsdf_integrate": 0}
     if all_launch_counts() != want:
         raise SystemExit(f"chip_smoke: launches of one geometry-only step "
                          f"{all_launch_counts()}, expected {want}")
@@ -1798,7 +1839,8 @@ FULL_2D = dict(pred_sdf=True, pred_color=True, pred_semantic=True, use_2d=True, 
 # the colour head (dx by the forward kernel, dW by K2); three raycasts (input,
 # projected target, prediction), of which only the prediction's has a backward
 WANT_2D = {"conv3x3_act_stats": 23, "conv3x3": 5 + 28, "conv3x3_dw": 28,
-           "raycast_march": 3, "raycast_shade": 3, "raycast_scatter": 1, "raycast_occ": 0}
+           "raycast_march": 3, "raycast_shade": 3, "raycast_scatter": 1, "raycast_occ": 0,
+           "tsdf_integrate": 0}
 # the 2D and adversarial metrics of two float32 forwards part where a
 # prediction pixel's hit flips (one pixel moves a mean over a few thousand by
 # ~1e-4): those are held to 1e-3, the 3D metrics to 1e-4
@@ -2203,7 +2245,7 @@ def phase_train2d():
         generator_gradients=compare_grads(pair["cuda"][0], pair["cpu"][0], None,
                                           "16^3 full step, GPU vs CPU"))
     emit("train2d", **rec)
-    return launches, launches_mc
+    return launches, launches_mc, rec["step_device_time"]
 
 
 # --------------------------------------------------------------------------- train2d_style
@@ -2637,6 +2679,433 @@ def phase_train_cli(tmp, smi):
 
 
 # --------------------------------------------------------------------------- main
+# --------------------------------------------------------------------------- datagen
+# the room of the datagen phase: 6.0 x 5.0 x 2.8 m, floor and four walls, no
+# ceiling, a dozen boxes, every face cut to ~0.1 m
+ROOM = (6.0, 5.0, 2.8)
+ROOM_BOXES = 12
+ROOM_FRAMES = 96
+ROOM_VOXEL = 0.02
+
+
+def room_mesh(seed=0):
+    """(verts, faces, vertex colours, per-face category) of the datagen room:
+    each quad a grid of ~0.1 m cells, colours from ``seed`` (a hue per quad,
+    varied per vertex)."""
+    rng = np.random.default_rng(seed)
+    verts, faces, colors, cats = [], [], [], []
+
+    def quad(o, a, b, cat):
+        o, a, b = (np.asarray(v, np.float64) for v in (o, a, b))
+        na = max(1, int(round(np.linalg.norm(a) / 0.1)))
+        nb = max(1, int(round(np.linalg.norm(b) / 0.1)))
+        i, j = np.meshgrid(np.arange(na + 1), np.arange(nb + 1), indexing="ij")
+        v = o + (i / na)[..., None] * a + (j / nb)[..., None] * b
+        base = sum(len(x) for x in verts)
+        idx = base + i * (nb + 1) + j
+        c0, c1, c2 = idx[:-1, :-1], idx[1:, :-1], idx[1:, 1:]
+        c3 = idx[:-1, 1:]
+        f = np.concatenate([np.stack([c0, c1, c2], -1).reshape(-1, 3),
+                            np.stack([c0, c2, c3], -1).reshape(-1, 3)])
+        verts.append(v.reshape(-1, 3))
+        faces.append(f)
+        hue = rng.integers(40, 216, 3)
+        colors.append(np.clip(hue + rng.integers(-30, 31, (len(v.reshape(-1, 3)), 3)), 0, 255))
+        cats.append(np.full(len(f), cat))
+
+    sx, sy, sz = ROOM
+    quad([0, 0, 0], [sx, 0, 0], [0, sy, 0], 2)  # floor
+    quad([0, 0, 0], [sx, 0, 0], [0, 0, sz], 1)  # walls
+    quad([0, sy, 0], [sx, 0, 0], [0, 0, sz], 1)
+    quad([0, 0, 0], [0, sy, 0], [0, 0, sz], 1)
+    quad([sx, 0, 0], [0, sy, 0], [0, 0, sz], 1)
+    for k in range(ROOM_BOXES):
+        w, d, h = rng.uniform(0.4, 1.2), rng.uniform(0.4, 1.0), rng.uniform(0.3, 1.2)
+        x0, y0 = rng.uniform(0.1, sx - w - 0.1), rng.uniform(0.1, sy - d - 0.1)
+        cat = 3 + k % 10
+        quad([x0, y0, h], [w, 0, 0], [0, d, 0], cat)
+        quad([x0, y0, 0], [w, 0, 0], [0, 0, h], cat)
+        quad([x0, y0 + d, 0], [w, 0, 0], [0, 0, h], cat)
+        quad([x0, y0, 0], [0, d, 0], [0, 0, h], cat)
+        quad([x0 + w, y0, 0], [0, d, 0], [0, 0, h], cat)
+    return (np.concatenate(verts).astype(np.float32), np.concatenate(faces).astype(np.int64),
+            np.concatenate(colors).astype(np.uint8), np.concatenate(cats).astype(np.int32))
+
+
+def room_trajectory(n=ROOM_FRAMES, radius=1.2, height=1.5, tilt=0.45):
+    """``n`` cameras on a circle of ``radius`` at ``height`` around the room's
+    centre, looking outward and down."""
+    cams = []
+    for k in range(n):
+        ang = 2 * np.pi * k / n
+        eye = np.array([ROOM[0] / 2 + radius * np.cos(ang), ROOM[1] / 2 + radius * np.sin(ang),
+                        height])
+        fwd = np.array([np.cos(ang), np.sin(ang), -tilt])
+        fwd /= np.linalg.norm(fwd)
+        right = np.cross(fwd, [0.0, 0.0, 1.0])
+        right /= np.linalg.norm(right)
+        cam = np.eye(4, dtype=np.float32)
+        cam[:3, 0], cam[:3, 1], cam[:3, 2], cam[:3, 3] = right, np.cross(fwd, right), fwd, eye
+        cams.append(cam)
+    return cams
+
+
+def grids_identical(a, b):
+    """The four fields of two grids equal to the bit (float fields as int32)."""
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+    return {k: bool(torch.equal(bits(a[k]), bits(b[k]))) for k in a}
+
+
+def write_region_ply(path, verts, faces, cats):
+    """A labeled region PLY as tests/test_cli.py writes one."""
+    import struct
+
+    with open(path, "wb") as f:
+        hdr = ["ply", "format binary_little_endian 1.0", f"element vertex {len(verts)}",
+               "property float x", "property float y", "property float z",
+               f"element face {len(faces)}", "property list uchar int vertex_indices",
+               "property int category_id", "end_header"]
+        f.write(("\n".join(hdr) + "\n").encode())
+        f.write(np.asarray(verts, "<f4").tobytes())
+        rec = np.zeros(len(faces), dtype=[("n", "u1"), ("v", "<i4", 3), ("c", "<i4")])
+        rec["n"], rec["v"], rec["c"] = 3, faces, cats
+        f.write(rec.tobytes())
+
+
+def phase_datagen(tmp):
+    """Dataset generation on the card: virtual_scan of the room (K8 a frame),
+    K8 against integrate_plain to the bit, a small scan on the GPU against the
+    CPU, then the datagen CLI (scan, chunk, semantics, filelist) and a chunk
+    through the data loader."""
+    from spsg_tpu_torch.cli import datagen as dg
+    from spsg_tpu_torch.data import pipeline, synthetic
+    from spsg_tpu_torch.datagen import raster, scan
+    from spsg_tpu_torch.ops import mesh as mesh_ops
+
+    verts, faces, colors, cats = room_mesh(seed=0)
+    cfg = tsdf.FusionConfig(voxelsize=ROOM_VOXEL)
+    sc = scan.ScanConfig()
+    dims, w2g = tsdf.grid_from_bounds(verts.min(0), verts.max(0), cfg)
+    traj = room_trajectory()
+    rec = dict(room=dict(meters=list(ROOM), boxes=ROOM_BOXES, faces=len(faces),
+                         vertices=len(verts), frames=len(traj), voxelsize=cfg.voxelsize,
+                         grid=list(dims), grid_state_bytes=int(np.prod(dims)) * 24,
+                         image=[sc.width, sc.height], chance_drop_frames=sc.chance_drop_frames))
+
+    # (a) the scan, every integrate and save recorded
+    frames, raster_s, saves, captured = [], [], [], {}
+    real_raster, real_integrate, real_save = raster.rasterize_depth, tsdf.integrate, tsdf.save_grid
+
+    def rasterize(*a, **kw):
+        t = time.perf_counter()
+        out = real_raster(*a, **kw)
+        raster_s.append(time.perf_counter() - t)
+        return out
+
+    def integrate(grid, depth, color, intr, cam, world2grid, fcfg):
+        frames.append((depth, color, np.asarray(intr, np.float32), np.asarray(cam, np.float32)))
+        return real_integrate(grid, depth, color, intr, cam, world2grid, fcfg)
+
+    def save(prefix, grid, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real_save(prefix, grid, *a, **kw)
+        saves.append(dict(prefix=os.path.basename(prefix), seconds=time.perf_counter() - t))
+        if "__cmp__" in prefix:
+            captured.update({k: v.clone() for k, v in grid.items()})
+
+    inc, cmp_ = os.path.join(tmp, "room__inc__0"), os.path.join(tmp, "room__cmp__0")
+    reset_all_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    raster.rasterize_depth, tsdf.integrate, tsdf.save_grid = rasterize, integrate, save
+    t = time.time()
+    try:
+        out_dims, out_w2g = scan.virtual_scan(verts, faces, colors, traj, inc, cmp_,
+                                              fusion_cfg=cfg, scan_cfg=sc, seed=0, device=DEV)
+        torch.cuda.synchronize()
+    finally:
+        raster.rasterize_depth, tsdf.integrate, tsdf.save_grid = (
+            real_raster, real_integrate, real_save)
+    scan_seconds = time.time() - t
+    launches = all_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if raster._LIB is None:
+        raise SystemExit("chip_smoke: the native rasterizer did not load (numpy fallback)")
+    if out_dims != dims or launches["tsdf_integrate"] != len(traj) or len(frames) != len(traj):
+        raise SystemExit(f"chip_smoke: the scan fused {len(frames)} frames, K8 launched "
+                         f"{launches}, dims {out_dims}; expected {len(traj)} and {dims}")
+    scanned = captured
+    rec.update(scan_seconds=scan_seconds, launches=launches, max_memory_allocated=peak,
+               saves=saves, raster_ms_per_frame=1e3 * float(np.median(raster_s)),
+               raster_ms_range=[1e3 * min(raster_s), 1e3 * max(raster_s)],
+               observed_share=float((scanned["weight"] > 0).float().mean()))
+
+    # (b) the same frames through K8 and through integrate_plain on the card, to
+    # the bit after the first 8 frames and at the end; the end also equals the
+    # scan's own grid
+    k8, plain = tsdf.make_grid(dims, DEV), tsdf.make_grid(dims, DEV)
+    checks = {}
+    for i, (d, c, intr, cam) in enumerate(frames):
+        tsdf.integrate(k8, d, c, intr, cam, w2g, cfg)
+        tsdf.integrate_plain(plain, d, c, intr, cam, w2g, cfg)
+        if i + 1 in (8, len(frames)):
+            torch.cuda.synchronize()
+            checks[i + 1] = grids_identical(k8, plain)
+    checks["scan"] = grids_identical(k8, scanned)
+    if not all(all(v.values()) for v in checks.values()):
+        raise SystemExit(f"chip_smoke: K8 and integrate_plain disagree: {checks}")
+    finite = torch.isfinite(k8["sdf"]) & torch.isfinite(plain["sdf"])
+    err = max(float((k8[k] - plain[k]).abs().max()) for k in ("weight", "color"))
+    err = max(err, float((k8["sdf"] - plain["sdf"])[finite].abs().max()))
+    del plain, scanned
+
+    # (c) per frame: the upload, K8's device time, the plain version's, the bound
+    d0, c0 = frames[0][0].cpu().numpy(), frames[0][1].cpu().numpy()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(20):
+        torch.as_tensor(d0, device=DEV), torch.as_tensor(c0, device=DEV)
+    torch.cuda.synchronize()
+    upload_ms = 1e3 * (time.perf_counter() - t) / 20
+    per_frame = []
+    for i in range(0, len(frames), len(frames) // 8):
+        d, c, intr, cam = frames[i]
+        n_obs = tsdf.observed_voxels(dims, d, intr, cam, w2g, cfg)
+        nbytes = n_obs * 48 + d.numel() * 4 + c.numel() * 4
+        per_frame.append(dict(
+            frame=i, observed_voxels=n_obs,
+            ms=device_ms(lambda: tsdf.integrate(k8, d, c, intr, cam, w2g, cfg), 20),
+            plain_ms=cuda_ms(lambda: tsdf.integrate_plain(k8, d, c, intr, cam, w2g, cfg), 3),
+            bound_ms=nbytes / PEAK_BYTES * 1e3))
+    del k8
+    torch.cuda.empty_cache()
+    mean = {k: float(np.mean([r[k] for r in per_frame])) for k in ("ms", "plain_ms", "bound_ms")}
+    kernel_rec = dict(main_path=True, grid=list(dims), image=[sc.width, sc.height],
+                      max_abs_err=err, library_ms=None, bound_by="bytes", frames=per_frame,
+                      **mean)
+    rec.update(k8_vs_plain=checks, upload_ms_per_frame=upload_ms, k8=kernel_rec)
+
+    # (d) a small scan (voxel 0.08, 6 frames: tests/test_cli.py) on the GPU and on
+    # the CPU: the files identical byte for byte
+    floor = np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]], np.float32)
+    floor_ply = os.path.join(tmp, "floor.ply")
+    mesh_ops.save_ply(floor_ply, floor, np.array([[0, 1, 2], [0, 2, 3]], np.int64),
+                      np.full((4, 3), 120, np.uint8))
+    small = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(tmp, f"small_{dev}")
+        dg.main(["scan", "--mesh", floor_ply, "--output_dir", out, "--voxelsize", "0.08",
+                 "--num_frames", "6", "--device", dev])
+        small[dev] = {f: open(os.path.join(out, f), "rb").read() for f in sorted(os.listdir(out))}
+    if small["cuda"] != small["cpu"] or len(small["cuda"]) != 6:
+        raise SystemExit(f"chip_smoke: the small scan's files differ between the GPU and the "
+                         f"CPU: {[f for f in small['cpu'] if small['cuda'].get(f) != small['cpu'][f]]}")
+    rec["small_scan_gpu_vs_cpu"] = dict(files=sorted(small["cuda"]), identical=True)
+
+    # (e) the CLI on the card: scan at its defaults, chunk, semantics, filelist
+    room_ply = os.path.join(tmp, "room.ply")
+    mesh_ops.save_ply(room_ply, verts, faces, colors)
+    cli_scans = os.path.join(tmp, "cli_scans")
+    reset_all_launch_counts()
+    t = time.time()
+    dg.main(["scan", "--mesh", room_ply, "--output_dir", cli_scans])
+    torch.cuda.synchronize()
+    cli = dict(scan_seconds=time.time() - t, scan_launches=all_launch_counts()["tsdf_integrate"])
+    if cli["scan_launches"] != 48:
+        raise SystemExit(f"chip_smoke: the scan CLI launched K8 {cli['scan_launches']} times")
+    chunks_dir = os.path.join(tmp, "chunks")
+    t = time.time()
+    dg.main(["chunk", "--inc", inc, "--cmp", cmp_, "--output_dir", chunks_dir, "--name", "room",
+             "--chunk_dims", "128", "64", "64"])
+    cli["chunk_seconds"] = time.time() - t
+    region = os.path.join(tmp, "room_semseg.ply")
+    write_region_ply(region, verts, faces, cats)
+    t = time.time()
+    dg.main(["semantics", "--region_ply", region,
+             "--sdf_glob", os.path.join(chunks_dir, "*__cmp__*.sdf")])
+    cli["semantics_seconds"] = time.time() - t
+    dg.main(["filelist", "--chunk_dir", chunks_dir, "--train_list",
+             os.path.join(tmp, "train.txt"), "--val_list", os.path.join(tmp, "val.txt")])
+    names = sorted(os.listdir(chunks_dir))
+    inc_chunks = [f for f in names if "__inc__" in f]
+    sem_chunks = [f for f in names if "__sem__" in f]
+    listed = [x for x in open(os.path.join(tmp, "train.txt")).read().split() if x] + [
+        x for x in open(os.path.join(tmp, "val.txt")).read().split() if x]
+    if not inc_chunks or len(sem_chunks) != len(inc_chunks) or sorted(listed) != inc_chunks:
+        raise SystemExit(f"chip_smoke: chunk / semantics / filelist wrote {names}, listed {listed}")
+    cli.update(chunks=len(inc_chunks))
+    print("datagen: the category subcommand (matplotlib) is not driven here: the card's "
+          "machine has no matplotlib (ROADMAP.md, Toolchain)", flush=True)
+
+    # (f) one chunk through the data loader, its shapes those of a training chunk
+    ds = pipeline.ChunkDataset([os.path.join(chunks_dir, inc_chunks[0])], load_semantic=True)
+    sample = ds[0]
+    ref = synthetic.make_chunk_batch(1, TrainConfig().input_dim, seed=1)
+    shapes = {k: list(np.shape(v)) for k, v in sample.items() if isinstance(v, np.ndarray)}
+    want = {k: list(np.shape(v))[1:] for k, v in ref.items()
+            if isinstance(v, np.ndarray) and k in shapes}
+    if not want or any(shapes[k] != v for k, v in want.items()):
+        raise SystemExit(f"chip_smoke: a datagen chunk loads as {shapes}, a training chunk "
+                         f"is {want}")
+    # finite but for the target's -inf (unobserved), as the loader defines it
+    tsdf_t = sample["target_sdf"]
+    if not (all(np.isfinite(v).all() for k, v in sample.items() if k != "target_sdf"
+                and isinstance(v, np.ndarray) and v.dtype.kind == "f")
+            and np.isfinite(tsdf_t).any() and (np.isfinite(tsdf_t) | (tsdf_t == -np.inf)).all()):
+        raise SystemExit("chip_smoke: a datagen chunk loads with non-finite values")
+    cli["chunk_sample_shapes"] = shapes
+    rec["cli"] = cli
+    print(f"datagen: scan {scan_seconds:.2f} s ({len(traj)} frames), raster "
+          f"{rec['raster_ms_per_frame']:.2f} ms a frame, upload {upload_ms:.3f} ms, K8 "
+          f"{mean['ms']:.4f} ms (plain {mean['plain_ms']:.3f} ms, bound {mean['bound_ms']:.4f} ms), "
+          f"saves {[round(s['seconds'], 3) for s in saves]} s, peak {peak} bytes", flush=True)
+    emit("datagen", **rec)
+    return launches, kernel_rec
+
+
+# --------------------------------------------------------------------------- train2d_bf16
+# the bf16 step's metrics against the float32 step's, same weights and batch:
+# both round each block's output to bf16 (2^-8 relative) over some 20 layers;
+# the 3D metrics within 1e-2 relative, the 2D and adversarial ones, moved too
+# by prediction pixels whose hit flips, within 5e-2 (ROADMAP.md Queue C)
+BF16_METRIC_TOL = (1e-2, 5e-2)
+
+
+def compare_bf16_metrics(ma, mb, what):
+    if set(ma) != set(mb):
+        raise SystemExit(f"chip_smoke: {what}: metrics {sorted(ma)} vs {sorted(mb)}")
+    diffs = {k: rel_diff(ma[k], mb[k]) for k in ma}
+    bad = {k: v for k, v in diffs.items()
+           if not v <= BF16_METRIC_TOL[0 if k in METRICS_3D else 1]}
+    if bad or not all(np.isfinite(float(v)) for v in ma.values()):
+        raise SystemExit(f"chip_smoke: {what}: metrics differ: {bad}; {ma} vs {mb}")
+    return diffs
+
+
+@contextlib.contextmanager
+def conv_dtypes(seen):
+    """Count the storage type of every launch of K1 / K3 (``_launch``) and K2
+    (``_launch_dw``) into ``seen``."""
+    real, real_dw = conv_ops._launch, conv_ops._launch_dw
+
+    def launch(x, w, b):
+        seen[("forward", str(x.dtype))] = seen.get(("forward", str(x.dtype)), 0) + 1
+        return real(x, w, b)
+
+    def launch_dw(x, dy):
+        seen[("dw", str(x.dtype))] = seen.get(("dw", str(x.dtype)), 0) + 1
+        return real_dw(x, dy)
+
+    conv_ops._launch, conv_ops._launch_dw = launch, launch_dw
+    try:
+        yield
+    finally:
+        conv_ops._launch, conv_ops._launch_dw = real, real_dw
+
+
+def phase_train2d_bf16(train2d_device):
+    """The full step at TrainConfig() width with compute_dtype="bfloat16"."""
+    from spsg_tpu_torch.data import synthetic
+
+    cfg = TrainConfig(compute_dtype="bfloat16")
+    batch = synthetic.make_chunk_batch(cfg.batch_size, cfg.input_dim,
+                                       (cfg.style_width, cfg.style_height), seed=7,
+                                       with_frames=True, device=DEV)
+    batch.pop("name")
+    batch["weight_occ"] = np.float32(cfg.weight_occ_loss)
+    flags = StepFlags(**FULL_2D)
+    trainer = Trainer(cfg, DEV, seed=0)
+    scale_conv_weights(trainer.generator, 2.0)
+    centre_train_occupancy(trainer, batch)
+    f32 = Trainer(dataclasses.replace(cfg, compute_dtype=None), DEV, seed=0)
+    f32.generator.load_state_dict(trainer.generator.state_dict())
+    f32.discriminator.load_state_dict(trainer.discriminator.state_dict())
+    f32.sn_state = {k: {kk: vv.clone() for kk, vv in v.items()} for k, v in trainer.sn_state.items()}
+
+    # (a) one step: launches (K1-K3 all in their bf16 variants), peak memory
+    seen = {}
+    reset_all_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with conv_dtypes(seen):
+        metrics = trainer.step(batch, flags)
+        torch.cuda.synchronize()
+    launches = all_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # the blocks' convs in bf16, the four heads' (geo_occ_b, geo_3c, color_head_c,
+    # semantic_head_c) in float32: their forward and dx by K1, their dW by K2
+    want_types = {("forward", "torch.bfloat16"): 56 - 8, ("forward", "torch.float32"): 8,
+                  ("dw", "torch.bfloat16"): 28 - 4, ("dw", "torch.float32"): 4}
+    if launches != WANT_2D or seen != want_types:
+        raise SystemExit(f"chip_smoke: launches of one bf16 step {launches} (by storage type "
+                         f"{seen}), expected {WANT_2D} ({want_types})")
+    params = [p for p in trainer.generator.parameters()]
+    adam = [v for s in trainer.optimizer.state.values() for k, v in s.items()
+            if k in ("exp_avg", "exp_avg_sq")]
+    if not (all(p.dtype == torch.float32 and torch.isfinite(p).all() for p in params)
+            and adam and all(v.dtype == torch.float32 and torch.isfinite(v).all() for v in adam)
+            and all(np.isfinite(float(v)) for v in metrics.values())):
+        raise SystemExit("chip_smoke: the bf16 step left parameters or Adam state that are not "
+                         f"finite float32, or metrics {metrics}")
+    f32_metrics = f32.step(batch, flags)
+    rec = dict(config=dict(compute_dtype=cfg.compute_dtype, nf_gen=cfg.nf_gen,
+                           input_dim=list(cfg.input_dim), batch_size=cfg.batch_size,
+                           image=[cfg.style_width, cfg.style_height], flags=FULL_2D),
+               launches_per_step=launches,
+               conv_launches_by_type={f"{a} {b}": v for (a, b), v in sorted(seen.items())},
+               max_memory_allocated=peak,
+               first_step_metrics={k: float(v) for k, v in metrics.items()},
+               vs_float32_step=compare_bf16_metrics(metrics, f32_metrics, "bf16 vs f32 step"))
+    del f32
+    torch.cuda.empty_cache()
+
+    # (b) one warm-up step, then three timed steps; device time by kind
+    trainer.step(batch, flags)
+    seconds = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.time()
+        m = trainer.step(batch, flags)
+        torch.cuda.synchronize()
+        seconds.append(time.time() - t)
+        if not all(np.isfinite(float(v)) for v in m.values()):
+            raise SystemExit(f"chip_smoke: a bf16 step gave non-finite metrics: {m}")
+    rec.update(seconds_per_step=sorted(seconds)[1], seconds_per_step_all=seconds,
+               max_memory_allocated_steady=torch.cuda.max_memory_allocated(),
+               step_device_time=profile_train2d_step(trainer, batch, FULL_2D),
+               train2d_step_device_time=train2d_device)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (c) the small step on the GPU against the CPU, both in bf16
+    small = TrainConfig(input_dim=(16, 16, 16), nf_gen=4, nf_disc=4, style_width=48,
+                        style_height=32, patch_size=16, max_depth_fill_iters=8,
+                        min_num_valid_2d=10, compute_dtype="bfloat16")
+    sbatch = synthetic.make_chunk_batch(2, (16, 16, 16), (48, 32), seed=1, with_frames=True,
+                                        device="cpu")
+    sbatch.pop("name")
+    sbatch["weight_occ"] = np.float32(1.0)
+    pair = {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(small, dev, seed=3)
+        scale_conv_weights(tr.generator, 2.0)
+        pair[dev] = {k: float(v) for k, v in tr.step(sbatch, flags).items()}
+    rec["small_step_gpu_vs_cpu"] = dict(
+        metrics_rel_diff=compare_bf16_metrics(pair["cuda"], pair["cpu"],
+                                              "16^3 bf16 step, GPU vs CPU"),
+        metrics_gpu=pair["cuda"])
+    total = rec["step_device_time"]
+    print(f"train2d_bf16: {rec['seconds_per_step']:.4f} s a step, peak {peak} bytes, device "
+          f"{total['total_ms'] if isinstance(total, dict) else total} ms (float32 step: "
+          f"{train2d_device['total_ms'] if isinstance(train2d_device, dict) else train2d_device}"
+          " ms)", flush=True)
+    emit("train2d_bf16", **rec)
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of spsg_tpu_torch on one GPU.")
     ap.add_argument("--baseline-source", default=None,
@@ -2661,27 +3130,33 @@ def main(argv=None):
         scene = phase_scene(tmp, rc_results)
         phase_metrics(tmp, os.path.join(tmp, "scene"))
     train = phase_train()
-    train2d, train2d_mc = phase_train2d()
+    train2d, train2d_mc, train2d_device = phase_train2d()
     train2d_style = phase_train2d_style()
+    train2d_bf16 = phase_train2d_bf16(train2d_device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as tmp:
         train_cli = phase_train_cli(tmp, smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as tmp:
+        datagen, tsdf_rec = phase_datagen(tmp)
 
     # the kernels of each path: serving runs the two forward kernels, the 3D
     # training step all three conv kernels, the full step (with style / content
     # too) all but the occupancy march, which only the missing-colour weights
-    # run; the train CLI as the full step
-    full_step = tuple(k for k in KERNELS if k != "raycast_occ")
+    # run; the train CLI as the full step (bf16 too); datagen the TSDF integrate
+    training = tuple(k for k in KERNELS if k != "tsdf_integrate")
+    full_step = tuple(k for k in training if k != "raycast_occ")
     on_path = {"serve": ("conv3x3", "conv3x3_act_stats"),
                "scene": ("conv3x3", "conv3x3_act_stats", "raycast_march", "raycast_shade"),
                "train": CONV_KERNELS,
-               "train2d": full_step, "train2d_missing_colour": tuple(KERNELS),
-               "train2d_style": full_step, "train_cli": full_step}
+               "train2d": full_step, "train2d_missing_colour": training,
+               "train2d_style": full_step, "train2d_bf16": full_step, "train_cli": full_step,
+               "datagen": ("tsdf_integrate",)}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         by_path = {"serve": serve[name], "scene": scene[name], "train": train[name],
                    "train2d": train2d[name],
                    "train2d_missing_colour": train2d_mc[name],
-                   "train2d_style": train2d_style[name], "train_cli": train_cli[name]}
+                   "train2d_style": train2d_style[name], "train2d_bf16": train2d_bf16[name],
+                   "train_cli": train_cli[name], "datagen": datagen[name]}
         for path, names in on_path.items():
             if name in names and by_path[path] < 1:
                 raise SystemExit(f"chip_smoke: {name} was not launched on the {path} path")
@@ -2692,6 +3167,12 @@ def main(argv=None):
             measured_at = dict(shape=head["shape"], cin=head["cin"], cout=head["cout"],
                                dtype="float32")
             detail = dict(dtypes=results[name])
+        elif name == "tsdf_integrate":
+            recs = [tsdf_rec]
+            head = tsdf_rec
+            measured_at = dict(grid=head["grid"], image=head["image"], dtype="float32",
+                               frames=len(head["frames"]))
+            detail = dict(frames=head["frames"])
         else:
             recs = rc_results[name]
             # at the path's size, the grid with the most work: the prediction's, and

@@ -20,8 +20,9 @@ files (``training/state.py``): ``model-epoch{e}.pt``, ``model-iter{it}-epoch{e}.
 ``model-preempt-iter{it}.pt``. ``--weight_style_loss`` / ``--weight_content_loss``
 > 0 build the VGG19 extractor on the same device (``models/vgg.py``; its weights
 from $SPSG_VGG_WEIGHTS, a packaged ``models/vgg19_conv8.npz`` or the torch hub
-cache, else fixed-seed weights with a warning). Not ported yet (each raises,
-naming ROADMAP.md): ``--compute_dtype bfloat16`` and ``--distributed``. The
+cache, else fixed-seed weights with a warning). ``--compute_dtype bfloat16``
+trains the generator in bfloat16 (``training/step.py``). Not ported yet
+(raises, naming ROADMAP.md): ``--distributed``. The
 flags that steer the JAX package's compiler are accepted and have no effect.
 """
 
@@ -122,7 +123,8 @@ def build_parser():
                         "2D terms")
     # flags of the JAX package's CLI beside the reference's
     parser.add_argument("--compute_dtype", type=str, default="",
-                        help="'bfloat16' at the generator level is not ported yet (raises)")
+                        help="'bfloat16': the generator computes in bfloat16 (parameters, "
+                        "Adam state, heads and losses float32)")
     parser.add_argument("--cache_renders", type=int, default=0,
                         help="LRU capacity (entries, one a chunk and frame selection) of "
                         "the views that depend on the batch alone (input and target "
@@ -250,10 +252,6 @@ class SyntheticChunkDataset:
 
 
 def _check_ported(args) -> None:
-    if args.compute_dtype:
-        raise NotImplementedError(
-            f"--compute_dtype {args.compute_dtype}: training in reduced precision is "
-            "not ported yet (ROADMAP.md, Queue A item 8b)")
     if args.distributed:
         raise NotImplementedError(
             "--distributed: multi-host training is not ported yet (ROADMAP.md, Queue A "

@@ -24,15 +24,16 @@ from typing import Dict, List, Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("conv3x3", "conv3x3_dw", "raycast")
+SOURCES = ("conv3x3", "conv3x3_dw", "raycast", "tsdf")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# flags of one source on top of NVCC_FLAGS: the raycaster rounds a * b + c
-# twice, as its plain PyTorch version does (no fused multiply-add)
-SOURCE_FLAGS = {"raycast": ["-fmad=false"]}
+# flags of one source on top of NVCC_FLAGS: the raycaster and the TSDF
+# integrate round a * b + c twice, as their plain PyTorch versions do (no fused
+# multiply-add)
+SOURCE_FLAGS = {"raycast": ["-fmad=false"], "tsdf": ["-fmad=false"]}
 
 
 def _flags(name: str) -> List[str]:

@@ -75,7 +75,7 @@ class TrainConfig:
     valid_thresh: float = 0.1
     min_num_valid_2d: int = 2000  # train.py:662
     # compute
-    compute_dtype: Optional[str] = None  # 'bfloat16': serving only (Trainer raises)
+    compute_dtype: Optional[str] = None  # 'bfloat16': the generator's blocks (serving, training)
     # The fields below steer the JAX package's compiler and scheduling on its
     # own accelerator. This package accepts them, so that a stored config
     # round-trips between the two packages, and gives them no effect: eligible

@@ -45,8 +45,11 @@ backward, which would carry it into the raycaster's scatter. The target's
 features carry no gradient and are computed under ``torch.no_grad()``; the
 VGG's parameters are frozen, outside both optimizers and the checkpoint.
 
-Not ported (raises ``NotImplementedError``): training in bfloat16
-(``TrainConfig.compute_dtype``; the generator serves in bfloat16). The JAX
+``TrainConfig.compute_dtype="bfloat16"`` trains the generator in bfloat16, as
+the JAX package's generator ``dtype``: its blocks compute in bfloat16 (the
+bf16 variants of the conv kernels, forward, dx and dW), its parameters, their
+Adam state, the four heads and the losses stay float32; the discriminator is
+float32 either way. The JAX
 package's compiler scheduling (``step_many``, ``compact_resid``, ``remat``,
 ``fuse_raycast``, ``pair_raycast``) has no counterpart: the three raycasts run
 one after the other, which is the JAX package's default.
@@ -137,11 +140,6 @@ class Trainer:
 
     def __init__(self, cfg: TrainConfig, device="cuda", seed: int = 0,
                  plain_convs: bool = False, vgg=None):
-        if cfg.compute_dtype:
-            raise NotImplementedError(
-                f"TrainConfig.compute_dtype={cfg.compute_dtype!r}: training in reduced "
-                "precision is not ported yet (ROADMAP.md, Queue A item 8b); the generator "
-                "itself serves in bfloat16")
         self.cfg = cfg
         self.device = resolve_device(device)
         rng = torch.Generator().manual_seed(seed)

@@ -176,13 +176,15 @@ def test_trained_checkpoint_gives_the_same_outputs():
 
 
 def test_generator_level_bfloat16_is_not_ported():
-    """Serving in bfloat16 is ported (tests/test_torch_generator_bf16.py);
-    training in it is not and raises, naming ROADMAP.md; a compute type other
-    than bfloat16 is refused."""
+    """Serving and training in bfloat16 are ported
+    (tests/test_torch_generator_bf16.py, tests/test_torch_train_step_bf16.py):
+    a Trainer with compute_dtype "bfloat16" builds the bf16 generator; a
+    compute type other than bfloat16 is not ported and is refused."""
     from spsg_tpu_torch.training import TrainConfig
     from spsg_tpu_torch.training.step import Trainer
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(TrainConfig(input_dim=H.CHUNK, nf_gen=4, compute_dtype="bfloat16"), device="cpu")
+    trainer = Trainer(TrainConfig(input_dim=H.CHUNK, nf_gen=4, compute_dtype="bfloat16"),
+                      device="cpu")
+    assert trainer.generator.cfg.dtype == "bfloat16"
     with pytest.raises(ValueError, match="bfloat16"):
         tg.Generator(tg.GeneratorConfig(nf=4, dtype="float16"))

@@ -1,7 +1,7 @@
 """Generator-level bfloat16 (GeneratorConfig.dtype="bfloat16") of the port
 against the JAX package's bf16 forward on the CPU at nf=4: the blocks compute
 in bf16, the four heads in float32, the parameters stay float32; training in
-bf16 is not ported and raises.
+bf16 builds the same generator (its step: tests/test_torch_train_step_bf16.py).
 
 Tolerance (ROADMAP.md Queue C). The two packages round at different places:
 the fused conv kernel (and its plain version) adds the bias and applies the
@@ -93,9 +93,17 @@ def test_blocks_compute_in_bf16_heads_and_parameters_in_float32():
 
 
 def test_training_in_bf16_raises_naming_the_roadmap():
+    """Training in bf16 is ported (tests/test_torch_train_step_bf16.py): the
+    Trainer builds the bf16 generator. What training still lacks, multi-host
+    training (the train CLI's --distributed), raises naming ROADMAP.md."""
+    from spsg_tpu_torch.cli import train as train_cli
+
+    trainer = Trainer(TrainConfig(input_dim=H.CHUNK, nf_gen=4, compute_dtype="bfloat16"),
+                      device="cpu")
+    assert trainer.generator.cfg.dtype == "bfloat16"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Trainer(TrainConfig(input_dim=H.CHUNK, nf_gen=4, compute_dtype="bfloat16"),
-                device="cpu")
+        train_cli.main(["--device", "cpu", "--synthetic_chunks", "2", "--input_dim", "16",
+                        "--nf_gen", "4", "--compute_dtype", "bfloat16", "--distributed"])
 
 
 def test_chunked_cli_in_bf16(tmp_path):

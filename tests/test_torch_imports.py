@@ -35,7 +35,9 @@ def test_every_module_imports_without_jax_triton_or_the_jax_package():
     mods = _modules()
     assert len(mods) >= 24 and "spsg_tpu_torch.ops._build" in mods
     assert {"spsg_tpu_torch.losses.geo", "spsg_tpu_torch.losses.semantic",
-            "spsg_tpu_torch.training.step"} <= set(mods)
+            "spsg_tpu_torch.training.step", "spsg_tpu_torch.cli.datagen"} <= set(mods)
+    assert {f"spsg_tpu_torch.datagen.{m}" for m in (
+        "chunks", "fusion", "params", "raster", "scan", "semantics", "sens")} <= set(mods)
     script = f"""
 import importlib, importlib.abc, sys
 BANNED = {BANNED!r}
@@ -76,4 +78,6 @@ def test_importing_the_package_builds_nothing():
     assert not conv3x3._libs and not _build._LIBS
     from spsg_tpu_torch.ops import raycast
     assert not raycast._libs
-    assert set(_build.SOURCES) == {"conv3x3", "conv3x3_dw", "raycast"}
+    from spsg_tpu_torch.datagen import fusion
+    assert not fusion._libs
+    assert set(_build.SOURCES) == {"conv3x3", "conv3x3_dw", "raycast", "tsdf"}

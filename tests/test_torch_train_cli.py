@@ -103,11 +103,36 @@ def test_retrain_disc_takes_the_discriminator_of_another_run(geo_run, tmp_path):
                          "--retrain_disc", os.path.join(geo_run[0], "model-epoch0.pt")])
 
 
-@pytest.mark.parametrize("argv", [["--compute_dtype", "bfloat16"], ["--distributed"]])
+@pytest.mark.parametrize("argv", [["--distributed"]])
 def test_unported_options_raise(argv, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli.main(GEO + argv + ["--save", str(tmp_path / "run")])
     assert not os.path.exists(tmp_path / "run")
+
+
+def test_cli_trains_in_bfloat16_and_resumes_in_bfloat16(tmp_path):
+    """--compute_dtype bfloat16: two full steps with finite losses, args.txt
+    records the type, and a run resumed from the checkpoint with the same
+    arguments trains the bf16 generator on the saved float32 weights."""
+    bf16 = FULL + ["--num_iters_geo_only", "0", "--compute_dtype", "bfloat16", "--no_vis"]
+    save = str(tmp_path / "bf16")
+    first = cli.main(bf16 + ["--max_epoch", "1", "--save", save])
+    assert first.iteration == 2 and first.trainer.generator.cfg.dtype == "bfloat16"
+    assert json.load(open(os.path.join(save, "args.txt")))["compute_dtype"] == "bfloat16"
+    rows = open(os.path.join(save, "log_val.csv")).read().splitlines()
+    vals = [float(x) for x in rows[-1].split(",")[2:] if x]
+    assert len(rows) == 2 and vals and all(np.isfinite(vals))
+    ckpt = os.path.join(save, "model-epoch0.pt")
+    saved = torch.load(ckpt, weights_only=True)
+    assert all(v.dtype == torch.float32 for v in saved["state_dict"].values()
+               if v.is_floating_point())
+    # no epoch to run: the state right after loading
+    resumed = cli.main(bf16 + ["--start_epoch", "1", "--max_epoch", "1", "--retrain", ckpt,
+                               "--save", str(tmp_path / "again")]).trainer
+    assert resumed.generator.cfg.dtype == "bfloat16"
+    sd = resumed.generator.state_dict()
+    assert all(torch.equal(v, sd[k]) for k, v in saved["state_dict"].items())
+    assert all(int(s["step"]) == 2 for s in resumed.optimizer.state.values())
 
 
 def test_the_jax_cli_compiler_flags_are_accepted_without_effect(geo_run, tmp_path):
