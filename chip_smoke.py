@@ -57,15 +57,24 @@ fails. Phases, each printing one JSON line:
            float32 operations each at 67 TFLOP/s, counted by march_work_plain;
            the earlier bound, every lattice sample up to the exit, beside it;
            for K5 the rows of the voxels hit, each once; a row for each hit
-           pixel, the earlier count, beside it); and the occupancy march (K7)
-           at the step's 4 m range on the step's two masks of the same batch
-           (the target surface in 8^3 blocks without input, the target's
-           |sdf| < 1 band) and an all-empty grid: identical on every pixel,
-           its count of samples per ray equal to occ_march_plain's; bound: the
-           grid, the rays and the image at 3.35 TB/s, or the samples up to
-           each ray's first occupied one at 20 float32 operations each; no
-           library yardstick; the ray set-up of raycast_occ must not wait for
-           the card (torch's sync debug mode counts 0 host syncs)
+           pixel, the earlier count, beside it); and the occupancy march (K7:
+           its 8^3 map pre-pass and the hopping march) at the step's 4 m range
+           on the step's two masks of the same batch (the target surface in
+           8^3 blocks without input, the target's |sdf| < 1 band), an
+           all-empty grid and three grids made to catch a wrong skip (one
+           occupied voxel on a block corner, an axis-aligned camera whose
+           rays run on a block face, a camera inside an occupied shell), at
+           both sizes, and rays made to round onto a block face (rounding_rays):
+           identical on every pixel, its lattice index at exit per ray equal
+           to occ_march_plain's, its count of loaded samples (evaluated) equal
+           to occ_march_work_plain's and its map to occ_skip_map_plain's; on
+           the masks at the path's size and on the empty grid it loads fewer
+           samples than it walks past; bound: the grid, the rays and the image
+           at 3.35 TB/s, or the samples up to each ray's exit whose 8^3 block
+           holds an occupied voxel at 20 float32 operations each (the earlier
+           bound, every sample to the exit, beside it); no library yardstick;
+           the ray set-up of raycast_occ must not wait for the card (torch's
+           sync debug mode counts 0 host syncs)
   path     the serving path through the entry points a user calls: the
            whole-scene CLI at full width (nf_gen 20, windows (128,64,64),
            stride 32, window batch 8, colour and semantics) on one synthetic
@@ -185,14 +194,20 @@ fails. Phases, each printing one JSON line:
            1.5 m looking outward and down, 320x256 at ScanConfig's intrinsics,
            chance_drop_frames 0.8: K8 once a frame; the native rasterizer loaded;
            seconds of the scan, per frame the host rasterizer, the upload and
-           K8's device time (8 frames, queued behind a spin), save_grid's
-           seconds, peak memory; the scan's frames replayed through K8 and
-           integrate_plain on the card: identical to the bit (all four fields)
-           after 8 frames and at the end, and the end equal to the scan's own
-           grid; K8's bound: per frame the voxels with a valid depth (sdf, weight,
-           free_ctr, colour: 24 bytes read and written) and both images at
-           3.35 TB/s, no library yardstick; a small scan (floor, voxel 0.08, 6
-           frames) through the CLI on the GPU and the CPU: the six files
+           K8's device time (8 frames, queued behind a spin), its cull (the
+           box, the voxels its rows' intervals hold, the host's time to find
+           them), save_grid's seconds, peak memory; the scan's frames replayed
+           through K8 and integrate_plain on the card: identical to the bit
+           (all four fields) after 8 frames and at the end, and the end equal
+           to the scan's own grid; then frames made to catch a wrong cull
+           (cameras along +x and straight down, grazing a face, in a corner of
+           the grid, looking away from it, a voxel on the optical axis at pz =
+           5e-10), each identical to the bit, one launch each, the cull empty
+           exactly when nothing changed; K8's bound: per frame the voxels
+           with a valid depth (sdf, weight, free_ctr, colour: 24 bytes read
+           and written) and both images at 3.35 TB/s, no library
+           yardstick; a small scan (floor, voxel 0.08, 6 frames) through the
+           CLI on the GPU and the CPU: the six files
            identical byte for byte; then the CLI on the card: scan at its
            defaults on the room written as PLY (K8 48 times), chunk of the
            room's __inc__ / __cmp__ at (128,64,64), semantics from a labeled
@@ -218,8 +233,12 @@ Options (none when the script is run as the check of a checkout):
   --baseline-dw-source PATH  the same for csrc/conv3x3_dw.cu and K2
   --baseline-raycast-source PATH  the same for csrc/raycast.cu, K4, K5, K6 and
            K7 (a version with the C interface ops/raycast.py::_bind declares,
-           run through the same wrappers; K7 only where the version has it),
-           at the path's shape; "baseline_ms" per record
+           K4-K6 run through the same wrappers; an older K7, which walks every
+           sample, through its own entry spsg_raycast_occ, where the version
+           has it), at the path's shape; "baseline_ms" per record
+  --baseline-tsdf-source PATH  the same for csrc/tsdf.cu and K8 (a version
+           with the whole-grid entry spsg_tsdf_integrate, from before the cull),
+           on the room scan's frames; "baseline_ms" per frame
 
 Tolerances. float32: |kernel - plain| <= 1e-4 on unit-variance outputs (both
 accumulate in float32, in different orders; the forward kernel's 3xTF32
@@ -436,7 +455,7 @@ def load_baseline(src, key):
     flags and bound like the package's own."""
     t = time.time()
     bind = {"conv3x3": conv_ops._bind_conv, "conv3x3_dw": conv_ops._bind_dw,
-            "raycast": rc_ops._bind}[key]
+            "raycast": rc_ops._bind, "tsdf": bind_tsdf_baseline}[key]
     lib = bind(ctypes.CDLL(_build.build_source(src, f"{key}_baseline", key)))
     emit("baseline", kernel=key, source=src, seconds=round(time.time() - t, 2))
     return lib
@@ -980,60 +999,105 @@ def compare_shade_scatter(hits, n_vox, gen, tag, on_path):
 # float32 operations of one sample of the occupancy march: t (convert, mul,
 # add), the position (3 mul, 3 add), + 0.5 (3 add), floor (3), the bounds (6)
 OCC_SAMPLE_FLOPS = 20
+# the grids of K7 whose work the "kernels" line reports (the step's masks and
+# the empty grid; the adversarial grids check the skip)
+OCC_STEP_GRIDS = ("missing", "target_band", "empty")
 
 
-def compare_occ(occ, view, intr, cfg, tag, on_path):
+def baseline_occ_march(lib, occ, setup, cfg, samples=None):
+    """K7 of an older raycast.cu (``spsg_raycast_occ``: every lattice sample
+    walked, no map) on the same rays: (B,P) uint8."""
+    B, Z, Y, X = occ.shape
+    P = setup.t0.shape[1]
+    hit = torch.empty((B, P), dtype=torch.uint8, device=DEV)
+    err = lib.spsg_raycast_occ(
+        occ.data_ptr(), setup.origin.data_ptr(), setup.direction.data_ptr(),
+        setup.t0.data_ptr(), setup.t_stop.data_ptr(), hit.data_ptr(),
+        None if samples is None else samples.data_ptr(), B, Z, Y, X, P, cfg.width,
+        cfg.ray_increment, cfg.max_samples, torch.cuda.current_stream(DEV).cuda_stream)
+    if err:
+        raise SystemExit(f"chip_smoke: the baseline's raycast_occ failed with error {err}")
+    return hit
+
+
+def compare_occ(occ, setup, cfg, tag, on_path, camera=None):
     """K7 against occ_march_plain on the same rays: identical on every pixel,
-    and the kernel's count of samples per ray equal to the plain version's.
-    The bound: the grid read once (a byte a voxel), the rays' set-up and the
-    image; or the samples up to each ray's first occupied one (the plain
-    version's count) at OCC_SAMPLE_FLOPS float32 operations each."""
-    occ, setup = rc_ops.occ_setup(occ, view, intr, cfg)
+    and the kernel's lattice index at exit per ray equal to the plain
+    version's; its count of loaded samples and the pre-pass's map equal to
+    occ_march_work_plain's and occ_skip_map_plain's (so the kernel hopped as
+    designed). The bound: the grid read once (a byte a voxel), the rays'
+    set-up and the image; or, at OCC_SAMPLE_FLOPS float32 operations each,
+    the samples up to each ray's exit whose (undilated) 8^3 block holds an
+    occupied voxel (occ_march_work_plain's in_blocks); beside it the earlier
+    bound, every sample to the exit. ``camera`` (view, intrinsics): the rays came
+    from raycast_occ's set-up, whose host syncs and time are measured too."""
     B, n_vox = occ.shape[0], occ[0].numel()
     P = setup.t0.shape[1]
     n_px = B * P
     samples = torch.empty((B, P), dtype=torch.int32, device=DEV)
-    got = rc_ops.occ_march(occ, setup, cfg, samples=samples)
+    evaluated = torch.empty_like(samples)
+    block_map = torch.empty(rc_ops.occ_skip_map_shape(occ.shape), dtype=torch.uint8, device=DEV)
+    got = rc_ops.occ_march(occ, setup, cfg, samples=samples, evaluated=evaluated,
+                           block_map=block_map)
     torch.cuda.synchronize()
     ref, ref_samples = rc_ops.occ_march_plain(occ, setup, cfg, return_samples=True)
+    work = rc_ops.occ_march_work_plain(occ, setup, cfg)
     diff = int((got != ref).sum())
-    if diff or not torch.equal(samples.long(), ref_samples):
+    checks = dict(samples=torch.equal(samples.long(), ref_samples),
+                  evaluated=torch.equal(evaluated.long(), work["evaluated"]),
+                  block_map=torch.equal(block_map.bool(), rc_ops.occ_skip_map_plain(occ)))
+    if diff or not all(checks.values()):
         raise SystemExit(f"chip_smoke: raycast_occ {tag}: kernel and plain version differ on "
-                         f"{diff} of {n_px} pixels, or in their count of samples")
-    work = int(ref_samples.sum())
+                         f"{diff} of {n_px} pixels, or equal in {checks}")
+    lattice, loaded = int(ref_samples.sum()), int(evaluated.sum())
+    needed = int(work["in_blocks"].sum())
     # the grid, origin per batch row, direction, t0, t_stop per ray, the image
     nbytes = B * n_vox + B * 12 + n_px * 20 + n_px
-    t_bytes, t_ops = nbytes / PEAK_BYTES, work * OCC_SAMPLE_FLOPS / F32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops, t_ops_every = (n * OCC_SAMPLE_FLOPS / F32_FLOPS for n in (needed, lattice))
     rec = dict(hits=int(got.sum()), pixels_differing=diff, max_abs_err=0.0,
-               occupied_voxels=int(occ.sum()), samples=work, samples_per_ray=work / n_px,
+               occupied_voxels=int(occ.sum()), samples=lattice, samples_per_ray=lattice / n_px,
+               evaluated=loaded, evaluated_per_ray=loaded / n_px,
+               in_blocks_per_ray=needed / n_px,
+               flagged_blocks=int(block_map.sum()), map_blocks=block_map.numel(),
                bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="operations" if t_ops >= t_bytes else "bytes",
+               bound_ms_every_sample=max(t_bytes, t_ops_every) * 1e3,
                plain_ms=cuda_ms(lambda: rc_ops.occ_march_plain(occ, setup, cfg), 2),
-               library_ms=None,
-               # the wrapper as the step calls it: the ray set-up in PyTorch, then K7
-               ms_with_setup=device_ms(lambda: rc_ops.raycast_occ(occ, view, intr, cfg), 20))
-    # how often the wrapper waits for the card (torch's sync debug mode warns once
-    # for each operation that does; its other warning, that the mode is a
-    # prototype, is not counted): never, since the set-up fills its divisors on
-    # the card (ops/raycast.py::_div, _rdiv)
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            rc_ops.raycast_occ(occ, view, intr, cfg)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    caught = [w for w in caught if "prototype" not in str(w.message)]
-    rec["host_syncs_with_setup"] = len(caught)
-    if caught:
-        raise SystemExit(f"chip_smoke: raycast_occ {tag}: the ray set-up waited for the card "
-                         f"{len(caught)} times: {[str(w.message)[:80] for w in caught]}")
+               library_ms=None)
+    if camera is not None:
+        view, intr = camera
+        # the wrapper as the step calls it: the ray set-up in PyTorch, then K7
+        rec["ms_with_setup"] = device_ms(lambda: rc_ops.raycast_occ(occ, view, intr, cfg), 20)
+        # how often the wrapper waits for the card (torch's sync debug mode warns
+        # once for each operation that does; its other warning, that the mode is a
+        # prototype, is not counted): never, since the set-up fills its divisors on
+        # the card (ops/raycast.py::_div, _rdiv) and K7's map is its own launch
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                rc_ops.raycast_occ(occ, view, intr, cfg)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        caught = [w for w in caught if "prototype" not in str(w.message)]
+        rec["host_syncs_with_setup"] = len(caught)
+        if caught:
+            raise SystemExit(f"chip_smoke: raycast_occ {tag}: the ray set-up waited for the "
+                             f"card {len(caught)} times: {[str(w.message)[:80] for w in caught]}")
     fn = (lambda: rc_ops.occ_march(occ, setup, cfg))
-    # a baseline raycast.cu from before K7 has no occupancy march to time
-    baseline = (on_raycast_library(fn, BASELINE["raycast"])
-                if "raycast" in BASELINE and on_path
-                and hasattr(BASELINE["raycast"], "spsg_raycast_occ") else None)
+    lib = BASELINE.get("raycast")
+    baseline = None
+    if lib is not None and hasattr(lib, "spsg_raycast_occ"):
+        old_samples = torch.empty_like(samples)
+        old = baseline_occ_march(lib, occ, setup, cfg, old_samples)
+        rec["baseline_pixels_differing"] = int((old != ref).sum())
+        rec["baseline_samples_equal"] = torch.equal(old_samples.long(), ref_samples)
+        if on_path:
+            baseline = (lambda: baseline_occ_march(lib, occ, setup, cfg))
     time_in_turns(fn, baseline, 20, rec)
+    if on_path:
+        rec["kernels_ms"] = kernel_split_ms(fn)
     return rec
 
 
@@ -1044,6 +1108,101 @@ def occupancy_grids(grids):
     inp, tgt = grids["input"][0], grids["target"][0]
     return {"missing": geo_losses.missing_geo_mask(inp.abs() < 3.0 - 0.01, tgt, 3.0),
             "target_band": tgt.abs() < 1, "empty": torch.zeros_like(tgt, dtype=torch.bool)}
+
+
+def look_along(eye, fwd, right):
+    """cam2world (or cam2grid) at ``eye`` with camera z along ``fwd`` and x
+    along ``right`` (y = z x x), as given: axis-aligned vectors stay exact."""
+    cam = np.eye(4, dtype=np.float32)
+    fwd, right = np.asarray(fwd, np.float64), np.asarray(right, np.float64)
+    cam[:3, 0], cam[:3, 1], cam[:3, 2], cam[:3, 3] = right, np.cross(fwd, right), fwd, eye
+    return cam
+
+
+def look_at(eye, target, fx, image):
+    """(cam2grid (4,4), intrinsics (4,)) of a camera at ``eye`` looking at
+    ``target`` (xyz grid coordinates), principal point at the image centre."""
+    f = np.asarray(target, np.float64) - eye
+    f /= np.linalg.norm(f)
+    r = np.cross([0.0, 0.0, 1.0], f)
+    return (look_along(eye, f, r / np.linalg.norm(r)),
+            np.array([fx, fx, image[0] / 2.0, image[1] / 2.0], np.float32))
+
+
+def adversarial_occ_grids(dims, image):
+    """Grids and cameras (two batch rows each) made to catch a wrong K7 skip,
+    as tests/test_torch_raycast_occ.py makes them at 32^3: ``corner_voxel``,
+    one occupied voxel on a corner of three blocks' faces (a low face in z and
+    x, a high face in y), seen by narrow cameras whose rays pass it a fraction
+    of a voxel apart; ``face_rays``, a camera looking straight down from
+    (x, y) = (8c - 0.5, 8c' - 0.5): the pixel column and row through the
+    principal point run exactly on the face between voxels 8c - 1 and 8c (the
+    nearest voxel is 8c, in the next block), their neighbours graze it, and
+    occupied voxels lie on both sides; ``inside_shell``, a camera inside a
+    closed shell |r - R| < 1 about the centre, its rays starting inside the
+    occupied box. Returns {name: (occ, view, intr, cfg)} on the card."""
+    Z, Y, X = dims
+    w, h = image
+    centre = np.array([X / 2.0, Y / 2.0, Z / 2.0])
+    out = {}
+    vz, vy, vx = 8 * (Z // 16), 8 * (Y // 16) - 1, 8 * (X // 16)
+    occ = np.zeros((2,) + dims, bool)
+    occ[:, vz, vy, vx] = True
+    target = np.array([vx, vy, vz], np.float64)
+    cams = [look_at(target + np.array([1.3, 1.7, 2.9]) * max(dims) / 2.0, target, 5.0 * w, image),
+            look_at(target + np.array([-2.3, 0.6, 1.1]) * max(dims) / 2.0, target, 5.0 * w,
+                    image)]
+    out["corner_voxel"] = (occ, cams, 4 * max(dims))
+    cx, cy = 8 * (X // 16) - 0.5, 8 * (Y // 16) - 0.5
+    occ = np.zeros((2,) + dims, bool)
+    ix, iy = int(cx + 0.5), int(cy + 0.5)  # the voxels 8c, 8c' on the faces' far side
+    for b in range(2):
+        occ[b, Z // 8: Z // 8 + 3, iy, ix] = True
+        occ[b, Z // 4, iy - 1, ix - 1] = True
+        occ[b, Z // 3, iy - 1: iy + 1, ix + 1] = True
+        occ[b, Z // 2 - b, iy, ix - 2: ix] = True
+    cam = np.array([[1, 0, 0, cx], [0, 1, 0, cy], [0, 0, -1, Z + 8.0], [0, 0, 0, 1]], np.float32)
+    intr = np.array([2.0 * w, 2.0 * w, w / 2.0, h / 2.0], np.float32)
+    out["face_rays"] = (occ, [(cam, intr), (cam, intr * np.float32([0.5, 0.5, 1, 1]))],
+                        2 * Z + 16)
+    zz, yy, xx = np.meshgrid(*(np.arange(n) for n in dims), indexing="ij")
+    radius = min(dims) / 3.0
+    r = np.sqrt((xx - centre[0]) ** 2 + (yy - centre[1] + 1.0) ** 2 + (zz - centre[2] - 1.0) ** 2)
+    occ = np.broadcast_to(np.abs(r - radius) < 1.0, (2,) + dims).copy()
+    eye = centre + np.array([0.2, -0.7, 0.9])
+    cams = [look_at(eye, eye + [0.9, -0.8, 0.5], 0.4 * w, image),
+            look_at(eye, eye + [-0.3, 0.4, -0.9], 0.4 * w, image)]
+    out["inside_shell"] = (occ, cams, 2 * max(dims))
+    res = {}
+    for name, (occ, cams, depth_max) in out.items():
+        cfg = rc_ops.RaycastConfig(width=w, height=h, depth_min=0.5, depth_max=float(depth_max))
+        res[name] = (to_dev(occ), to_dev(np.stack([c[0] for c in cams])),
+                     to_dev(np.stack([c[1] for c in cams])), cfg)
+    return res
+
+
+def rounding_rays():
+    """Rays laid along the block face x = 15.5, one a batch row (four), made
+    so that o + t d rounds onto the face (nearest voxel 16, occupied) at t =
+    512 while the exact crossing is at t = 1024, within an 8^3 block whose
+    first sample still lies on voxel 15 (tests/test_torch_raycast_occ.py::
+    _rounding_rays: a skip past that block's box without K7's one-voxel
+    margin misses every hit). Returns (occ, setup, cfg) on the card."""
+    f32 = np.float32
+    occ = np.zeros((4, 528, 8, 24), bool)
+    origin, direction, t0 = [], [], []
+    for b, y in enumerate((1, 3, 5, 7)):
+        up = b < 2
+        origin.append([f32(15.5) - f32(2.0 ** -20), y, 0.0 if up else 527.3])
+        direction.append([[2.0 ** -30, 0.0, 1.0 if up else -1.0]])
+        t0.append([(511.7 + 0.1 * b if up else 511.9) - 0.9 * 568])
+        occ[b, slice(512, 520) if up else slice(8, 16), y, 16] = True
+    t = lambda a: to_dev(np.asarray(a, np.float32))
+    setup = rc_ops.MarchSetup(t(origin), t(direction), torch.ones((4, 1), device=DEV), t(t0),
+                              torch.full((4, 1), 540.0, device=DEV))
+    cfg = rc_ops.RaycastConfig(width=1, height=1, depth_min=0.0, depth_max=600.0,
+                               ray_increment=0.9)
+    return to_dev(occ), setup, cfg
 
 
 def phase_compare_raycast():
@@ -1065,11 +1224,34 @@ def phase_compare_raycast():
         # the occupancy march at the step's shallower range (raycast_occ_depth_max)
         occ_cfg = dataclasses.replace(cfg, depth_max=tc.raycast_occ_depth_max / tc.voxelsize)
         for name, occ in occupancy_grids(grids).items():
-            rec = compare_occ(occ, view, intr, occ_cfg, f"{name} {dims} {image}", on_path)
+            occ, setup = rc_ops.occ_setup(occ, view, intr, occ_cfg)
+            rec = compare_occ(occ, setup, occ_cfg, f"{name} {dims} {image}", on_path,
+                              camera=(view, intr))
             results["raycast_occ"].append(dict(grid=name, dims=list(dims), image=list(image),
                                                main_path=on_path, **rec))
+            if on_path or name == "empty":
+                # the hops: fewer samples loaded than walked past (at 16^3 a group's
+                # loads past a ray's first hit can outnumber the skipped samples)
+                if not rec["evaluated"] < rec["samples"]:
+                    raise SystemExit(f"chip_smoke: raycast_occ {name} {dims}: K7 loaded "
+                                     f"{rec['evaluated']} samples of {rec['samples']}")
+        for name, (occ, aview, aintr, acfg) in adversarial_occ_grids(dims, image).items():
+            occ, setup = rc_ops.occ_setup(occ, aview, aintr, acfg)
+            rec = compare_occ(occ, setup, acfg, f"{name} {dims} {image}", False,
+                              camera=(aview, aintr))
+            if rec["hits"] < 3:
+                raise SystemExit(f"chip_smoke: raycast_occ {name} {dims}: {rec['hits']} hits; "
+                                 f"the adversarial grid is not seen")
+            results["raycast_occ"].append(dict(grid=name, dims=list(dims), image=list(image),
+                                               main_path=False, adversarial=True, **rec))
         del grids
         torch.cuda.empty_cache()
+    occ, setup, rcfg = rounding_rays()
+    rec = compare_occ(occ, setup, rcfg, "rounding_rays", False)
+    if rec["hits"] != 4:
+        raise SystemExit(f"chip_smoke: raycast_occ rounding_rays: {rec['hits']} of 4 rays hit")
+    results["raycast_occ"].append(dict(grid="rounding_rays", dims=list(occ.shape[1:]),
+                                       image=[1, 1], main_path=False, adversarial=True, **rec))
     keys = ("grid", "dims", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
     emit("compare_raycast",
          tolerance={"raycast_march": "hit, hit_idx, alpha, depth identical to the bit on every "
@@ -1079,7 +1261,9 @@ def phase_compare_raycast():
                     "raycast_scatter": "1e-5 of each gradient's largest entry (atomic adds in "
                                        "another order), also with every hit on 8 voxels",
                     "raycast_occ": "identical on every pixel; samples equal to "
-                                   "occ_march_plain's"},
+                                   "occ_march_plain's, evaluated to occ_march_work_plain's, "
+                                   "the map to occ_skip_map_plain's; also on the adversarial "
+                                   "grids"},
          summary={k: [{kk: r[kk] for kk in r if kk in keys or kk.endswith("_ms")} for r in v]
                   for k, v in results.items()},
          march_pixels_differing=sum(sum(r[k] for k in ("hit_diff", "hit_idx_diff",
@@ -2773,6 +2957,101 @@ def write_region_ply(path, verts, faces, cats):
         f.write(rec.tobytes())
 
 
+def cull_stats(cull, dims):
+    """Voxels of K8's launch for one frame: the box's, and those the
+    intervals of the box's rows hold (what K8 walks), with their share of the
+    grid."""
+    z0, z1, y0, y1, x0, x1 = cull.box
+    lo, hi = tsdf.row_intervals(cull.planes, dims)
+    walked = int(np.clip(hi - lo + 1, 0, None)[z0:z1 + 1, y0:y1 + 1].sum())
+    box = 0 if cull.empty else (z1 - z0 + 1) * (y1 - y0 + 1) * (x1 - x0 + 1)
+    return dict(box=list(cull.box), box_voxels=box, walked_voxels=walked,
+                walked_share=walked / float(np.prod(dims)))
+
+
+def bind_tsdf_baseline(lib):
+    """An older tsdf.cu: K8 over the whole grid (``spsg_tsdf_integrate``)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.spsg_tsdf_integrate.restype = i
+    lib.spsg_tsdf_integrate.argtypes = [p] * 6 + [ctypes.c_longlong] + [i] * 5 + [p, p]
+    return lib
+
+
+def baseline_integrate(lib, grid, depth, color, intr, cam, w2g, cfg):
+    """One frame through an older K8 (every voxel of the grid projected)."""
+    Z, Y, X = grid["sdf"].shape
+    H, W = depth.shape
+    params = tsdf._frame_params(tsdf.voxel_to_camera(cam, w2g), intr, cfg)
+    err = lib.spsg_tsdf_integrate(
+        grid["sdf"].data_ptr(), grid["weight"].data_ptr(), grid["color"].data_ptr(),
+        grid["free_ctr"].data_ptr(), depth.data_ptr(),
+        None if color is None else color.data_ptr(), 0 if color is None else color.numel() // 3,
+        Z, Y, X, H, W, params.ctypes.data, torch.cuda.current_stream(DEV).cuda_stream)
+    if err:
+        raise SystemExit(f"chip_smoke: the baseline's tsdf_integrate failed with error {err}")
+
+
+def adversarial_k8_frames(grid, dims, w2g, cfg, sc):
+    """K8 against integrate_plain to the bit (all four fields) on frames made
+    to catch a wrong cull, each from a copy of the scanned room's grid (first
+    observations and merges both happen): seeded dense depths in [0.3, 4.5] m
+    with holes, from cameras looking exactly along +x and straight down from
+    inside the room, from a camera just outside the grid's -y face looking
+    along it (the frustum grazes the face), from one inside a corner of the
+    grid, and from one outside looking away (no row to walk: K8 still
+    launches, and counts, once); then a (3,3,3) grid whose voxel (0,0,0)
+    lies on the optical axis at pz = 5e-10, in front of the camera (safe_z).
+    Returns per frame the cull and the voxels changed."""
+    lo = -np.array([cfg.scene_pad, cfg.scene_pad, cfg.height_pad]) * cfg.voxelsize
+    hi = lo + np.array(dims[::-1]) * cfg.voxelsize
+    mid = (lo + hi) / 2
+    cams = {
+        "along_+x": look_along(mid, (1, 0, 0), (0, -1, 0)),
+        "straight_down": look_along(mid, (0, 0, -1), (1, 0, 0)),
+        "grazing_-y_face": look_along([mid[0] - 2.0, lo[1] - 0.005, mid[2]], (1, 0, 0),
+                                      (0, -1, 0)),
+        "corner_inside": look_along(lo + 0.05, np.array([1, 1, 1]) / np.sqrt(3),
+                                    np.array([1, -1, 0]) / np.sqrt(2)),
+        "looking_away": look_along([hi[0] + 0.5, mid[1], mid[2]], (1, 0, 0), (0, -1, 0)),
+    }
+    intr = np.array([sc.fx, sc.fy, sc.width / 2, sc.height / 2], np.float32)
+    rng = np.random.default_rng(7)
+    out = {}
+
+    def one(name, g, d, c, fintr, cam, fw2g, fdims):
+        k8 = {k: v.clone() for k, v in g.items()}
+        plain = {k: v.clone() for k, v in g.items()}
+        before = all_launch_counts()["tsdf_integrate"]
+        tsdf.integrate(k8, d, c, fintr, cam, fw2g, cfg)
+        launched = all_launch_counts()["tsdf_integrate"] - before
+        tsdf.integrate_plain(plain, d, c, fintr, cam, fw2g, cfg)
+        torch.cuda.synchronize()
+        same = grids_identical(k8, plain)
+        changed = sum(int((g[k] != plain[k]).sum()) for k in g)
+        cull = tsdf.frustum_cull(fdims, tuple(d.shape), fintr, cam, fw2g, cfg)
+        if not all(same.values()) or launched != 1 or cull.empty != (changed == 0):
+            raise SystemExit(f"chip_smoke: K8 on the adversarial frame {name}: identical "
+                             f"{same}, launches {launched}, cull empty {cull.empty}, "
+                             f"{changed} entries changed")
+        out[name] = dict(identical=True, entries_changed=changed, **cull_stats(cull, fdims))
+
+    for name, cam in cams.items():
+        d = rng.uniform(0.3, 4.5, (sc.height, sc.width)).astype(np.float32)
+        d[rng.random(d.shape) < 0.1] = np.nan
+        c = rng.integers(0, 256, (sc.height, sc.width, 3)).astype(np.float32)
+        one(name, grid, to_dev(d), to_dev(c), intr, cam, w2g, dims)
+    if out["looking_away"]["walked_voxels"] or out["along_+x"]["entries_changed"] == 0:
+        raise SystemExit(f"chip_smoke: the adversarial frames are not what they should be: "
+                         f"{out}")
+    tiny = tsdf.make_grid((3, 3, 3), DEV)
+    cam = np.eye(4, dtype=np.float32)
+    cam[:3, 3] = [0.0, 0.0, -5e-10]
+    one("safe_z", tiny, torch.ones((8, 8), device=DEV), None,
+        np.array([10.0, 10.0, 4.0, 4.0], np.float32), cam, np.eye(4, dtype=np.float32),
+        (3, 3, 3))
+    return out
+
+
 def phase_datagen(tmp):
     """Dataset generation on the card: virtual_scan of the room (K8 a frame),
     K8 against integrate_plain to the bit, a small scan on the GPU against the
@@ -2860,6 +3139,7 @@ def phase_datagen(tmp):
     err = max(float((k8[k] - plain[k]).abs().max()) for k in ("weight", "color"))
     err = max(err, float((k8["sdf"] - plain["sdf"])[finite].abs().max()))
     del plain, scanned
+    rec["adversarial_frames"] = adversarial_k8_frames(k8, dims, w2g, cfg, sc)
 
     # (c) per frame: the upload, K8's device time, the plain version's, the bound
     d0, c0 = frames[0][0].cpu().numpy(), frames[0][1].cpu().numpy()
@@ -2870,18 +3150,28 @@ def phase_datagen(tmp):
     torch.cuda.synchronize()
     upload_ms = 1e3 * (time.perf_counter() - t) / 20
     per_frame = []
+    lib = BASELINE.get("tsdf")
     for i in range(0, len(frames), len(frames) // 8):
         d, c, intr, cam = frames[i]
         n_obs = tsdf.observed_voxels(dims, d, intr, cam, w2g, cfg)
         nbytes = n_obs * 48 + d.numel() * 4 + c.numel() * 4
-        per_frame.append(dict(
-            frame=i, observed_voxels=n_obs,
-            ms=device_ms(lambda: tsdf.integrate(k8, d, c, intr, cam, w2g, cfg), 20),
-            plain_ms=cuda_ms(lambda: tsdf.integrate_plain(k8, d, c, intr, cam, w2g, cfg), 3),
-            bound_ms=nbytes / PEAK_BYTES * 1e3))
+        t = time.perf_counter()
+        for _ in range(20):
+            cull = tsdf.frustum_cull(dims, tuple(d.shape), intr, cam, w2g, cfg)
+        fr = dict(frame=i, observed_voxels=n_obs, **cull_stats(cull, dims),
+                  cull_host_ms=1e3 * (time.perf_counter() - t) / 20,
+                  plain_ms=cuda_ms(lambda: tsdf.integrate_plain(k8, d, c, intr, cam, w2g, cfg),
+                                   3),
+                  bound_ms=nbytes / PEAK_BYTES * 1e3)
+        time_in_turns(lambda: tsdf.integrate(k8, d, c, intr, cam, w2g, cfg),
+                      None if lib is None else
+                      (lambda: baseline_integrate(lib, k8, d, c, intr, cam, w2g, cfg)), 20, fr)
+        per_frame.append(fr)
     del k8
     torch.cuda.empty_cache()
-    mean = {k: float(np.mean([r[k] for r in per_frame])) for k in ("ms", "plain_ms", "bound_ms")}
+    keys = ("ms", "plain_ms", "bound_ms", "walked_share", "cull_host_ms") + (
+        ("baseline_ms",) if lib is not None else ())
+    mean = {k: float(np.mean([r[k] for r in per_frame])) for k in keys}
     kernel_rec = dict(main_path=True, grid=list(dims), image=[sc.width, sc.height],
                       max_abs_err=err, library_ms=None, bound_by="bytes", frames=per_frame,
                       **mean)
@@ -3115,12 +3405,16 @@ def main(argv=None):
     ap.add_argument("--baseline-raycast-source", default=None,
                     help="another version of csrc/raycast.cu (the C interface of "
                          "ops/raycast.py::_bind) to time beside this one")
+    ap.add_argument("--baseline-tsdf-source", default=None,
+                    help="another version of csrc/tsdf.cu (spsg_tsdf_integrate, the whole "
+                         "grid) to time beside this one")
     args = ap.parse_args(argv)
     smi = phase_device()
     phase_build()
     for key, src in (("conv3x3", args.baseline_source),
                      ("conv3x3_dw", args.baseline_dw_source),
-                     ("raycast", args.baseline_raycast_source)):
+                     ("raycast", args.baseline_raycast_source),
+                     ("tsdf", args.baseline_tsdf_source)):
         if src:
             BASELINE[key] = load_baseline(src, key)
     results = phase_compare()
@@ -3178,7 +3472,8 @@ def main(argv=None):
             # at the path's size, the grid with the most work: the prediction's, and
             # for the occupancy march the mask with the most samples
             path_recs = [r for r in recs if r["main_path"]]
-            head = (max(path_recs, key=lambda r: r["samples"]) if name == "raycast_occ"
+            head = (max((r for r in path_recs if r["grid"] in OCC_STEP_GRIDS),
+                        key=lambda r: r["samples"]) if name == "raycast_occ"
                     else next(r for r in path_recs if r["grid"] == "prediction"))
             measured_at = dict(grid=head["grid"], dims=head["dims"], image=head["image"],
                                dtype="float32")

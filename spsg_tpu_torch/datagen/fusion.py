@@ -17,16 +17,22 @@ Per-frame integration math (VoxelGrid.cpp:29-98):
 
 :func:`integrate` updates the grid in place (the JAX package donates it to
 its jitted update, the same contract). On a CUDA grid it launches the hand
-kernel K8 (``ops/csrc/tsdf.cu``, one launch a frame); on a CPU grid it runs
-:func:`integrate_plain`, the JAX package's arithmetic op for op in PyTorch.
-The two agree to the bit: K8 is built with ``-fmad=false`` and rounds every
-operation where the plain version does. The voxel -> camera map is computed
-once a frame on the host in float32 (:func:`voxel_to_camera`)."""
+kernel K8 (``ops/csrc/tsdf.cu``, one launch a frame) over the voxels that
+the frame can touch, bounded on the host in float64 (:func:`frustum_cull`:
+six planes and the box of the grid points they hold; the kernel walks each
+row of the box over its interval of the planes, :func:`row_intervals`); on a
+CPU grid it runs :func:`integrate_plain`, the JAX package's arithmetic op for
+op in PyTorch, over the whole grid. The two agree to the bit: K8 is built with
+``-fmad=false`` and rounds every operation where the plain version does, and
+the cull leaves out only voxels that the frame leaves unchanged. The voxel ->
+camera map is computed once a frame on the host in float32
+(:func:`voxel_to_camera`)."""
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import itertools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -108,14 +114,147 @@ def voxel_to_camera(cam2world, world2grid) -> np.ndarray:
     return (world2cam @ grid2world).astype(np.float32)
 
 
-def _frame_params(intrinsics, cam2world, world2grid, cfg: FusionConfig) -> list:
-    """K8's 20 float32 scalars: rows 0-2 of M, fx, fy, mx, my, depth_min,
-    depth_max, the truncation at depth 0 and the voxel size."""
-    m = voxel_to_camera(cam2world, world2grid)
-    intr = _host(intrinsics)
+def _frame_params(m, intrinsics, cfg: FusionConfig) -> np.ndarray:
+    """K8's 20 float32 scalars: rows 0-2 of M (:func:`voxel_to_camera`), fx,
+    fy, mx, my, depth_min, depth_max, the truncation at depth 0 and the voxel
+    size."""
     consts = np.array([cfg.depth_min, cfg.depth_max, cfg.truncation_m, cfg.voxelsize],
                       np.float32)
-    return [float(v) for v in np.concatenate([m[:3].ravel(), intr[:4], consts])]
+    return np.concatenate([m[:3].ravel(), _host(intrinsics)[:4], consts])
+
+
+# pixels added on every side of the image by the cull (float32 rounding of u
+# and v is below 1e-3 px at any image size in use)
+CULL_PIXEL_MARGIN = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class FrustumCull:
+    """The voxels one frame can change, as K8 walks them: ``planes`` (6, 4)
+    float64, a voxel (x, y, z) the frame changes has ``a x + b y + c z + e
+    >= 0`` for each row (a, b, c, e), with a in {1, -1, 0}; ``box`` (z0, z1,
+    y0, y1, x0, x1), inclusive, holds every voxel of the grid that satisfies
+    them; empty (z0 > z1) when none does."""
+
+    planes: np.ndarray
+    box: Tuple[int, int, int, int, int, int]
+
+    @property
+    def empty(self) -> bool:
+        return self.box[0] > self.box[1]
+
+
+def _frustum_planes(shape, image_hw, m, intrinsics, cfg: FusionConfig) -> np.ndarray:
+    """The six planes of :class:`FrustumCull`, in float64 from the float32
+    map ``m`` that K8 uses. Why every voxel K8 changes satisfies them: it has
+    computed p = (px, py, pz), each within eps of m (x, y, z, 1) (six float32
+    roundings of partial sums bounded by S, the sum of |m[r]| over the grid's
+    extent: eps = 8 2^-24 S); 0 < pz (in_img) and pz < d + trunc <= zmax (free
+    space needs pz < d <= depth_max, the update d - pz > -trunc); and u = rint(fx
+    px / safe_z + mx) in [0, W - 1], so fx px / pz + mx, rounded three times,
+    lies within 1e-3 px of [-0.5, W - 0.5] and so in [ulo, uhi] with the pixel
+    margin; times pz > 0: fx px + (mx - ulo) pz >= 0 and (uhi - mx) pz - fx px
+    >= 0 (with 0 < pz <= 1e-9, safe_z = 1e-9 and the two are off by at most
+    (2 |mx| + W + 3) 1e-9). Replacing p by the exact m (x, y, z, 1) moves each
+    by at most its coefficients times eps, which the planes add (mu). Likewise
+    for v. Each plane is then divided by |a| (a positive factor: the same
+    half-space, up to a float64 rounding that the walk's floor and ceil
+    absorb), so that K8 solves it for x without a division."""
+    H, W = image_hw
+    Z, Y, X = shape
+    m = np.asarray(m, np.float32).astype(np.float64)
+    fx, fy, mx, my = (float(v) for v in _host(intrinsics)[:4])
+    f32 = lambda v: float(np.float32(v))
+    s = np.abs(m[:3, :3]) @ np.array([X - 1, Y - 1, Z - 1], np.float64) + np.abs(m[:3, 3])
+    eps = 8.0 * 2.0 ** -24 * float(s.max())
+    dmax, vs = f32(cfg.depth_max), f32(cfg.voxelsize)
+    zmax = (dmax + f32(cfg.truncation_m) + dmax * vs) * (1.0 + 2.0 ** -20)
+    g = CULL_PIXEL_MARGIN
+    planes = [m[2] + [0, 0, 0, eps], -m[2] + [0, 0, 0, zmax + eps]]
+    for f, c, n, row in ((fx, mx, W, m[0]), (fy, my, H, m[1])):
+        lo, hi = -0.5 - g, n - 0.5 + g
+        mu = (abs(f) + abs(c) + n + 2.0) * eps + (2.0 * abs(c) + n + 3.0) * 1e-9
+        planes.append(f * row + (c - lo) * m[2] + [0, 0, 0, mu])
+        planes.append(-f * row + (hi - c) * m[2] + [0, 0, 0, mu])
+    planes = np.array(planes, np.float64)
+    a = np.abs(planes[:, :1])
+    return np.where(a > 0, planes / np.where(a > 0, a, 1.0), planes)
+
+
+def row_intervals(planes: np.ndarray, shape):
+    """Per grid row (z, y): the x interval [x0, x1] that K8 walks, computed
+    as the kernel computes it, in float64 in the same order (x0 > x1: none):
+    from [0, X - 1], per plane with r = (b y + c z) + e, x >= -r where a = 1,
+    x <= r where a = -1, nothing where a = 0 and r < 0; then floor and ceil,
+    which also absorb float64 rounding. Returns two (Z, Y) int64 arrays."""
+    Z, Y, X = shape
+    zz, yy = np.meshgrid(np.arange(Z, dtype=np.float64), np.arange(Y, dtype=np.float64),
+                         indexing="ij")
+    lo = np.zeros((Z, Y))
+    hi = np.full((Z, Y), float(X - 1))
+    for a, b, c, e in planes:
+        r = (b * yy + c * zz) + e
+        if a > 0:
+            lo = np.fmax(lo, -r)
+        elif a < 0:
+            hi = np.fmin(hi, r)
+        else:
+            hi = np.where(r < 0, -1.0, hi)
+    x0 = np.where(lo <= X - 1, np.floor(lo), X).astype(np.int64)
+    x1 = np.where(hi >= 0, np.ceil(hi), -1).astype(np.int64)
+    return x0, x1
+
+
+# the 220 triples of the 12 planes (6 of the frustum, 6 of the grid's faces)
+_TRIPLES = np.array([t for t in itertools.combinations(range(12), 3)])
+
+
+def _box_of(planes: np.ndarray, shape):
+    """The box (z0, z1, y0, y1, x0, x1) of the points of the grid's extent
+    that satisfy ``planes``: the bounds of the polytope's vertices, each the
+    solution of three of the 12 planes (Cramer's rule in float64; parallel
+    triples have none) that satisfies all of them within a relative 1e-7
+    (an infeasible vertex let in only widens the box), widened by a voxel;
+    None when no vertex is found (the polytope is empty, or its vertices
+    were lost to rounding: the caller then walks the rows)."""
+    Z, Y, X = shape
+    faces = np.array([[1, 0, 0, 0], [-1, 0, 0, X - 1], [0, 1, 0, 0], [0, -1, 0, Y - 1],
+                      [0, 0, 1, 0], [0, 0, -1, Z - 1]], np.float64)
+    allp = np.concatenate([planes, faces])
+    n, e = allp[:, :3], -allp[:, 3]  # n v = e on each plane
+    cross = np.cross(n[:, None], n[None])  # (12, 12, 3)
+    i, j, k = _TRIPLES.T
+    det = (n[i] * cross[j, k]).sum(axis=1)
+    ok = det != 0
+    i, j, k, det = i[ok], j[ok], k[ok], det[ok]
+    v = (e[i, None] * cross[j, k] + e[j, None] * cross[k, i] + e[k, None] * cross[i, j]
+         ) / det[:, None]
+    val = v @ allp[:, :3].T + allp[:, 3]
+    scale = np.abs(v) @ np.abs(allp[:, :3]).T + np.abs(allp[:, 3]) + 1.0
+    v = v[(val >= -1e-7 * scale).all(axis=1) & np.isfinite(v).all(axis=1)]
+    if not len(v):
+        return None
+    lo = np.maximum(np.floor(v.min(axis=0)) - 1, 0).astype(int)
+    hi = np.minimum(np.ceil(v.max(axis=0)) + 1, [X - 1, Y - 1, Z - 1]).astype(int)
+    return int(lo[2]), int(hi[2]), int(lo[1]), int(hi[1]), int(lo[0]), int(hi[0])
+
+
+def frustum_cull(shape, image_hw, intrinsics, cam2world, world2grid,
+                 cfg: FusionConfig) -> FrustumCull:
+    """The voxels of a (Z, Y, X) grid that a frame of ``image_hw`` (H, W)
+    can change (:class:`FrustumCull`), found on the host."""
+    m = voxel_to_camera(cam2world, world2grid)
+    planes = _frustum_planes(shape, image_hw, m, intrinsics, cfg)
+    box = _box_of(planes, shape)
+    if box is None:
+        x0, x1 = row_intervals(planes, shape)
+        rows = x0 <= x1
+        if not rows.any():
+            return FrustumCull(planes, (0, -1, 0, -1, 0, -1))
+        zs, ys = np.nonzero(rows.any(axis=1))[0], np.nonzero(rows.any(axis=0))[0]
+        box = (int(zs[0]), int(zs[-1]), int(ys[0]), int(ys[-1]), int(x0[rows].min()),
+               int(x1[rows].max()))
+    return FrustumCull(planes, box)
 
 
 # 1 / 3.6 in float32: XLA turns the reference's division by the constant 3.6
@@ -218,8 +357,9 @@ def _library() -> ctypes.CDLL:
     if lib is None:
         lib = _build.load("tsdf")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.spsg_tsdf_integrate.restype = i
-        lib.spsg_tsdf_integrate.argtypes = [p] * 6 + [ctypes.c_longlong] + [i] * 5 + [p, p]
+        lib.spsg_tsdf_integrate_culled.restype = i
+        lib.spsg_tsdf_integrate_culled.argtypes = (
+            [p] * 6 + [ctypes.c_longlong] + [i] * 5 + [p, p] + [i] * 4 + [p])
         _libs["tsdf"] = lib
     return lib
 
@@ -253,7 +393,9 @@ def integrate(grid: Dict[str, torch.Tensor], depth: torch.Tensor,
     [0, 255] or None, looked up with the depth image's flat index clipped to
     its own length; ``intrinsics`` (fx, fy, mx, my), ``cam2world`` and
     ``world2grid`` (4, 4) on the host or the device. A CUDA grid launches K8
-    (a failed build or launch raises), a CPU grid takes :func:`integrate_plain`."""
+    over :func:`frustum_cull`'s rows (a failed build or launch raises; a
+    frame that can change no voxel launches it over none), a CPU grid takes
+    :func:`integrate_plain`."""
     sdf = grid["sdf"]
     if sdf.device.type == "cpu":
         return integrate_plain(grid, depth, color, intrinsics, cam2world, world2grid, cfg)
@@ -262,14 +404,17 @@ def integrate(grid: Dict[str, torch.Tensor], depth: torch.Tensor,
     _check(grid, depth, color)
     Z, Y, X = sdf.shape
     H, W = depth.shape
-    params = (ctypes.c_float * 20)(*_frame_params(intrinsics, cam2world, world2grid, cfg))
+    params = _frame_params(voxel_to_camera(cam2world, world2grid), intrinsics, cfg)
+    cull = frustum_cull((Z, Y, X), (H, W), intrinsics, cam2world, world2grid, cfg)
+    planes = np.ascontiguousarray(cull.planes)
+    z0, z1, y0, y1 = cull.box[:4]
     n_rgb = 0 if color is None else color.numel() // 3
     with torch.cuda.device(sdf.device):
-        err = _library().spsg_tsdf_integrate(
+        err = _library().spsg_tsdf_integrate_culled(
             sdf.data_ptr(), grid["weight"].data_ptr(), grid["color"].data_ptr(),
             grid["free_ctr"].data_ptr(), depth.data_ptr(),
             None if color is None else color.data_ptr(), n_rgb, Z, Y, X, H, W,
-            ctypes.cast(params, ctypes.c_void_p),
+            params.ctypes.data, planes.ctypes.data, z0, z1, y0, y1,
             torch.cuda.current_stream(sdf.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"tsdf_integrate: CUDA launch failed with error {err} for "

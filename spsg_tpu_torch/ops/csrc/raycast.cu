@@ -90,22 +90,62 @@
 // more than one pixel are not bitwise repeatable (a few ulps). Bound: bytes
 // (the gradients written once, the cotangents read once).
 //
-// K7 raycast_occ_kernel: does any lattice sample of the ray lie in an
-// occupied voxel (the reference's raycast_occ_cuda_kernel, a binary image for
-// the missing-colour weights). One thread per ray, a warp an 8x4 pixel tile
-// (tile_pixel, as K4). The ray set-up is the march's (ops/raycast.py
+// K7, two launches: does any lattice sample of the ray lie in an occupied
+// voxel (the reference's raycast_occ_cuda_kernel, a binary image for the
+// missing-colour weights). The ray set-up is the march's (ops/raycast.py
 // march_setup on the occupied voxels: their box, t0 snapped to the lattice,
 // t_stop); samples t_k = t0 + k * step for k = 0, 1, ... while t_k <= t_stop
-// and k < k_max, each the nearest voxel floor(p + 0.5) of p = o + t_k * d,
+// and k < k_max, each the nearest voxel v = floor(p + 0.5) of p = o + t_k * d,
 // looked up in the occupancy bytes (a bool tensor as it is) where it lies in
-// the grid; the first occupied one ends the ray with a 1. The JAX package
-// walks the same samples in lockstep blocks with a coarse skip that is exact
-// (tests/test_raycast.py::test_raycast_occ_skip_matches_plain), so a walk of
-// every sample gives its image. Rounding as in the plain version (-fmad=false:
-// k * step, t0 + ., t * d, o + ., + 0.5 each rounded once). Bound: the grid
-// read once, the set-up and the image; or the samples up to each ray's first
-// occupied one at ~20 float32 operations each. The walk reads a byte a sample,
-// neighbouring lanes neighbouring voxels.
+// the grid; the first occupied one ends the ray with a 1. Rounding as in the
+// plain version (-fmad=false: k * step, t0 + ., t * d, o + ., + 0.5 each
+// rounded once), so every sample is the voxel occ_march_plain reads.
+//   raycast_occ_map_kernel, one block per (batch row, coarse z, coarse y) of
+//   a map of 8^3 coarse blocks with a ring of one block around the grid
+//   (block c in [-1, nb] on each axis): its flag is set when an occupied voxel
+//   lies within one voxel of the block, in [8c - 1, 8c + 8] on every axis (the
+//   block dilated by one voxel). It ORs the region's ten-by-ten rows into one
+//   byte per x (16 voxels a load where rows are 16-byte aligned), then each
+//   flag ORs its ten x. A first version (a byte a load, two integer divisions
+//   per voxel) took 0.017 ms at the training step's (2,128,64,64) on an NVIDIA
+//   H100 80GB HBM3 at 700 W, more than the march it serves.
+//   raycast_occ_kernel, one thread per ray, a warp an 8x4 pixel tile
+//   (tile_pixel, as K4). At sample k it computes v and its block c =
+//   floor(v / 8). Where c's flag is 0 (or c lies beyond the ring, where no
+//   voxel of the grid is within one voxel) the ray hops: from c's box
+//   [8c - 0.5, 8c + 7.5) (the points whose nearest voxel is in c) it steps,
+//   as a 3D DDA does, into the block behind the nearest exit face (x, then y,
+//   on a tie), up to kHopBlocks times, while that block's flag is 0, and then
+//   skips every sample up to the last box's exit t_exit in one step: k <-
+//   floor((min(t_exit, t_stop) - t0) / step) + 1, at least k + 1, at most
+//   k_max, then lowered while t_{k-1} > t_stop so that the exit index stays
+//   the plain version's. Where the flag is 1 it evaluates kGroup samples
+//   k .. k + kGroup - 1 at once (all loads issued before any test) and takes
+//   the first occupied one. The time of a launch is that of its longest rays
+//   (a chain of dependent steps each), so the hop passes many empty blocks a
+//   step and the group takes many samples a load round trip.
+// Why no skipped sample can be occupied: sample k lies in c's box, and the
+// ray from it to t_exit runs through the boxes the hop visited, so every
+// skipped sample, t_k <= t_exit, lies in one of them but for rounding.
+// t_exit, the lattice and the positions each carry a few float32 roundings
+// of relative size 2^-24 of t and |o|, so below 1/4 voxel where both are
+// below 2^18, as a hop requires (a ray beyond takes the group path; at the
+// path's shape the errors are ~1e-4 voxel). Where the ray passes within
+// rounding of an edge or corner, the DDA may visit the neighbour on one side
+// and the ray's exact path the one on the other, but the exact path then
+// stays within rounding of the visited boxes. A position within 1 voxel of a
+// visited box has its nearest voxel in [8c - 1, 8c + 8] of that box, which
+// its dilated flag covers, so that voxel is empty. Rays parallel to an axis
+// never leave a box through it (that axis gives t = inf). `samples` (per
+// ray, the lattice index at exit: the first occupied sample + 1, or the
+// first k beyond t_stop or the cap) is the plain version's, since a hop
+// never passes t_stop's index or the cap; `evaluated` counts the samples
+// whose voxel was loaded (a group's samples in the grid, also those past its
+// first occupied one), the work figure.
+// Bound: the grid read once, the set-up and the image; or, at ~20 float32
+// operations each, the samples up to each ray's first occupied one whose
+// (undilated) coarse block holds an occupied voxel (counted in chip_smoke.py
+// from the plain version); an earlier bound counted every sample to the exit.
 
 #include <cuda_runtime.h>
 
@@ -121,6 +161,9 @@ constexpr int kChannels = 3 + 3 + kClasses + 1;
 constexpr int kEdge = 8;  // coarse block edge in voxels (ops/raycast.py COARSE_BLOCK)
 constexpr int kCellWords = kEdge * kEdge * kEdge / 32;  // a block's cell bits in words
 constexpr int kTileX = 8, kTileY = 4;  // a warp's pixels
+constexpr int kGroup = 8;  // K7: samples evaluated at once where a block is walked
+constexpr int kHopBlocks = 32;  // K7: blocks a hop may pass beyond the first
+constexpr float kHopLimit = 262144.f;  // K7 hops only where t and |o| are below 2^18
 // K5's block: consecutive flat pixels and threads; 64 x 64 was the fastest
 // of 32 to 1024 pixels and 1/4 to 2 threads a pixel on an NVIDIA H100 80GB
 // HBM3 at 700 W (PERF.md)
@@ -544,38 +587,170 @@ __global__ void __launch_bounds__(kThreads) raycast_scatter_finalize_kernel(
   }
 }
 
+// K7's map: one block per (b, gz, gy), the ring included (gz in [-1, nbz],
+// gy in [-1, nby]); dynamic shared memory of X bytes, rounded up to words.
+__global__ void __launch_bounds__(kThreads) raycast_occ_map_kernel(
+    const uint8_t* __restrict__ occ, uint8_t* __restrict__ map, int Z, int Y, int X, int nbz,
+    int nby, int nbx) {
+  extern __shared__ uint32_t col_words[];
+  uint8_t* col = reinterpret_cast<uint8_t*>(col_words);  // per x: an occupied voxel in the rows
+  int r = blockIdx.x;
+  const int gy = r % (nby + 2) - 1;
+  r /= nby + 2;
+  const int gz = r % (nbz + 2) - 1;
+  const int b = r / (nbz + 2);
+  const uint8_t* g = occ + (long long)b * Z * Y * X;
+  // the rows within one voxel of the block's planes, clipped to the grid
+  const int z0 = max(kEdge * gz - 1, 0), z1 = min(kEdge * gz + kEdge, Z - 1);
+  const int y0 = max(kEdge * gy - 1, 0), y1 = min(kEdge * gy + kEdge, Y - 1);
+  const int ny = y1 - y0 + 1;
+  const int rows = z1 < z0 || ny <= 0 ? 0 : (z1 - z0 + 1) * ny;
+  for (int i = threadIdx.x; i < (X + 3) / 4; i += blockDim.x) col_words[i] = 0;
+  __syncthreads();
+  if (X % 16 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0) {
+    // 16 voxels a load; a row's loads side by side
+    const int nc = X / 16;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < rows * nc; e += blockDim.x) {
+      const int row = e / nc, c = e - row * nc;
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(
+                                g + ((long long)(z0 + row / ny) * Y + y0 + row % ny) * X) + c);
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (w[q])
+          for (int j = 0; j < 4; ++j)
+            if ((w[q] >> (8 * j)) & 0xffu) col[16 * c + 4 * q + j] = 1;
+    }
+  } else {
+#pragma unroll 4
+    for (int e = threadIdx.x; e < rows * X; e += blockDim.x) {
+      const int row = e / X, x = e - row * X;
+      if (__ldg(g + ((long long)(z0 + row / ny) * Y + y0 + row % ny) * X + x)) col[x] = 1;
+    }
+  }
+  __syncthreads();
+  uint8_t* out = map + ((long long)(b * (nbz + 2) + gz + 1) * (nby + 2) + gy + 1) * (nbx + 2);
+  for (int c = (int)threadIdx.x - 1; c <= nbx; c += blockDim.x) {
+    const int x0 = max(kEdge * c - 1, 0), x1 = min(kEdge * c + kEdge, X - 1);
+    uint8_t any = 0;
+    for (int x = x0; x <= x1; ++x) any |= col[x];
+    out[c + 1] = any;
+  }
+}
+
+// The ray length at which p = o + t d leaves [8c - 0.5, 8c + 7.5) on one
+// axis: inf where d is 0 (the ray never leaves through it)
+__device__ __forceinline__ float face_t(float c, float o, float d, float inv) {
+  if (d > 0.f) return (kEdge * c + (kEdge - 0.5f) - o) * inv;
+  if (d < 0.f) return (kEdge * c - 0.5f - o) * inv;
+  return INFINITY;
+}
+
+// The flag of block (cx, cy, cz) of K7's map (0 beyond the ring)
+__device__ __forceinline__ bool occ_flag(const uint8_t* __restrict__ map, float cx, float cy,
+                                         float cz, int nbx, int nby, int nbz) {
+  return cx >= -1.f && cy >= -1.f && cz >= -1.f && cx <= (float)nbx && cy <= (float)nby &&
+         cz <= (float)nbz &&
+         __ldg(map + ((int)(cz + 1.f) * (nby + 2) + (int)(cy + 1.f)) * (nbx + 2) +
+               (int)(cx + 1.f));
+}
+
 __global__ void raycast_occ_kernel(
-    const uint8_t* __restrict__ occ, const float* __restrict__ origin,
-    const float* __restrict__ dir, const float* __restrict__ t0s,
-    const float* __restrict__ t_stops, uint8_t* __restrict__ hit_out, int* __restrict__ samples_out,
-    int B, int Z, int Y, int X, int P, int W, float step, int k_max) {
+    const uint8_t* __restrict__ occ, const uint8_t* __restrict__ map,
+    const float* __restrict__ origin, const float* __restrict__ dir,
+    const float* __restrict__ t0s, const float* __restrict__ t_stops,
+    uint8_t* __restrict__ hit_out, int* __restrict__ samples_out,
+    int* __restrict__ evaluated_out, int B, int Z, int Y, int X, int P, int W, float step,
+    int k_max) {
   const long long ray = tile_pixel(B, P, W);
   if (ray < 0) return;
   const int b = (int)(ray / P);
+  const int nbz = (Z + kEdge - 1) / kEdge, nby = (Y + kEdge - 1) / kEdge,
+            nbx = (X + kEdge - 1) / kEdge;
   occ += (long long)b * Z * Y * X;
+  map += (long long)b * (nbz + 2) * (nby + 2) * (nbx + 2);
   const float ox = origin[3 * b], oy = origin[3 * b + 1], oz = origin[3 * b + 2];
   const float dx = dir[3 * ray], dy = dir[3 * ray + 1], dz = dir[3 * ray + 2];
+  // 1 / d rounded once (as 1.f / d) and, per axis, the step of a hop and the
+  // offset of the exit face from 8c
+  const float ix = __frcp_rn(dx), iy = __frcp_rn(dy), iz = __frcp_rn(dz);
+  const int sx = dx > 0.f ? 1 : -1, sy = dy > 0.f ? 1 : -1, sz = dz > 0.f ? 1 : -1;
+  const float fx_off = dx > 0.f ? kEdge - 0.5f : -0.5f, fy_off = dy > 0.f ? kEdge - 0.5f : -0.5f,
+              fz_off = dz > 0.f ? kEdge - 0.5f : -0.5f;
   const float t0 = t0s[ray], t_stop = t_stops[ray];
+  const bool o_ok = fabsf(ox) < kHopLimit && fabsf(oy) < kHopLimit && fabsf(oz) < kHopLimit;
   uint8_t hit = 0;
-  int k = 0;
-  for (; k < k_max; ++k) {
+  int k = 0, evaluated = 0;
+  while (k < k_max) {
     const float t = t0 + (float)k * step;
     if (!(t <= t_stop)) break;
-    // the nearest voxel; compared as floats, so no out-of-range conversion
-    const float fx = floorf(ox + t * dx + 0.5f);
-    const float fy = floorf(oy + t * dy + 0.5f);
-    const float fz = floorf(oz + t * dz + 0.5f);
-    if (fx >= 0.f && fy >= 0.f && fz >= 0.f && fx < (float)X && fy < (float)Y &&
-        fz < (float)Z &&
-        __ldg(occ + ((long long)(int)fz * Y + (int)fy) * X + (int)fx)) {
+    float cx = floorf(floorf(ox + t * dx + 0.5f) * 0.125f);
+    float cy = floorf(floorf(oy + t * dy + 0.5f) * 0.125f);
+    float cz = floorf(floorf(oz + t * dz + 0.5f) * 0.125f);
+    if (!occ_flag(map, cx, cy, cz, nbx, nby, nbz) && o_ok && t < kHopLimit) {
+      // a hop: past c's box, then past each next block along the ray (the
+      // axis of the nearest face; x, then y, on a tie) while its flag is 0.
+      // Block indices as ints (|c| < 2^16 here), the axis chosen by selects:
+      // the step is the hot loop of an empty grid
+      int bx = (int)cx, by = (int)cy, bz = (int)cz;
+      float tx = face_t(cx, ox, dx, ix), ty = face_t(cy, oy, dy, iy),
+            tz = face_t(cz, oz, dz, iz);
+      float t_exit = fminf(fminf(tx, ty), tz);  // fminf drops a NaN of 0 * inf
+      for (int s = 0; s < kHopBlocks && t_exit <= t_stop; ++s) {
+        const bool ax = tx == t_exit, ay = !ax && ty == t_exit, az = !ax && !ay;
+        const int nx = bx + (ax ? sx : 0), ny = by + (ay ? sy : 0), nz = bz + (az ? sz : 0);
+        if ((unsigned)(nx + 1) <= (unsigned)(nbx + 1) && (unsigned)(ny + 1) <= (unsigned)(nby + 1) &&
+            (unsigned)(nz + 1) <= (unsigned)(nbz + 1) &&
+            __ldg(map + ((nz + 1) * (nby + 2) + ny + 1) * (nbx + 2) + nx + 1))
+          break;
+        bx = nx, by = ny, bz = nz;
+        // face_t of the axis stepped (its d is not 0)
+        const float c = (float)(ax ? bx : ay ? by : bz);
+        const float tn = (kEdge * c + (ax ? fx_off : ay ? fy_off : fz_off) - (ax ? ox : ay ? oy : oz)) *
+                         (ax ? ix : ay ? iy : iz);
+        tx = ax ? tn : tx;
+        ty = ay ? tn : ty;
+        tz = az ? tn : tz;
+        t_exit = fminf(fminf(tx, ty), tz);
+      }
+      const float kf = fmaxf(floorf((fminf(t_exit, t_stop) - t0) / step) + 1.f, (float)(k + 1));
+      int kn = kf < (float)k_max ? (int)kf : k_max;
+      while (kn - 1 > k && !(t0 + (float)(kn - 1) * step <= t_stop)) --kn;
+      k = kn;
+      continue;
+    }
+    // a group: positions and loads first, then the first occupied sample
+    uint8_t got[kGroup];
+    int taken = 0;
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      const float tj = t0 + (float)(k + j) * step;
+      const bool take = k + j < k_max && tj <= t_stop;
+      const float fx = floorf(ox + tj * dx + 0.5f);
+      const float fy = floorf(oy + tj * dy + 0.5f);
+      const float fz = floorf(oz + tj * dz + 0.5f);
+      const bool load = take && fx >= 0.f && fy >= 0.f && fz >= 0.f && fx < (float)X &&
+                        fy < (float)Y && fz < (float)Z;
+      got[j] = load ? __ldg(occ + ((long long)(int)fz * Y + (int)fy) * X + (int)fx) : 0;
+      taken += take;
+      evaluated += load;
+    }
+    int first = kGroup;
+#pragma unroll
+    for (int j = kGroup - 1; j >= 0; --j)
+      if (got[j]) first = j;
+    if (first < kGroup) {
       hit = 1;
-      ++k;
+      k += first + 1;
       break;
     }
+    k += taken;
+    if (taken < kGroup) break;
   }
   hit_out[ray] = hit;
-  // the samples taken (the occupied one included), for measuring the work
   if (samples_out) samples_out[ray] = k;
+  if (evaluated_out) evaluated_out[ray] = evaluated;
 }
 
 unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
@@ -653,16 +828,23 @@ int spsg_raycast_scatter(const float* g_color, const float* g_normal, const floa
   return (int)cudaGetLastError();
 }
 
-// `occ` (B, Z, Y, X) bytes, 0 = empty; `samples` may be null.
-int spsg_raycast_occ(const uint8_t* occ, const float* origin, const float* dir,
-                     const float* t0, const float* t_stop, uint8_t* hit, int* samples, int B,
-                     int Z, int Y, int X, int P, int W, float step, int k_max,
-                     cudaStream_t stream) {
+// K7. `occ` (B, Z, Y, X) bytes, 0 = empty; `map` (B, nbz + 2, nby + 2,
+// nbx + 2) bytes, nb = ceil(dim / 8), written here (the dilated block flags,
+// ring included); `samples` and `evaluated` may be null.
+int spsg_raycast_occ_hop(const uint8_t* occ, const float* origin, const float* dir,
+                         const float* t0, const float* t_stop, uint8_t* map, uint8_t* hit,
+                         int* samples, int* evaluated, int B, int Z, int Y, int X, int P, int W,
+                         float step, int k_max, cudaStream_t stream) {
   if (B <= 0 || P <= 0 || W <= 0 || P % W != 0 || Z < 1 || Y < 1 || X < 1 ||
-      (long long)Z * Y * X >= (1LL << 31))
+      (long long)Z * Y * X >= (1LL << 31) || X > 48 * 1024)
     return (int)cudaErrorInvalidValue;
+  const int nbz = (Z + kEdge - 1) / kEdge, nby = (Y + kEdge - 1) / kEdge;
+  raycast_occ_map_kernel<<<(unsigned)((long long)B * (nbz + 2) * (nby + 2)), kThreads,
+                           (X + 3) / 4 * 4, stream>>>(occ, map, Z, Y, X, nbz, nby, (X + kEdge - 1) / kEdge);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   raycast_occ_kernel<<<blocks_for((long long)B * tiles_for(P, W) * 32), kThreads, 0, stream>>>(
-      occ, origin, dir, t0, t_stop, hit, samples, B, Z, Y, X, P, W, step, k_max);
+      occ, map, origin, dir, t0, t_stop, hit, samples, evaluated, B, Z, Y, X, P, W, step, k_max);
   return (int)cudaGetLastError();
 }
 

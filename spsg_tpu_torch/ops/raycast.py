@@ -37,11 +37,16 @@ replaces a Pallas kernel (the JAX package left the raycaster to XLA):
     averaged scatter of the backward: the first pixel to hit a voxel owns it,
     every pixel of the voxel adds into the owner's row, and one pass over the
     voxels writes each gradient once, divided by the count;
-  * :func:`occ_march` (K7, ``raycast_occ_kernel``), behind :func:`raycast_occ`:
-    the binary occupancy image of the missing-colour weights, one thread per
-    ray walking the lattice to its first sample whose nearest voxel is
-    occupied (the JAX package's lockstep loop would read "is any ray still
-    marching" back to the host at every round).
+  * :func:`occ_march` (K7, ``raycast_occ_map_kernel`` + ``raycast_occ_kernel``),
+    behind :func:`raycast_occ`: the binary occupancy image of the
+    missing-colour weights. A pre-pass flags every 8^3 coarse block (and a
+    ring of blocks around the grid) that has an occupied voxel within one
+    voxel (:func:`occ_skip_map_plain`); then one thread per ray hops over
+    each unflagged block in one step and walks the others eight samples at a
+    time, to its first sample whose nearest voxel is occupied
+    (:func:`occ_march_work_plain` is its loop in lockstep). The JAX
+    package's lockstep loop would read "is any ray still marching" back to
+    the host at every round.
 
 Each has its plain PyTorch version beside it (``*_plain``). Dispatch is by
 where the tensors live and by nothing else: a CUDA tensor launches the kernel
@@ -71,8 +76,14 @@ NUM_CLASSES = 14
 # gradient channels of the scatter: colour 3, normal 3, semantic 14, depth 1;
 # then the count of hitting pixels
 N_GRAD = 3 + 3 + NUM_CLASSES + 1
-# edge in voxels of K4's coarse blocks (kEdge in csrc/raycast.cu)
+# edge in voxels of K4's and K7's coarse blocks (kEdge in csrc/raycast.cu)
 COARSE_BLOCK = 8
+# K7: samples evaluated at once where a block is walked (kGroup), blocks a
+# hop may pass beyond the first (kHopBlocks), and the bound on t and |origin|
+# below which a ray may hop (kHopLimit)
+OCC_GROUP = 8
+OCC_HOP_BLOCKS = 32
+OCC_HOP_LIMIT = 2.0 ** 18
 # floats in K6's per-pixel row of sums: 21 channels, the count, padding (kRow)
 SCATTER_ROW = 24
 
@@ -227,9 +238,10 @@ def march_setup(valid, view, intrinsics, cfg: RaycastConfig) -> MarchSetup:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Argument types of a library built from ``csrc/raycast.cu``. K7
-    (``spsg_raycast_occ``) is bound where the library has it, so that an
-    older ``raycast.cu`` without it binds too (``chip_smoke.py
+    """Argument types of a library built from ``csrc/raycast.cu``. K7's
+    entry (``spsg_raycast_occ_hop``, and the one-sample walk
+    ``spsg_raycast_occ`` of older sources) is bound where the library has it,
+    so that an older ``raycast.cu`` binds too (``chip_smoke.py
     --baseline-raycast-source``)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.spsg_raycast_march.restype = i
@@ -241,6 +253,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     if hasattr(lib, "spsg_raycast_occ"):
         lib.spsg_raycast_occ.restype = i
         lib.spsg_raycast_occ.argtypes = [p] * 7 + [i] * 6 + [f, i, p]
+    if hasattr(lib, "spsg_raycast_occ_hop"):
+        lib.spsg_raycast_occ_hop.restype = i
+        lib.spsg_raycast_occ_hop.argtypes = [p] * 9 + [i] * 6 + [f, i, p]
     return lib
 
 
@@ -677,31 +692,198 @@ def scatter_plain(g_color, g_normal, g_semantic, g_depth, hit, hit_idx, n_voxels
 # ---------------------------------------------------------------------------
 
 
+def occ_skip_map_shape(occ_shape):
+    """(B, nbz + 2, nby + 2, nbx + 2): K7's block map, a ring included."""
+    B, Z, Y, X = occ_shape
+    return (B,) + tuple(n + 2 for n in _coarse_dims(Z, Y, X))
+
+
 def occ_march(occ: torch.Tensor, setup: MarchSetup, cfg: RaycastConfig,
-              samples: Optional[torch.Tensor] = None) -> torch.Tensor:
+              samples: Optional[torch.Tensor] = None, evaluated: Optional[torch.Tensor] = None,
+              block_map: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per ray, 1 if a lattice sample ``t0 + k * ray_increment`` (k = 0
     first, up to ``t_stop`` and at most ``cfg.max_samples``) has an occupied
     nearest voxel: (B,P) uint8. occ (B,Z,Y,X) bool. CUDA tensors go to the
     kernel (K7), CPU tensors to :func:`occ_march_plain`; the two agree on
     every pixel. On a card, int32 (B,P) ``samples`` receives per ray the
-    samples taken (to measure the work; :func:`occ_march_plain` counts them
-    too)."""
+    lattice index at exit (as :func:`occ_march_plain` counts it),
+    ``evaluated`` the samples whose voxel the kernel loaded, and uint8
+    ``block_map`` (:func:`occ_skip_map_shape`) the pre-pass's map (else
+    scratch); :func:`occ_march_work_plain` gives all three."""
     if _device_kind(occ, "raycast_occ") == "cpu":
         return occ_march_plain(occ, setup, cfg)
     B, Z, Y, X = occ.shape
     P = setup.t0.shape[1]
     if P % cfg.width:
         raise ValueError(f"raycast_occ: {P} rays a row is not a multiple of width {cfg.width}")
-    _check_cuda("raycast_occ", occ, *setup)
+    for name, t, dt, shape in (("samples", samples, torch.int32, (B, P)),
+                               ("evaluated", evaluated, torch.int32, (B, P)),
+                               ("block_map", block_map, torch.uint8,
+                                occ_skip_map_shape(occ.shape))):
+        if t is not None and (t.dtype != dt or tuple(t.shape) != shape):
+            raise ValueError(f"raycast_occ: {name} must be {dt} {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    _check_cuda("raycast_occ", occ, *setup, samples, evaluated, block_map)
+    if block_map is None:
+        block_map = torch.empty(occ_skip_map_shape(occ.shape), dtype=torch.uint8,
+                                device=occ.device)
     hit = torch.empty((B, P), dtype=torch.uint8, device=occ.device)
     with torch.cuda.device(occ.device):
-        err = _library().spsg_raycast_occ(
+        err = _library().spsg_raycast_occ_hop(
             occ.data_ptr(), setup.origin.data_ptr(), setup.direction.data_ptr(),
-            setup.t0.data_ptr(), setup.t_stop.data_ptr(), hit.data_ptr(), _ptr(samples),
+            setup.t0.data_ptr(), setup.t_stop.data_ptr(), block_map.data_ptr(),
+            hit.data_ptr(), _ptr(samples), _ptr(evaluated),
             B, Z, Y, X, P, cfg.width, cfg.ray_increment, cfg.max_samples, _stream(occ))
     _raise_on(err, "raycast_occ", occ.shape)
     launch_counts["raycast_occ"] += 1
     return hit
+
+
+def occ_blocks_plain(occ):
+    """(B, nbz, nby, nbx) bool: the COARSE_BLOCK^3 block holds an occupied
+    voxel (ceil(dim / COARSE_BLOCK) blocks an axis)."""
+    B, Z, Y, X = occ.shape
+    nb = _coarse_dims(Z, Y, X)
+    e = COARSE_BLOCK
+    grid = torch.zeros((B,) + tuple(n * e for n in nb), dtype=torch.bool, device=occ.device)
+    grid[:, :Z, :Y, :X] = occ
+    return grid.reshape(B, nb[0], e, nb[1], e, nb[2], e).any(dim=6).any(dim=4).any(dim=2)
+
+
+def occ_skip_map_plain(occ):
+    """Plain PyTorch version of K7's pre-pass: (B, nbz + 2, nby + 2, nbx + 2)
+    bool, entry c + 1 for the coarse block c in [-1, nb] of each axis (a ring
+    around the grid), set when an occupied voxel lies in [8c - 1, 8c + 8] on
+    every axis: the block dilated by one voxel. A sample whose nearest voxel
+    lies in an unset block, or in a block beyond the ring, cannot hit, nor can
+    any sample within one voxel of that block (the hop's margin)."""
+    B, Z, Y, X = occ.shape
+    e = COARSE_BLOCK
+    shape = occ_skip_map_shape(occ.shape)
+    grid = torch.zeros((B, 1) + tuple(n * e for n in shape[1:]), dtype=torch.float32,
+                       device=occ.device)
+    grid[:, 0, e:e + Z, e:e + Y, e:e + X] = occ.float()
+    near = torch.nn.functional.max_pool3d(grid, 3, stride=1, padding=1)[:, 0] > 0
+    return near.reshape(B, shape[1], e, shape[2], e, shape[3], e).any(dim=6).any(dim=4).any(dim=2)
+
+
+def _occ_voxels(o, d, t):
+    """The nearest voxel floor(o + t d + 0.5) on each axis, rounded as K7 does."""
+    return [torch.floor(oi + t * di + 0.5) for oi, di in zip(o, d)]
+
+
+def occ_march_work_plain(occ, setup: MarchSetup, cfg: RaycastConfig):
+    """K7's loop in plain PyTorch, all rays in lockstep (any device; a host
+    read a round): per ray ``hit``, ``samples`` (the lattice index at exit)
+    and ``evaluated`` (the samples whose voxel K7 loads) as the kernel
+    computes them, each (B,P) int64 (hit bool): at sample k, where its block
+    is unflagged in :func:`occ_skip_map_plain`, a hop past that block's box
+    and past each next block the ray enters while that one is unflagged (at
+    most OCC_HOP_BLOCKS more), to the first sample beyond (at most the cap,
+    and no further than t_stop's index); else a group of OCC_GROUP samples.
+    Also ``in_blocks``: the lattice samples up to the exit whose nearest voxel
+    lies in the grid, in a block of :func:`occ_blocks_plain` with an occupied
+    voxel (the bound's count)."""
+    B, Z, Y, X = occ.shape
+    dev = occ.device
+    flat = occ.reshape(B, -1)
+    nbz, nby, nbx = _coarse_dims(Z, Y, X)
+    skip_map = occ_skip_map_plain(occ).reshape(B, -1)
+    origin, direction, _, t0, t_stop = setup
+    P = t0.shape[1]
+    o = [origin[:, None, i].expand(B, P) for i in range(3)]
+    d = [direction[..., i] for i in range(3)]
+    inv = [_rdiv(1.0, di) for di in d]
+    step, k_max, G = cfg.ray_increment, cfg.max_samples, OCC_GROUP
+    rows = torch.arange(B, device=dev)[:, None]
+    o_ok = (origin.abs() < OCC_HOP_LIMIT).all(dim=-1)[:, None]
+    k = torch.zeros((B, P), dtype=torch.int64, device=dev)
+    hit = torch.zeros((B, P), dtype=torch.bool, device=dev)
+    done = torch.zeros_like(hit)
+    evaluated = torch.zeros_like(k)
+    inf = torch.full((), float("inf"), device=dev)
+
+    def lattice(kk):
+        return t0 + kk.to(torch.float32) * step
+
+    def face_t(c, oi, di, ii):
+        hi = ((c * 8.0 + 7.5) - oi) * ii
+        lo = ((c * 8.0 - 0.5) - oi) * ii
+        return torch.where(di > 0, hi, torch.where(di < 0, lo, inf))
+
+    def flagged(c):
+        in_ring = torch.ones_like(done)
+        for ci, n in zip(c, (nbx, nby, nbz)):
+            in_ring &= (ci >= -1) & (ci <= n)
+        cx, cy, cz = (torch.where(in_ring, ci + 1, 0).to(torch.int64) for ci in c)
+        return in_ring & skip_map[rows, (cz * (nby + 2) + cy) * (nbx + 2) + cx]
+
+    sign = [torch.where(di > 0, 1.0, -1.0) for di in d]
+    while True:
+        t = lattice(k)
+        done |= (k >= k_max) | ~(t <= t_stop)
+        if bool(done.all()):
+            break
+        alive = ~done
+        c = [torch.floor(vi * 0.125) for vi in _occ_voxels(o, d, t)]
+        hop = alive & ~flagged(c) & o_ok & (t < OCC_HOP_LIMIT)
+        # the hop: past the box of c, then past each next block along the ray
+        # (the axis of the nearest face; x, then y, on a tie) while unflagged
+        tf = [face_t(c[i], o[i], d[i], inv[i]) for i in range(3)]
+        t_exit = torch.fmin(torch.fmin(tf[0], tf[1]), tf[2])
+        going = hop.clone()
+        for _ in range(OCC_HOP_BLOCKS):
+            going &= t_exit <= t_stop
+            if not bool(going.any()):
+                break
+            ax = [tf[0] == t_exit]
+            ax.append(~ax[0] & (tf[1] == t_exit))
+            ax.append(~ax[0] & ~ax[1])
+            nxt = [c[i] + torch.where(ax[i], sign[i], 0.0) for i in range(3)]
+            going &= ~flagged(nxt)
+            for i in range(3):
+                move = going & ax[i]
+                c[i] = torch.where(move, nxt[i], c[i])
+                tf[i] = torch.where(move, face_t(c[i], o[i], d[i], inv[i]), tf[i])
+            t_exit = torch.where(going, torch.fmin(torch.fmin(tf[0], tf[1]), tf[2]), t_exit)
+        kf = torch.floor(_div(torch.fmin(t_exit, t_stop) - t0, step)) + 1.0
+        kn = torch.fmax(kf, (k + 1).to(torch.float32)).clamp(max=float(k_max)).to(torch.int64)
+        while True:
+            back = hop & (kn - 1 > k) & ~(lattice(kn - 1) <= t_stop)
+            if not bool(back.any()):
+                break
+            kn = kn - back.to(torch.int64)
+        # a group of G samples
+        group = alive & ~hop
+        kj = k[..., None] + torch.arange(G, device=dev)
+        tj = t0[..., None] + kj.to(torch.float32) * step
+        take = (kj < k_max) & (tj <= t_stop[..., None])
+        fx, fy, fz = _occ_voxels([oi[..., None] for oi in o], [di[..., None] for di in d], tj)
+        load = take & (fx >= 0) & (fy >= 0) & (fz >= 0) & (fx < X) & (fy < Y) & (fz < Z)
+        ix, iy, iz = (torch.where(load, q, 0).to(torch.int64) for q in (fx, fy, fz))
+        idx = _flat_index(ix, iy, iz, (Z, Y, X))
+        got = load & torch.gather(flat, 1, idx.reshape(B, -1)).reshape(idx.shape)
+        taken = take.sum(dim=-1)
+        evaluated += torch.where(group, load.sum(dim=-1), 0)
+        found = got.any(dim=-1)
+        first = torch.argmax(got.to(torch.uint8), dim=-1)
+        hit |= group & found
+        done |= group & (found | (taken < G))
+        k = torch.where(hop, kn, torch.where(group, torch.where(found, k + first + 1, k + taken),
+                                             k))
+    # the bound's count: lattice samples up to the exit in occupied blocks
+    blocks = occ_blocks_plain(occ).reshape(B, -1)
+    in_blocks = torch.zeros_like(k)
+    for k0 in range(0, int(k.max()), cfg.march_block):
+        ks = torch.arange(k0, k0 + cfg.march_block, device=dev)
+        t = t0[..., None] + ks.to(torch.float32) * step
+        vx, vy, vz = _occ_voxels([oi[..., None] for oi in o], [di[..., None] for di in d], t)
+        inb = (vx >= 0) & (vy >= 0) & (vz >= 0) & (vx < X) & (vy < Y) & (vz < Z)
+        b = [torch.where(inb, q, 0).to(torch.int64) // COARSE_BLOCK for q in (vx, vy, vz)]
+        blk = (b[2] * nby + b[1]) * nbx + b[0]
+        occupied = inb & blocks[rows[..., None], blk] & (ks < k[..., None])
+        in_blocks += occupied.sum(dim=-1)
+    return dict(hit=hit, samples=k, evaluated=evaluated, in_blocks=in_blocks)
 
 
 def occ_march_plain(occ, setup: MarchSetup, cfg: RaycastConfig, return_samples: bool = False):

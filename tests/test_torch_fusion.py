@@ -299,3 +299,165 @@ def test_integrate_without_a_gpu_raises_unless_asked_for_the_cpu():
         fusion.make_grid((2, 2, 2))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fusion.fuse_frames((2, 2, 2), np.eye(4), [])
+
+
+# ---------------------------------------------------------------------------
+# K8's cull (fusion.frustum_cull, fusion.row_intervals): every voxel that
+# integrate_plain changes lies in the culled box and in its row's interval
+# ---------------------------------------------------------------------------
+
+
+def _look(eye, fwd, up=(0.0, 0.0, 1.0)):
+    """cam2world of a camera at ``eye`` looking along ``fwd`` (camera x right,
+    y down, z forward, as room_camera)."""
+    f = np.asarray(fwd, np.float64)
+    f /= np.linalg.norm(f)
+    r = np.cross(f, up)
+    if np.linalg.norm(r) < 1e-9:
+        r = np.cross(f, [0.0, 1.0, 0.0])
+    r /= np.linalg.norm(r)
+    cam = np.eye(4, dtype=np.float32)
+    cam[:3, 0], cam[:3, 1], cam[:3, 2], cam[:3, 3] = r, np.cross(f, r), f, eye
+    return cam
+
+
+def _cull_cameras():
+    """~50 cameras about the room grid of room_mesh at 0.05 m (world box
+    [-0.15, 2.15] x [-0.15, 1.75] x [-0.15, 1.35]), by name: seeded ones in
+    and around it, axis-aligned views from inside (exactly along +-x, +-y,
+    +-z, the rotation's other entries exactly 0), cameras just outside a face
+    looking along it (grazing), and cameras outside looking away (missing)."""
+    rng = np.random.default_rng(13)
+    lo, hi = np.array([-0.15, -0.15, -0.15]), np.array([2.15, 1.75, 1.35])
+    cams = {}
+    for i in range(30):
+        eye = rng.uniform(lo - 1.0, hi + 1.0)
+        fwd = rng.normal(size=3)
+        cams[f"seeded{i}"] = (_look(eye, fwd), 0.0)
+    axes = {"+x": (1, 0, 0), "-x": (-1, 0, 0), "+y": (0, 1, 0), "-y": (0, -1, 0)}
+    for name, fwd in axes.items():
+        cams[f"axis{name}"] = (_look([1.0, 0.8, 0.6], fwd), 0.0)
+    for name, fwd in (("+z", (0, 0, 1)), ("-z", (0, 0, -1))):
+        cam = np.eye(4, dtype=np.float32)
+        cam[:3, 2] = fwd
+        cam[:3, 1] = (0, 1, 0) if fwd[2] > 0 else (0, -1, 0)
+        cam[:3, 3] = (1.0, 0.8, 0.6)
+        cams[f"axis{name}"] = (cam, 0.0)
+    # just outside a face of the grid, looking along it: the frustum cuts a sliver
+    for k, (eye, fwd) in enumerate((([-0.16, 0.8, 0.6], (0.0, 1.0, 0.0)),
+                                    ([2.16, 0.1, 0.6], (0.0, 1.0, 0.2)),
+                                    ([1.0, -0.17, 0.6], (1.0, 0.0, 0.0)),
+                                    ([1.0, 0.8, 1.36], (1.0, 0.3, 0.0)),
+                                    ([1.0, 1.76, -0.2], (-1.0, 0.0, 0.3)))):
+        cams[f"graze{k}"] = (_look(eye, fwd), 0.0)
+    for k, (eye, fwd) in enumerate((([-0.5, 0.8, 0.6], (-1, 0, 0)), ([1.0, 2.5, 0.6], (0, 1, 0)),
+                                    ([1.0, 0.8, 3.0], (0.2, 0.1, 1.0)),
+                                    ([8.0, 0.8, 0.6], (-1, 0, 0)))):
+        cams[f"miss{k}"] = (_look(eye, fwd), 0.0)
+    return cams
+
+
+def _cull_frame(seed, shape=(48, 64)):
+    """Dense depths in [0.3, 4.5] m (0.4-4.0 valid) with NaN and 0 holes,
+    colour."""
+    rng = np.random.default_rng(seed)
+    depth = rng.uniform(0.3, 4.5, shape).astype(np.float32)
+    depth[rng.random(shape) < 0.1] = np.nan
+    depth[rng.random(shape) < 0.05] = 0.0
+    color = rng.integers(0, 256, shape + (3,)).astype(np.float32)
+    return depth, color
+
+
+def _changed(before, after):
+    """Voxels where integrate_plain changed any field."""
+    out = np.zeros(before["sdf"].shape, bool)
+    for k in FIELDS:
+        a, b = before[k], after[k]
+        ne = a != b
+        out |= ne.any(-1) if ne.ndim == 4 else ne
+    return out
+
+
+def _assert_inside_the_cull(changed, cull, shape):
+    z, y, x = np.nonzero(changed)
+    x0, x1 = fusion.row_intervals(cull.planes, shape)
+    z0, z1, y0, y1, bx0, bx1 = cull.box
+    assert ((z >= z0) & (z <= z1) & (y >= y0) & (y <= y1) & (x >= bx0) & (x <= bx1)).all()
+    assert ((x >= x0[z, y]) & (x <= x1[z, y])).all()
+
+
+def test_every_changed_voxel_lies_in_the_culled_rows():
+    """Over ~50 cameras (seeded, axis-aligned, grazing a face, missing the
+    grid, from inside and outside it) with dense depths and random
+    intrinsics, on a grid of first observations and merges: the voxels that
+    integrate_plain changes lie in the box and in their rows' intervals; the
+    cull is empty exactly when nothing changes (measured: 16 of the 45
+    cameras change nothing, 12 seeded ones and the four that look away); and
+    it leaves out most of the grid where the frustum does. A cull that cuts
+    half a pixel into the image fails here on 20 cameras."""
+    _, _, _, _, bounds = _room_frame()
+    dims, w2g = fusion.grid_from_bounds(*bounds, CFG)
+    start = _start_grid(dims, True)
+    rng = np.random.default_rng(3)
+    walked = []
+    for i, (name, (cam, _)) in enumerate(_cull_cameras().items()):
+        depth, color = _cull_frame(i)
+        intr = np.array([rng.uniform(30, 80), rng.uniform(30, 80), rng.uniform(28, 36),
+                         rng.uniform(20, 28)], np.float32)
+        grid = {k: torch.from_numpy(v.copy()) for k, v in start.items()}
+        fusion.integrate_plain(grid, torch.from_numpy(depth), torch.from_numpy(color), intr,
+                               cam, w2g, CFG)
+        changed = _changed(start, {k: v.numpy() for k, v in grid.items()})
+        cull = fusion.frustum_cull(dims, depth.shape, intr, cam, w2g, CFG)
+        _assert_inside_the_cull(changed, cull, dims)
+        assert cull.empty == (not changed.any()), name
+        if name.startswith("miss"):
+            assert cull.empty, name
+        if name.startswith("axis"):
+            x0, x1 = fusion.row_intervals(cull.planes, dims)
+            walked.append(np.clip(x1 - x0 + 1, 0, None).sum() / np.prod(dims))
+    assert max(walked) < 0.6
+
+
+def test_the_cull_covers_a_voxel_on_the_optical_axis_in_front_of_the_camera():
+    """The safe_z path: voxel (0, 0, 0) at camera (0, 0, 5e-10), 0 < pz <=
+    1e-9, projects to the principal point and is changed; the cull keeps it."""
+    depth = np.full((8, 8), 1.0, np.float32)
+    intr = np.array([10.0, 10.0, 4.0, 4.0], np.float32)
+    w2g = np.eye(4, dtype=np.float32)
+    cam = np.eye(4, dtype=np.float32)
+    cam[:3, 3] = [0.0, 0.0, -5e-10]
+    start = _start_grid((3, 3, 3), False)
+    grid = {k: torch.from_numpy(v.copy()) for k, v in start.items()}
+    fusion.integrate(grid, torch.from_numpy(depth), None, intr, cam, w2g, CFG)
+    changed = _changed(start, {k: v.numpy() for k, v in grid.items()})
+    assert changed[0, 0, 0] and grid["free_ctr"][0, 0, 0] == 1
+    cull = fusion.frustum_cull((3, 3, 3), depth.shape, intr, cam, w2g, CFG)
+    _assert_inside_the_cull(changed, cull, (3, 3, 3))
+
+
+def test_row_intervals_are_the_planes_solved_per_row():
+    """row_intervals (the model of K8's per-row computation) against the
+    planes evaluated at every voxel: each interval holds every voxel of its
+    row that satisfies all six planes, and at most two that do not (floor and
+    ceil reach one voxel past the planes' interval on each side); the box
+    (the planes' polytope by its vertices, which may reach past the last
+    voxel inside by a few voxels where it narrows to a point) holds every
+    voxel that satisfies them, and reaches at most four voxels past them on
+    each side."""
+    _, _, intr, cam, bounds = _room_frame()
+    dims, w2g = fusion.grid_from_bounds(*bounds, CFG)
+    cull = fusion.frustum_cull(dims, (48, 64), intr, cam, w2g, CFG)
+    Z, Y, X = dims
+    zz, yy, xx = np.meshgrid(np.arange(Z), np.arange(Y), np.arange(X), indexing="ij")
+    inside = np.ones(dims, bool)
+    for a, b, c, e in cull.planes:
+        inside &= a * xx + b * yy + c * zz + e >= 0
+    x0, x1 = fusion.row_intervals(cull.planes, dims)
+    in_row = (xx >= x0[..., None]) & (xx <= x1[..., None])
+    assert inside.any() and not (inside & ~in_row).any()
+    assert (in_row & ~inside).sum(axis=-1).max() <= 2
+    z0, z1, y0, y1, x0_, x1_ = cull.box
+    for axis, (lo, hi) in zip(((1, 2), (0, 2), (0, 1)), ((z0, z1), (y0, y1), (x0_, x1_))):
+        held = np.nonzero(inside.any(axis))[0]
+        assert lo <= held[0] <= lo + 4 and hi - 4 <= held[-1] <= hi
