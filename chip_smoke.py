@@ -214,9 +214,33 @@ fails. Phases, each printing one JSON line:
            region PLY, filelist; one chunk through data/pipeline.ChunkDataset
            with the shapes of a training chunk. category (matplotlib) is not
            driven: a line says so
+  parallel two ranks of a process group (spsg_tpu_torch/parallel/), each a
+           process of its own started by this one (chip_smoke.py --parallel-rank):
+           NCCL with a card a rank when the machine has two cards, else gloo
+           with both ranks on the one card (printed; on one card these are
+           correctness figures, not scaling figures). Each rank loads the
+           kernels that the build phase built (rank 0 "builds" behind a
+           barrier, finding them built). At full width: the full default step
+           (train2d's) with mesh=, one framed chunk a rank of the global batch of
+           2, against this process's step on the same batch and weights (metrics
+           as train2d's twin, 1e-4 / 1e-3 relative; the generator's gradients
+           within 1e-2 of each leaf's largest entry, the LeakyReLU slope flips of
+           train2d's twin; the discriminator's within 1e-4), the ranks' metrics,
+           gradients and parameters identical; the chunked scene of the path
+           phase with mesh= (4 windows a rank of every batch of 8, rank 0
+           stitches) against the path phase's scene, every field identical to
+           the bit; the whole scene of the
+           scene phase with mesh= (Y-slabs of 80 rows, halo exchanges) against
+           the scene phase's outputs within 1e-4, rank 1's whole scene equal to
+           rank 0's; the train CLI with --distributed (and --shared_card on one
+           card) for 2 iterations of the full step: both ranks print their
+           process line, only rank 0 writes, both end with the same parameters.
+           Per part and rank: seconds (host clock, synchronised), peak memory,
+           launches (counters set to 0 just before each part, read just after)
   kernels  one line {"kernels": [...]}: per kernel its launches on the
            paths (serve, scene, train, train2d, train2d_missing_colour,
-           train2d_style, train2d_bf16, train_cli, datagen;
+           train2d_style, train2d_bf16, train_cli, datagen, parallel_train,
+           parallel_chunked, parallel_scene (both ranks' counts added);
            each counter set to 0 just before the path's run and read just
            after) and its numbers at the heaviest main-path shape (for the
            raycaster's, the prediction grid at the path's size; for K7 the
@@ -1414,7 +1438,7 @@ def seeded_generator(cfg):
     return gen
 
 
-def phase_path(tmp):
+def phase_path(tmp, par):
     cfg = TrainConfig()  # reference defaults: nf_gen 20, (128,64,64), colour + semantics
     gen = seeded_generator(cfg)
     ckpt = os.path.join(tmp, "model-seed0.pt")
@@ -1468,6 +1492,12 @@ def phase_path(tmp):
     iou_lines = open(os.path.join(out_dir, "IoU.txt")).read().split("\n")
     if len(iou_lines) != 30 or float(iou_lines[0]) != summary["geo_iou"]:
         raise SystemExit("chip_smoke: IoU.txt is not in the reference's format")
+    # what the parallel phase runs again on two ranks, and holds to this run
+    torch.save(dict(state_dict={k: v.cpu() for k, v in seen["generator"].state_dict().items()},
+                    scene_input=seen["scene_input"], scene_mask=seen["scene_mask"],
+                    args=seen["args"], kwargs=seen["kwargs"],
+                    out={f: getattr(out, f) for f in CHUNKED_FIELDS}),
+               os.path.join(par, "serve.pt"))
     rec = dict(
         scene=list(dims), windows=30, window_batches=4, launches=launches,
         seconds_per_scene=seen["seconds"], voxels_per_second=float(np.prod(dims)) / seen["seconds"],
@@ -1617,7 +1647,7 @@ def timed_scene(run, gen, scene_input, scene_mask, kw):
     return out, time.time() - t, torch.cuda.max_memory_allocated()
 
 
-def phase_scene(tmp, rc_results):
+def phase_scene(tmp, rc_results, par):
     """The whole-scene CLI (spsg_tpu_torch.cli.test_scene) at its defaults from
     a reference-format .pth of the serving paths' seeded weights, and around
     it: the .pt of the same weights, the forward against its plain-conv twin at
@@ -1681,6 +1711,10 @@ def phase_scene(tmp, rc_results):
     if missing or len(renders) != 3 or not all(r["hits"] > 0 for r in renders):
         raise SystemExit(f"chip_smoke: the scene CLI wrote {sorted(names)}, missing {missing}; "
                          f"renders {[r['hits'] for r in renders]}")
+    # what the parallel phase runs again on two ranks, and holds to this run
+    torch.save(dict(state_dict={k: v.cpu() for k, v in seen["generator"].state_dict().items()},
+                    scene_input=seen["scene_input"], scene_mask=seen["scene_mask"],
+                    kwargs=seen["kwargs"], out=out), os.path.join(par, "scene.pt"))
     vox = float(np.prod(SCENE_DIMS))
     rec = dict(scene=list(SCENE_DIMS), image=list(SCENE_IMAGE), launches=launches,
                seconds_per_scene=seen["seconds"], voxels_per_second=vox / seen["seconds"],
@@ -3396,6 +3430,259 @@ def phase_train2d_bf16(train2d_device):
     return launches
 
 
+# --------------------------------------------------------------------------- parallel
+PAR_WORLD = 2
+# the train CLI's few iterations: 4 chunks in global batches of 2 (one a rank),
+# the full step from the first iteration
+PAR_CLI_ARGS = ["--synthetic_chunks", "4", "--max_epoch", "1", "--num_iters_geo_only", "0",
+                "--no_vis"]
+# the kernels each parallel path must launch (the counts of both ranks, summed)
+PAR_PATHS = {"parallel_train": CONV_KERNELS,
+             "parallel_chunked": ("conv3x3", "conv3x3_act_stats"),
+             "parallel_scene": ("conv3x3", "conv3x3_act_stats")}
+
+
+def parallel_backend():
+    """NCCL with a card of its own for each rank when there are two cards,
+    else gloo with both ranks on the one card."""
+    return "nccl" if torch.cuda.device_count() >= PAR_WORLD else "gloo"
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def rank_part(rec, name, fn):
+    """Run ``fn`` with the launch counters set to 0 just before and read just
+    after; its seconds (host clock, synchronised) and peak memory into rec."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launch_counts()
+    t = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    rec[name] = dict(seconds=time.time() - t, launches=all_launch_counts(),
+                     max_memory_allocated=torch.cuda.max_memory_allocated())
+    return out
+
+
+def parallel_rank(rank, port, cli_port, directory, backend):
+    """One rank of the parallel phase, in a process of its own: the full train
+    step on its row of the global batch, its share of the chunked scene's
+    windows, its Y-slab of the whole scene (mesh= throughout), then the train
+    CLI with --distributed. Writes rank<r>.pt into ``directory``."""
+    from spsg_tpu_torch.cli import train as train_cli
+    from spsg_tpu_torch.inference import whole_scene
+    from spsg_tpu_torch.parallel import make_mesh, multihost, shard_batch
+
+    shared = backend == "gloo"
+    device = multihost.initialize(f"127.0.0.1:{port}", PAR_WORLD, rank, device_type="cuda",
+                                  shared_card=shared, timeout_s=300)
+    mesh = make_mesh(device)
+    multihost.build_kernels(mesh)  # built by the parent: every rank only loads them
+    rec, out = {"device": str(device), "backend": torch.distributed.get_backend()}, {}
+
+    d = torch.load(os.path.join(directory, "train.pt"), weights_only=False)
+    trainer = Trainer(TrainConfig(), device, seed=0, mesh=mesh)
+    trainer.generator.load_state_dict(d["generator"])
+    trainer.discriminator.load_state_dict(d["discriminator"])
+    trainer.sn_state = {k: {kk: vv.to(device) for kk, vv in v.items()}
+                        for k, v in d["sn_state"].items()}
+    batch = shard_batch(d["batch"], mesh)
+    metrics = rank_part(rec, "train", lambda: trainer.step(batch, StepFlags(**FULL_2D)))
+    out["metrics"] = {k: float(v) for k, v in metrics.items()}
+    out["grads"] = {n: p.grad.cpu() for n, p in trainer.generator.named_parameters()}
+    out["disc_grads"] = {n: p.grad.cpu() for n, p in trainer.discriminator.named_parameters()}
+    out["params"] = {k: v.cpu() for k, v in trainer.generator.state_dict().items()}
+    del trainer, batch, d
+    torch.cuda.empty_cache()
+
+    d = torch.load(os.path.join(directory, "serve.pt"), weights_only=False)
+    gen = state.make_generator(TrainConfig(), device)
+    gen.load_state_dict(d["state_dict"])
+    kw = dict(d["kwargs"], device=device, mesh=mesh)
+    res = rank_part(rec, "chunked", lambda: chunked.run_chunked_inference(
+        gen, d["scene_input"], d["scene_mask"], *d["args"], **kw))
+    if rank == 0:
+        out["chunked"] = {f: getattr(res, f) for f in CHUNKED_FIELDS}
+    elif res is not None:
+        raise SystemExit("chip_smoke: run_chunked_inference returned a scene on rank 1")
+    del res, d
+    torch.cuda.empty_cache()
+
+    d = torch.load(os.path.join(directory, "scene.pt"), weights_only=False)
+    gen.load_state_dict(d["state_dict"])
+    kw = dict(d["kwargs"], device=device, mesh=mesh)
+    res = rank_part(rec, "scene", lambda: whole_scene.run_whole_scene(
+        gen, d["scene_input"], d["scene_mask"], **kw))
+    if rank == 0:
+        out["scene"] = res
+    else:  # every rank gets the whole scene: rank 1's is held to rank 0's by a digest
+        out["scene_digest"] = [float(np.abs(o).astype(np.float64).sum()) for o in res]
+    del res, d, gen
+    torch.cuda.empty_cache()
+    multihost.shutdown()
+
+    # the train CLI as every rank of a user's launch calls it
+    os.environ.update(SPSG_COORDINATOR=f"127.0.0.1:{cli_port}",
+                      SPSG_NUM_PROCESSES=str(PAR_WORLD), SPSG_PROCESS_ID=str(rank))
+    save = os.path.join(directory, f"cli_rank{rank}")
+    argv = PAR_CLI_ARGS + ["--distributed", "--save", save] + (["--shared_card"] if shared else [])
+    result = rank_part(rec, "train_cli", lambda: train_cli.main(argv))
+    out["cli_params"] = {k: v.cpu() for k, v in result.trainer.generator.state_dict().items()}
+    out["cli_files"] = sorted(os.listdir(save)) if os.path.isdir(save) else []
+    out["rec"] = rec
+    torch.save(out, os.path.join(directory, f"rank{rank}.pt"))
+
+
+CHUNKED_FIELDS = ("sdf", "colors", "sem_labels", "occ", "counts", "geo_intersection", "geo_union",
+                  "class_intersection", "class_union", "class_weight")
+
+
+def phase_parallel(par, smi):
+    """Two ranks (parallel_rank) against this process's single-process runs:
+    the full train step on the same global batch and card, the chunked scene
+    against the path phase's, the whole scene against the scene phase's."""
+    from spsg_tpu_torch.data import synthetic
+
+    backend = parallel_backend()
+    print(f"parallel: {PAR_WORLD} ranks, backend {backend} "
+          f"({'a card each' if backend == 'nccl' else 'both on one card'}); {smi}", flush=True)
+    cfg = TrainConfig()
+    batch = synthetic.make_chunk_batch(cfg.batch_size, cfg.input_dim,
+                                       (cfg.style_width, cfg.style_height), seed=7,
+                                       with_frames=True, device=DEV)
+    batch.pop("name")
+    batch["weight_occ"] = np.float32(cfg.weight_occ_loss)
+    trainer = Trainer(cfg, DEV, seed=0)
+    scale_conv_weights(trainer.generator, 2.0)
+    centre_train_occupancy(trainer, batch)
+    torch.save(dict(batch=batch,
+                    generator={k: v.cpu() for k, v in trainer.generator.state_dict().items()},
+                    discriminator={k: v.cpu()
+                                   for k, v in trainer.discriminator.state_dict().items()},
+                    sn_state={k: {kk: vv.cpu() for kk, vv in v.items()}
+                              for k, v in trainer.sn_state.items()}),
+               os.path.join(par, "train.pt"))
+    single = {}
+    metrics = rank_part(single, "train", lambda: trainer.step(batch, StepFlags(**FULL_2D)))
+    metrics = {k: float(v) for k, v in metrics.items()}
+
+    def on_cpu(grads):
+        """A CPU trainer (the same module layout) holding ``grads`` as .grad."""
+        t = Trainer(cfg, "cpu", seed=0)
+        for module in ("generator", "discriminator"):
+            for n, p in getattr(t, module).named_parameters():
+                p.grad = grads[module][n]
+        return t
+
+    one = on_cpu({m: {n: p.grad.cpu() for n, p in getattr(trainer, m).named_parameters()}
+                  for m in ("generator", "discriminator")})
+    del trainer
+    torch.cuda.empty_cache()  # the card to the ranks
+
+    t = time.time()
+    port, cli_port = free_port(), free_port()
+    procs = []
+    for r in range(PAR_WORLD):
+        log = open(os.path.join(par, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-rank", str(r),
+             "--parallel-ports", str(port), str(cli_port), "--parallel-dir", par,
+             "--parallel-backend", backend], stdout=log, stderr=subprocess.STDOUT), log))
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, 480 - (time.time() - t)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    ranks_seconds = time.time() - t
+    logs = [open(os.path.join(par, f"rank{r}.log")).read() for r in range(PAR_WORLD)]
+    if any(p.returncode != 0 for p, _ in procs):
+        raise SystemExit("chip_smoke: parallel: rank exit codes "
+                         f"{[p.returncode for p, _ in procs]}\n"
+                         + "\n".join(f"--- rank {r}\n{t[-3000:]}" for r, t in enumerate(logs)))
+    res = [torch.load(os.path.join(par, f"rank{r}.pt"), weights_only=False)
+           for r in range(PAR_WORLD)]
+    r0, r1 = res
+
+    # (1) the step: both ranks alike, and against this process's step on the batch
+    if r0["metrics"] != r1["metrics"]:
+        raise SystemExit("chip_smoke: parallel: the ranks' metrics differ")
+    for k in ("grads", "disc_grads", "params"):
+        if not all(torch.equal(v, r1[k][n]) for n, v in r0[k].items()):
+            raise SystemExit(f"chip_smoke: parallel: the ranks' {k} differ")
+    two = on_cpu({"generator": r0["grads"], "discriminator": r0["disc_grads"]})
+    train_rec = dict(metrics_rel_diff=compare_metrics(r0["metrics"], metrics,
+                                                      "parallel train step"))
+    train_rec.update(compare_grads(two, one, 1e-2, "parallel train step"))
+    train_rec["discriminator"] = compare_grads(two, one, 1e-4, "parallel train step",
+                                               "discriminator")
+
+    # (2) the chunked scene: rank 0's against the path phase's single-process run
+    serve = torch.load(os.path.join(par, "serve.pt"), weights_only=False)["out"]
+    got = r0["chunked"]
+    same_counts = got["counts"] == serve["counts"]
+    both = same_counts & (serve["counts"] > 0)
+    identical = {f: bool(np.array_equal(np.asarray(got[f]), np.asarray(serve[f])))
+                 for f in CHUNKED_FIELDS}
+    chunk_rec = dict(identical=identical, counts_agree=float(same_counts.mean()),
+                     sdf_max_abs_diff=float(np.abs(got["sdf"][both] - serve["sdf"][both]).max()),
+                     colors_max_abs_diff=int(np.abs(got["colors"][both].astype(int)
+                                                    - serve["colors"][both].astype(int)).max()))
+    if not all(identical.values()):
+        raise SystemExit(f"chip_smoke: parallel chunked scene vs one process: {chunk_rec}")
+
+    # (3) the whole scene: rank 0's against the scene phase's, within 1e-4
+    scene_ref = torch.load(os.path.join(par, "scene.pt"), weights_only=False)["out"]
+    diffs = {n: float(np.abs(a - b).max()) for n, a, b in zip(OUTPUTS, r0["scene"], scene_ref)}
+    digest = [float(np.abs(o).astype(np.float64).sum()) for o in r0["scene"]]
+    if not (all(a.shape == b.shape for a, b in zip(r0["scene"], scene_ref))
+            and max(diffs.values()) <= 1e-4 and digest == r1["scene_digest"]):
+        raise SystemExit(f"chip_smoke: parallel whole scene vs one process: {diffs}")
+
+    # (4) the train CLI: both ranks' lines, rank 0's files only, the same parameters
+    cli_ok = (all(f"distributed: process {r}/{PAR_WORLD}" in logs[r] for r in range(PAR_WORLD))
+              and {"log_val.csv", "model-epoch0.pt"} <= set(r0["cli_files"])
+              and r1["cli_files"] == []
+              and all(torch.equal(v, r1["cli_params"][k]) for k, v in r0["cli_params"].items())
+              and all(torch.isfinite(v.float()).all() for v in r0["cli_params"].values()))
+    if not cli_ok:
+        raise SystemExit(f"chip_smoke: parallel train CLI: files {r0['cli_files']} / "
+                         f"{r1['cli_files']}\n{logs[0][-2000:]}")
+
+    by_path = {}
+    for path, part in (("parallel_train", "train"), ("parallel_chunked", "chunked"),
+                       ("parallel_scene", "scene")):
+        by_path[path] = {k: sum(r["rec"][part]["launches"][k] for r in res) for k in KERNELS}
+    parts = {part: [dict(seconds=r["rec"][part]["seconds"],
+                         max_memory_allocated=r["rec"][part]["max_memory_allocated"],
+                         launches={k: v for k, v in r["rec"][part]["launches"].items() if v})
+                    for r in res]
+             for part in ("train", "chunked", "scene", "train_cli")}
+    seconds = {k: [round(x["seconds"], 3) for x in v] for k, v in parts.items()}
+    peaks = {k: [x["max_memory_allocated"] for x in v] for k, v in parts.items()}
+    print(f"parallel: seconds by rank {seconds}; peak bytes by rank {peaks}; {smi}", flush=True)
+    emit("parallel", world=PAR_WORLD, backend=r0["rec"]["backend"],
+         devices=[r["rec"]["device"] for r in res], nvidia_smi=smi,
+         note=("both ranks on one card: correctness figures, not scaling figures"
+               if backend == "gloo" else "a card a rank"),
+         ranks_seconds=ranks_seconds, single_process_train=single["train"], parts=parts,
+         train=train_rec, chunked=chunk_rec, scene=dict(max_abs_diff=diffs),
+         train_cli=dict(files_rank0=r0["cli_files"], files_rank1=r1["cli_files"]),
+         launches_by_path=by_path)
+    return by_path
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of spsg_tpu_torch on one GPU.")
     ap.add_argument("--baseline-source", default=None,
@@ -3408,7 +3695,25 @@ def main(argv=None):
     ap.add_argument("--baseline-tsdf-source", default=None,
                     help="another version of csrc/tsdf.cu (spsg_tsdf_integrate, the whole "
                          "grid) to time beside this one")
+    ap.add_argument("--parallel-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-ports", type=int, nargs=2, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-backend", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.parallel_rank is not None:  # one rank of the parallel phase, started by it
+        parallel_rank(args.parallel_rank, *args.parallel_ports, args.parallel_dir,
+                      args.parallel_backend)
+        return
+    import shutil
+
+    par = tempfile.mkdtemp(prefix="chip_smoke_parallel_", dir=os.getcwd())
+    try:
+        run_phases(args, par)
+    finally:
+        shutil.rmtree(par, ignore_errors=True)
+
+
+def run_phases(args, par):
     smi = phase_device()
     phase_build()
     for key, src in (("conv3x3", args.baseline_source),
@@ -3420,8 +3725,8 @@ def main(argv=None):
     results = phase_compare()
     rc_results = phase_compare_raycast()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as tmp:
-        serve = phase_path(tmp)
-        scene = phase_scene(tmp, rc_results)
+        serve = phase_path(tmp, par)
+        scene = phase_scene(tmp, rc_results, par)
         phase_metrics(tmp, os.path.join(tmp, "scene"))
     train = phase_train()
     train2d, train2d_mc, train2d_device = phase_train2d()
@@ -3431,6 +3736,7 @@ def main(argv=None):
         train_cli = phase_train_cli(tmp, smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as tmp:
         datagen, tsdf_rec = phase_datagen(tmp)
+    parallel = phase_parallel(par, smi)
 
     # the kernels of each path: serving runs the two forward kernels, the 3D
     # training step all three conv kernels, the full step (with style / content
@@ -3443,14 +3749,15 @@ def main(argv=None):
                "train": CONV_KERNELS,
                "train2d": full_step, "train2d_missing_colour": training,
                "train2d_style": full_step, "train2d_bf16": full_step, "train_cli": full_step,
-               "datagen": ("tsdf_integrate",)}
+               "datagen": ("tsdf_integrate",), **PAR_PATHS}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         by_path = {"serve": serve[name], "scene": scene[name], "train": train[name],
                    "train2d": train2d[name],
                    "train2d_missing_colour": train2d_mc[name],
                    "train2d_style": train2d_style[name], "train2d_bf16": train2d_bf16[name],
-                   "train_cli": train_cli[name], "datagen": datagen[name]}
+                   "train_cli": train_cli[name], "datagen": datagen[name],
+                   **{path: counts[name] for path, counts in parallel.items()}}
         for path, names in on_path.items():
             if name in names and by_path[path] < 1:
                 raise SystemExit(f"chip_smoke: {name} was not launched on the {path} path")

@@ -11,6 +11,8 @@ of a module is found by its path:
   - ``spsg_tpu_torch.training``  : configuration, generator construction, optimizer,
                                    checkpoints, the 3D-loss train step
   - ``spsg_tpu_torch.inference`` : chunked whole-scene inference with overlap stitching
+  - ``spsg_tpu_torch.parallel``  : one process per card on ``torch.distributed``: the mesh,
+                                   batch sharding, state replication, the collectives
   - ``spsg_tpu_torch.utils``     : mesh / image dumps
   - ``spsg_tpu_torch.cli``       : command-line entry points
 

@@ -18,6 +18,13 @@ Runs on the GPU (``--gpu N`` picks the card) unless ``--device cpu`` (or
 ``--cpu``) is given; with no GPU and no ``--device cpu`` it raises.
 ``--model_path`` takes a checkpoint of this package (``.pt``) or of the
 original PyTorch reference (``.pth``).
+
+``--spatial_shard`` splits each scene along Y over the ranks of a process
+group (``inference/whole_scene.py``): launched as N processes with
+SPSG_COORDINATOR=host:port SPSG_NUM_PROCESSES=N SPSG_PROCESS_ID=i (one card
+each over NCCL; the CPU over gloo with ``--device cpu``), the CLI joins the
+group first; without those variables it is a world of one. Y is padded to a multiple of ``4 * N``, as in
+the JAX package. Every rank runs its slab; rank 0 renders and writes.
 """
 
 from __future__ import annotations
@@ -76,7 +83,7 @@ def build_parser():
     p.add_argument("--style_width", type=int, default=480)  # reference test_scene.py:58
     p.add_argument("--style_height", type=int, default=384)
     p.add_argument("--spatial_shard", action="store_true",
-                   help="shard the scene volume over several devices; not ported yet (raises)")
+                   help="shard the scene volume along Y over the ranks of the process group")
     p.set_defaults(pass_geo_feats=True)
     return p
 
@@ -136,10 +143,27 @@ def render_views(sdf, valid, colors01, semantics_grid, view, intr, cfg_rc, devic
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.spatial_shard:
-        raise NotImplementedError(
-            "--spatial_shard: the scene sharded over several devices is not ported yet "
-            "(ROADMAP.md, Queue A item 11)")
+    from ..parallel import make_mesh, multihost
+
+    cpu = args.cpu or args.device == "cpu"
+    if args.spatial_shard and os.environ.get("SPSG_COORDINATOR"):
+        # before anything touches the card (launch recipe: parallel/multihost.py)
+        device = multihost.initialize(device_type="cpu" if cpu else "cuda")
+        try:
+            mesh = make_mesh(device)
+            print(f"spatial shard: process {mesh.rank}/{mesh.size}, device {device}")
+            if device.type == "cuda":
+                multihost.build_kernels(mesh)
+            return _main(args, device, mesh)
+        finally:
+            multihost.shutdown()
+    from ..training.state import resolve_device
+
+    device = resolve_device("cpu" if cpu else f"cuda:{args.gpu}")
+    return _main(args, device, make_mesh(device) if args.spatial_shard else None)
+
+
+def _main(args, device, mesh):
     import torch
     import torch.nn.functional as F
 
@@ -147,11 +171,11 @@ def main(argv=None):
     from ..inference import whole_scene
     from ..ops.raycast import RaycastConfig
     from ..training import TrainConfig
-    from ..training.state import init_generator, load_any_checkpoint, resolve_device
+    from ..training.state import init_generator, load_any_checkpoint
     from ..utils import visualize
 
-    cpu = args.cpu or args.device == "cpu"
-    device = resolve_device("cpu" if cpu else f"cuda:{args.gpu}")
+    primary = mesh is None or mesh.rank == 0
+    n_shards = mesh.size if mesh is not None else 1
     cfg = TrainConfig(
         truncation=args.truncation,
         nf_gen=args.nf_gen,
@@ -222,18 +246,18 @@ def main(argv=None):
             inp = inp[:z, :y, :x]
             mask = mask[:z, :y, :x] if mask is not None else None
         pad_inp, pad_mask, dims = whole_scene.pad_scene(
-            inp, mask, args.truncation, args.max_input_height)
+            inp, mask, args.truncation, args.max_input_height, y_multiple=4 * n_shards)
         print(f"[ {si} ] {name} {tuple(dims)}")
 
         _, sdf_p, color_p, sem_p = whole_scene.run_whole_scene(
             generator, inp, mask,
             truncation=args.truncation, max_height=args.max_input_height,
             pred_color=args.weight_color_loss > 0,
-            pred_semantic=args.weight_semantic_loss > 0, device=device,
+            pred_semantic=args.weight_semantic_loss > 0, mesh=mesh, device=device,
         )
         pred_valid = np.abs(sdf_p) < args.truncation  # test_scene.py:156
 
-        if si < args.num_to_vis:
+        if si < args.num_to_vis and primary:
             view, intr = overhead_camera(tuple(dims), args.style_width, args.style_height)
             images = {}
             # input render

@@ -21,9 +21,17 @@ files (``training/state.py``): ``model-epoch{e}.pt``, ``model-iter{it}-epoch{e}.
 > 0 build the VGG19 extractor on the same device (``models/vgg.py``; its weights
 from $SPSG_VGG_WEIGHTS, a packaged ``models/vgg19_conv8.npz`` or the torch hub
 cache, else fixed-seed weights with a warning). ``--compute_dtype bfloat16``
-trains the generator in bfloat16 (``training/step.py``). Not ported yet
-(raises, naming ROADMAP.md): ``--distributed``. The
-flags that steer the JAX package's compiler are accepted and have no effect.
+trains the generator in bfloat16 (``training/step.py``). The flags that steer
+the JAX package's compiler are accepted and have no effect.
+
+``--distributed`` trains data-parallel, one process a card
+(``parallel/multihost.py``): every rank runs this CLI with the same flags and
+SPSG_COORDINATOR=host:port SPSG_NUM_PROCESSES=N SPSG_PROCESS_ID=i; it joins
+the process group before anything touches the card and trains on
+``cuda:<local rank>`` over NCCL (on the CPU over gloo with ``--device cpu``;
+ranks sharing one card over gloo with ``--shared_card``). ``--batch_size`` is
+the global batch. Rank 0 builds the CUDA kernels while the others wait, and
+only rank 0 writes logs and checkpoints.
 """
 
 from __future__ import annotations
@@ -136,7 +144,11 @@ def build_parser():
                         help="skip the per-epoch mesh/PNG dumps (reference "
                         "save_predictions, train.py:789-849)")
     parser.add_argument("--distributed", action="store_true",
-                        help="multi-host training; not ported yet (raises)")
+                        help="data-parallel over the ranks of SPSG_COORDINATOR / "
+                             "SPSG_NUM_PROCESSES / SPSG_PROCESS_ID (one process a card)")
+    parser.add_argument("--shared_card", action="store_true",
+                        help="with --distributed: the ranks share one card and "
+                             "communicate over gloo (a correctness run, not a speed-up)")
     for flag in ("channels_first", "pair_raycast", "compact_global", "fused_conv",
                  "pallas_conv", "zslab_conv", "folded_conv", "compact_resid"):
         parser.add_argument(f"--{flag}", action=argparse.BooleanOptionalAction, default=False,
@@ -251,26 +263,43 @@ class SyntheticChunkDataset:
         return self.samples[i]
 
 
-def _check_ported(args) -> None:
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed: multi-host training is not ported yet (ROADMAP.md, Queue A "
-            "item 11)")
-
-
 def main(argv=None):
-    """Parse ``argv``, train, and return the loop's ``TrainResult``."""
+    """Parse ``argv``, train, and return the loop's ``TrainResult``. With
+    ``--distributed`` the process leaves the process group when it returns."""
     args = build_parser().parse_args(argv)
-    _check_ported(args)
-    from ..training.loop import run_training
+    import torch.distributed as dist
+
+    from ..parallel import make_mesh, multihost
+
+    mesh = None
+    if args.distributed:
+        # before anything touches the card (launch recipe: parallel/multihost.py)
+        device = multihost.initialize(device_type=args.device, shared_card=args.shared_card)
+        try:
+            mesh = make_mesh(device)
+            print(f"distributed: process {mesh.rank}/{mesh.size}, device {device}, "
+                  f"backend {dist.get_backend()}")
+            if device.type == "cuda":
+                multihost.build_kernels(mesh)
+            return _main(args, device, mesh)
+        finally:
+            multihost.shutdown()
     from ..training.state import resolve_device
+
+    return _main(args, resolve_device("cpu" if args.device == "cpu" else f"cuda:{args.gpu}"),
+                 mesh)
+
+
+def _main(args, device, mesh):
+    from ..parallel import multihost
+    from ..training.loop import run_training
     from ..utils.logging import dump_args
     from ..utils.timing import torch_trace
 
-    device = resolve_device("cpu" if args.device == "cpu" else f"cuda:{args.gpu}")
     cfg = config_from_args(args)
     os.makedirs(args.save, exist_ok=True)
-    dump_args(args, os.path.join(args.save, "args.txt"))
+    if multihost.is_primary():
+        dump_args(args, os.path.join(args.save, "args.txt"))
     print(args)
 
     with_frames = cfg.weight_depth_loss > 0 or cfg.weight_disc_loss > 0
@@ -331,6 +360,7 @@ def main(argv=None):
             vis_at_epoch_end=not args.no_vis,
             device=device,
             vgg=vgg,
+            mesh=mesh,
         )
 
 

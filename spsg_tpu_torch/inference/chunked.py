@@ -14,6 +14,11 @@ Stitching is the slice read-modify-write form of the JAX package
 (``update_rmw``): shaped accumulators padded like the input scene, one
 in-place slice update per window. On CUDA this is deterministic, which a
 floating-point ``index_add_`` is not.
+
+With ``mesh=`` (``parallel.make_mesh()``, one process a device) every window
+batch splits over the ranks: each runs its share of the windows through the
+generator, the outputs are gathered in window order and rank 0 stitches them
+and accumulates the IoU over every window, in the one-process order.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..data import category, colorspace
+from ..parallel import mesh as pmesh
 from ..training.state import resolve_device
 
 
@@ -310,11 +316,19 @@ def run_chunked_inference(
     ``scan_windows`` and ``stitch_slices`` steer the JAX package's dispatch
     and stitching; here there is one form of each (a Python loop over window
     batches, slice read-modify-write stitching) and both are accepted without
-    effect. ``mesh`` is not ported yet and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (windows sharded over several devices) is not ported yet (ROADMAP.md, "
-            "Queue A item 11)")
+    effect.
+
+    ``mesh`` (``parallel.Mesh``): every rank calls this with the same
+    arguments; each runs ``window_batch / ranks`` windows of every batch (the
+    world size must divide ``window_batch``), rank 0 stitches the gathered
+    outputs and returns the scene, the other ranks return None."""
+    mesh = pmesh.check_mesh(mesh)
+    sharded = pmesh.active(mesh)
+    n_ranks = mesh.size if sharded else 1
+    if window_batch % n_ranks:
+        raise ValueError(f"window_batch {window_batch} does not split over {n_ranks} ranks")
+    per_rank = window_batch // n_ranks
+    stitching = not sharded or mesh.rank == 0
     raw_sdf = raw_rgb = None
     if compact_scene is not None:
         raw_sdf = compact_scene["sdf"]
@@ -388,8 +402,9 @@ def run_chunked_inference(
         scene_mask_dev = torch.from_numpy(
             np.pad(scene_mask.astype(np.float32), widths)).to(device)
 
-    st = _Stitcher(scene_dims, chunk_dims, stride, pad, truncation, pred_color,
-                   pred_semantic, target_sdf, known, target_semantics, device)
+    st = (_Stitcher(scene_dims, chunk_dims, stride, pad, truncation, pred_color,
+                    pred_semantic, target_sdf, known, target_semantics, device)
+          if stitching else None)
     generator = generator.to(device)
     was_training = generator.training
     generator.eval()
@@ -400,15 +415,19 @@ def run_chunked_inference(
                 n_real = min(window_batch, n_win - start)
                 # the padded tail of the last batch repeats position (0, 0)
                 pos = positions[start:start + n_real] + [(0, 0)] * (window_batch - n_real)
-                cb = torch.stack([scene_in_dev[:cz, y:y + cy, x:x + cx] for y, x in pos])
-                mb = torch.stack([scene_mask_dev[:cz, y:y + cy, x:x + cx] for y, x in pos])
-                occ_l, sdf_p, color_p, sem_p = generator(
+                mine = pos[mesh.rank * per_rank:(mesh.rank + 1) * per_rank] if sharded else pos
+                cb = torch.stack([scene_in_dev[:cz, y:y + cy, x:x + cx] for y, x in mine])
+                mb = torch.stack([scene_mask_dev[:cz, y:y + cy, x:x + cx] for y, x in mine])
+                outs = generator(
                     cb, mb, pred_color=pred_color, pred_sdf=True, pred_semantic=pred_semantic)
-                st.update(occ_l, sdf_p, color_p, sem_p, pos, n_real)
-            fin = st.finalize()
+                if sharded:  # the batch's outputs in window order, on every rank
+                    outs = [None if o is None else pmesh.gather(o, mesh) for o in outs]
+                if st is not None:
+                    st.update(*outs, pos, n_real)
+            fin = st.finalize() if st is not None else None
     finally:
         generator.train(was_training)
-    return _outputs(fin, pred_color, pred_semantic)
+    return _outputs(fin, pred_color, pred_semantic) if fin is not None else None
 
 
 def summarize_iou(

@@ -4,7 +4,12 @@
 The generator is fully convolutional, so one forward over the padded scene
 replaces the sliding windows of ``inference/chunked.py``: the 3x3x3 convs run
 on the hand kernels at the scene's shape, e.g. (1, 128, 160, 192) voxels.
-Spatial sharding over several devices (``mesh=``) is not ported."""
+
+With ``mesh=`` (``parallel.make_mesh()``, one process a device) the scene
+shards spatially: Y is padded to a multiple of ``4 * ranks``, each rank holds
+one Y-slab in rank order, every conv exchanges halo rows with the neighbouring
+slabs (``models/generator.py::ConvBlock``, the halos GSPMD inserts in the JAX
+package), and the slabs' outputs are gathered on every rank."""
 
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..parallel import mesh as pmesh
 from ..training.state import resolve_device
 
 
@@ -55,22 +61,31 @@ def run_whole_scene(
     defaults to the GPU and raises if there is none; pass ``"cpu"`` to run on
     the CPU. Returns (occ_logits (Z,Y,X), sdf, color (Z,Y,X,3) or None,
     semantics (Z,Y,X,14) or None) as float32 numpy arrays of the padded
-    scene's shape."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the scene sharded spatially over several devices) is not ported yet "
-            "(ROADMAP.md, Queue A item 11)")
+    scene's shape. ``mesh`` (``parallel.Mesh``): every rank calls this with
+    the same arguments and gets the whole result; the padded Y is a multiple
+    of ``4 * ranks``, as in the JAX package."""
+    mesh = pmesh.check_mesh(mesh)
+    sharded = pmesh.active(mesh)
+    n_shards = mesh.size if mesh is not None else 1
     device = resolve_device(device)
-    inp, msk, _ = pad_scene(scene_input, scene_mask, truncation, max_height)
-    x = torch.from_numpy(inp[None]).to(device)
-    m = torch.from_numpy(msk[None]).to(device)
+    inp, msk, dims = pad_scene(scene_input, scene_mask, truncation, max_height,
+                               y_multiple=4 * n_shards)
+    if sharded:  # this rank's Y-slab
+        rows = slice(mesh.rank * dims[1] // n_shards, (mesh.rank + 1) * dims[1] // n_shards)
+        inp, msk = inp[:, rows], msk[:, rows]
+    x = torch.from_numpy(np.ascontiguousarray(inp[None])).to(device)
+    m = torch.from_numpy(np.ascontiguousarray(msk[None])).to(device)
     generator = generator.to(device)
     was_training = generator.training
     generator.eval()
     try:
         with torch.no_grad():
             occ_l, sdf, color, sem = generator(
-                x, m, pred_color=pred_color, pred_sdf=True, pred_semantic=pred_semantic)
+                x, m, pred_color=pred_color, pred_sdf=True, pred_semantic=pred_semantic,
+                mesh=mesh, spatial=sharded)
+            if sharded:
+                occ_l, sdf, color, sem = (None if o is None else pmesh.gather(o, mesh, dim=2)
+                                          for o in (occ_l, sdf, color, sem))
     finally:
         generator.train(was_training)
     return (

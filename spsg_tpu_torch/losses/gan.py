@@ -3,7 +3,8 @@
 
 The discriminator gives patch logits (B, H', W', 1); every variant is a
 masked mean with optional per-patch weights and per-sample weights
-(--weight_by_percent_pixels, train.py:705-715)."""
+(--weight_by_percent_pixels, train.py:705-715). With ``mesh`` every mean is
+over the global batch (``losses/geo.py``)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import global_mean
 from .geo import masked_mean
 
 
@@ -19,14 +21,14 @@ def _bce_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
 
 
 def _masked(x: torch.Tensor, valid: Optional[torch.Tensor],
-            sample_weight: Optional[torch.Tensor]) -> torch.Tensor:
+            sample_weight: Optional[torch.Tensor], mesh=None) -> torch.Tensor:
     """x (B,H,W,1); valid (B,H,W) or None; sample_weight (B,) or None."""
     x = x.mean(dim=-1)
     if sample_weight is not None:
         x = x * sample_weight[:, None, None]
     if valid is None:
-        return x.mean()
-    return masked_mean(x, valid)
+        return global_mean(x, mesh)
+    return masked_mean(x, valid, mesh=mesh)
 
 
 def discriminator_loss(
@@ -38,6 +40,7 @@ def discriminator_loss(
     label_smoothing: float = 1.0,
     sample_weight_real: Optional[torch.Tensor] = None,
     sample_weight_fake: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(real_loss, fake_loss) scalars (reference loss.py:374-442)."""
     if weight is not None:
@@ -54,15 +57,16 @@ def discriminator_loss(
         fake = d_fake
     else:
         raise ValueError(loss_type)
-    return _masked(real, valid, sample_weight_real), _masked(fake, valid, sample_weight_fake)
+    return (_masked(real, valid, sample_weight_real, mesh),
+            _masked(fake, valid, sample_weight_fake, mesh))
 
 
-def generator_loss(loss_type: str, d_fake: torch.Tensor) -> torch.Tensor:
+def generator_loss(loss_type: str, d_fake: torch.Tensor, mesh=None) -> torch.Tensor:
     """Generator adversarial loss, an unmasked mean as in the reference
     (loss.py:393-401)."""
     if loss_type == "vanilla":
-        return _bce_logits(d_fake, 1.0).mean()
-    return -d_fake.mean()
+        return global_mean(_bce_logits(d_fake, 1.0), mesh)
+    return -global_mean(d_fake, mesh)
 
 
 def gradient_penalty(
@@ -70,6 +74,7 @@ def gradient_penalty(
     in_real: torch.Tensor,
     in_fake: torch.Tensor,
     alpha: torch.Tensor,
+    mesh=None,
 ) -> torch.Tensor:
     """WGAN-GP penalty on interpolated inputs (reference loss.py:444-472).
     ``alpha`` (B, 1, ..., 1) comes from the caller (the JAX package draws it
@@ -80,4 +85,4 @@ def gradient_penalty(
     score = disc_apply(interp).sum()
     (grads,) = torch.autograd.grad(score, interp, create_graph=True)
     gnorm = torch.sqrt((grads.reshape(b, -1) ** 2).sum(dim=1) + 1e-12)
-    return ((gnorm - 1.0) ** 2).mean()
+    return global_mean((gnorm - 1.0) ** 2, mesh)

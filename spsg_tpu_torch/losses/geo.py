@@ -4,7 +4,12 @@ reference torch/loss.py:8-243 + train.py:448-512).
 All losses are dense masked reductions over (B, Z, Y, X[, C]) grids, as in the
 JAX package: ``masked_mean(x, m) == x[m].mean()`` exactly, without the dynamic
 shapes (and the host synchronisation) of a boolean select. Every function
-returns device tensors; none reads a value back to the host."""
+returns device tensors; none reads a value back to the host.
+
+``mesh`` (``parallel.Mesh``, data-parallel training): every sum is over the
+global batch, every rank's result is the global value, and its backward the
+partial derivative through the rank's own rows (``parallel/mesh.py::
+global_sum``), as GSPMD's reductions over a sharded batch are."""
 
 from __future__ import annotations
 
@@ -13,10 +18,13 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import global_sum
 
-def masked_mean(x: torch.Tensor, mask: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, eps: float = 1e-12,
+                mesh=None) -> torch.Tensor:
     m = mask.to(x.dtype)
-    return (x * m).sum() / torch.clamp(m.sum(), min=eps)
+    return global_sum((x * m).sum(), mesh) / torch.clamp(global_sum(m.sum(), mesh), min=eps)
 
 
 def apply_log_transform(sdf: torch.Tensor) -> torch.Tensor:
@@ -54,6 +62,7 @@ def occ_loss(
     known: Optional[torch.Tensor],
     weight: Optional[torch.Tensor],
     truncation: float,
+    mesh=None,
 ) -> torch.Tensor:
     """Weighted BCE-with-logits on occupancy, masked to known space
     (reference compute_geo_occ_loss_dense, loss.py:130-146), in the stable
@@ -64,7 +73,7 @@ def occ_loss(
     if weight is not None:
         bce = bce * weight
     mask = torch.ones_like(target) if known is None else known.float()
-    return masked_mean(bce, mask)
+    return masked_mean(bce, mask, mesh=mesh)
 
 
 def occ_iou(
@@ -72,6 +81,7 @@ def occ_iou(
     occ_logits: torch.Tensor,
     known: Optional[torch.Tensor],
     truncation: float,
+    mesh=None,
 ) -> torch.Tensor:
     """Occupancy IoU at sigmoid > 0.5, within known space (reference
     compute_iou_occ_dense, loss.py:216-231). Returns -1 when the union is
@@ -82,8 +92,8 @@ def occ_iou(
         k = known.bool()
         target = target & k
         pred = pred & k
-    inter = (pred & target).sum()
-    union = (pred | target).sum()
+    inter = global_sum((pred & target).sum(), mesh)
+    union = global_sum((pred | target).sum(), mesh)
     iou = inter.float() / torch.clamp(union, min=1).float()
     return torch.where(union > 0, iou, torch.full_like(iou, -1.0))
 
@@ -94,6 +104,7 @@ def sdf_l1_loss(
     known: Optional[torch.Tensor],
     weight: Optional[torch.Tensor],
     log_transform: bool = True,
+    mesh=None,
 ) -> torch.Tensor:
     """(log-)L1 SDF regression, masked to known space (reference
     compute_geo_loss_dense, loss.py:86-114)."""
@@ -106,7 +117,7 @@ def sdf_l1_loss(
     if weight is not None:
         l1 = l1 * weight
     mask = torch.ones_like(l1) if known is None else known.float()
-    return masked_mean(l1, mask)
+    return masked_mean(l1, mask, mesh=mesh)
 
 
 def missing_geo_mask(input_occ: torch.Tensor, target_sdf: torch.Tensor,

@@ -4,11 +4,14 @@
 The reference computes ``F.cross_entropy`` with per-class weights over
 dynamically selected voxels/pixels; here, as in the JAX package, they are dense
 masked reductions. The weighted CE is normalised by the sum of the selected
-samples' class weights, which is what ``F.cross_entropy(weight=...)`` does."""
+samples' class weights, which is what ``F.cross_entropy(weight=...)`` does.
+With ``mesh`` both sums are over the global batch (``losses/geo.py``)."""
 
 from __future__ import annotations
 
 import torch
+
+from ..parallel.mesh import global_sum
 
 UNLABELED = 14
 
@@ -18,6 +21,7 @@ def weighted_cross_entropy(
     labels: torch.Tensor,  # (...) int
     mask: torch.Tensor,  # (...) bool
     class_weights: torch.Tensor,  # (C,)
+    mesh=None,
 ) -> torch.Tensor:
     """sum_i m_i * w[y_i] * ce_i / sum_i m_i * w[y_i] (used at reference
     train.py:741,745). Labels are clipped into range before the gather, so an
@@ -27,7 +31,7 @@ def weighted_cross_entropy(
     logp = torch.log_softmax(logits, dim=-1)
     ce = -torch.gather(logp, -1, labels_c[..., None])[..., 0]
     w = class_weights[labels_c] * mask.to(logits.dtype)
-    return (w * ce).sum() / torch.clamp(w.sum(), min=1e-12)
+    return global_sum((w * ce).sum(), mesh) / torch.clamp(global_sum(w.sum(), mesh), min=1e-12)
 
 
 def semantic_3d_loss(
@@ -35,25 +39,27 @@ def semantic_3d_loss(
     target_sem: torch.Tensor,  # (B, Z, Y, X) uint8
     surface_mask: torch.Tensor,  # (B, Z, Y, X) bool: predicted surface voxels
     class_weights: torch.Tensor,
+    mesh=None,
 ) -> torch.Tensor:
     """3D semantic CE over predicted-surface voxels with labeled targets
     (reference train.py:736-742: locs from |pred sdf|<trunc & ~empty, targets
     < 14)."""
     labels = target_sem.long()
     mask = surface_mask & (labels < UNLABELED)
-    return weighted_cross_entropy(sem_logits, labels, mask, class_weights)
+    return weighted_cross_entropy(sem_logits, labels, mask, class_weights, mesh)
 
 
 def semantic_2d_loss(
     raycast_sem: torch.Tensor,  # (B, H, W, C) rendered logits (-inf invalid)
     target_label: torch.Tensor,  # (B, H, W) int labels (UNLABELED = ignore)
     class_weights: torch.Tensor,
+    mesh=None,
 ) -> torch.Tensor:
     """2D semantic CE on rendered logits vs rendered target labels
     (reference train.py:743-747)."""
     valid = (target_label < UNLABELED) & (raycast_sem[..., 0] != -torch.inf)
     logits = torch.where(torch.isfinite(raycast_sem), raycast_sem, 0.0)
-    return weighted_cross_entropy(logits, target_label, valid, class_weights)
+    return weighted_cross_entropy(logits, target_label, valid, class_weights, mesh)
 
 
 def rendered_semantic_label(raycast_sem: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,8 @@
 reference torch/loss.py:246-356 + train.py:524-752).
 
 They work on raycast images with ``-inf`` for invalid pixels; every boolean
-select of the reference is a masked mean, as in the JAX package."""
+select of the reference is a masked mean, as in the JAX package. With
+``mesh`` the means are over the global batch (``losses/geo.py``)."""
 
 from __future__ import annotations
 
@@ -14,17 +15,17 @@ from .geo import masked_mean
 
 
 def depth_l1_loss(raycast_depth: torch.Tensor, image_depth: torch.Tensor,
-                  voxelsize: float) -> torch.Tensor:
+                  voxelsize: float, mesh=None) -> torch.Tensor:
     """L1 between the rendered depth (voxels -> metres) and the target depth
     (metres, 0 = hole) where both are valid (reference train.py:634-638)."""
     pred_m = raycast_depth * voxelsize
     valid = (raycast_depth != -torch.inf) & (image_depth != 0.0)
     diff = torch.where(valid, pred_m - image_depth, 0.0).abs()
-    return masked_mean(diff, valid)
+    return masked_mean(diff, valid, mesh=mesh)
 
 
 def color_l1_loss(raycast_color: torch.Tensor, image_color: torch.Tensor,
-                  weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  weight: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
     """L1 between rendered and target colour over valid pixels; an optional
     (B, H, W) weight multiplies both sides (reference loss.py:246-257)."""
     valid = raycast_color != -torch.inf
@@ -33,7 +34,7 @@ def color_l1_loss(raycast_color: torch.Tensor, image_color: torch.Tensor,
         pred = pred * weight[..., None]
         tgt = tgt * weight[..., None]
     diff = torch.where(valid, pred - tgt, 0.0).abs()
-    return masked_mean(diff, valid)
+    return masked_mean(diff, valid, mesh=mesh)
 
 
 def filter_proj_target(raycast_color: torch.Tensor, color_thresh: float,

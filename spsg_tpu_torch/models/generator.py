@@ -52,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import conv3x3 as conv_ops
+from ..parallel import mesh as pmesh
 
 NUM_CLASSES = 14
 
@@ -96,7 +97,13 @@ class BatchNorm(nn.Module):
     updated with that same biased variance. ``stats=(sum, sumsq)`` hands in
     the sums the fused conv kernel already computed (train mode); in eval
     mode they are ignored. A bfloat16 input is normalised in float32 and the
-    result rounded to bfloat16 (Flax's ``BatchNorm(dtype=bfloat16)``)."""
+    result rounded to bfloat16 (Flax's ``BatchNorm(dtype=bfloat16)``).
+
+    ``mesh`` (``parallel.Mesh``): in train mode the per-channel sums and the
+    voxel count are summed over the ranks before the mean and the variance
+    are formed (one all-reduce, whose backward sums the gradient over the
+    ranks), so that the statistics, and the running statistics updated from
+    them, are the global batch's on every rank. Eval mode is local."""
 
     def __init__(self, channels: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -107,13 +114,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x, stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    def forward(self, x, stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                mesh=None):
         if self.training:
             n = x.numel() // x.shape[-1]
             if stats is None:
                 xf = x.float()
                 dims = tuple(range(x.dim() - 1))
                 stats = (xf.sum(dims), (xf * xf).sum(dims))
+            if pmesh.active(mesh):
+                c = x.shape[-1]
+                packed = torch.cat([stats[0], stats[1], stats[0].new_full((1,), float(n))])
+                packed = pmesh.shared_sum(packed, mesh)
+                stats, n = (packed[:c], packed[c:2 * c]), packed[2 * c]
             mean = stats[0] / n
             var = torch.clamp(stats[1] / n - mean * mean, min=0.0)
             with torch.no_grad():
@@ -137,7 +150,18 @@ class ConvBlock(nn.Module):
 
     ``plain_convs`` is a testing hook: it sends eligible layers through the
     kernels' plain versions on any device, so that a run with the kernels can
-    be held against a run without them. It is not consulted as a fallback."""
+    be held against a run without them. It is not consulted as a fallback.
+
+    ``forward(x, mesh, spatial)``: ``mesh`` makes a train-mode BatchNorm's
+    statistics global (:class:`BatchNorm`). ``spatial`` (eval mode) serves a
+    volume split along Y over the mesh's ranks, ``x`` being this rank's slab:
+    the slab takes ``padding`` rows from each neighbour
+    (``parallel/mesh.py::halo_exchange``, zeros at the volume's edges), which
+    is every row a 3^3 pad-1, a 5^3 pad-2, a dilation-2 pad-2 or a 4^3
+    stride-2 pad-1 conv reads across the slab's edge when slabs start at even
+    rows. The library convs then run with no Y padding; the hand kernels,
+    which pad by one themselves, run on the ``Y + 2`` slab unchanged and its
+    first and last output rows are dropped."""
 
     def __init__(self, cin: int, features: int, kernel: int = 3, stride: int = 1,
                  padding: int = 1, dilation: int = 1, act: bool = True, bn: bool = True,
@@ -154,9 +178,12 @@ class ConvBlock(nn.Module):
         nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
         self.bn = BatchNorm(features) if bn else None
 
-    def forward(self, x):
+    def forward(self, x, mesh=None, spatial: bool = False):
         dt = self.dtype
         x = x.to(dt)
+        halo = self.padding if spatial else 0  # Y rows taken from the neighbours
+        if halo:
+            x = pmesh.halo_exchange(x, halo, mesh, dim=2)
         if self.eligible:
             wk = self.weight.permute(2, 3, 4, 1, 0).to(dt).contiguous()  # (3,3,3,Cin,Cout)
             x = x.contiguous()
@@ -164,17 +191,21 @@ class ConvBlock(nn.Module):
                 fused = (conv_ops.conv3x3_act_stats_plain if self.plain_convs
                          else conv_ops.conv3x3_act_stats)
                 y, s, ss = fused(x, wk, self.bias)
-                return self.bn(y, (s, ss))
+                if halo:  # eval mode: the sums, which count the halo rows, are not used
+                    return self.bn(y[:, :, 1:-1])
+                return self.bn(y, (s, ss), mesh)
             conv = conv_ops.conv3x3_plain if self.plain_convs else conv_ops.conv3x3
-            x = conv(x, wk) + self.bias.to(dt)
+            y = conv(x, wk)
+            x = (y[:, :, 1:-1] if halo else y) + self.bias.to(dt)
         else:
+            pad = (self.padding, 0, self.padding) if halo else self.padding
             y = F.conv3d(x.permute(0, 4, 1, 2, 3), self.weight.to(dt), None, self.stride,
-                         self.padding, self.dilation)
+                         pad, self.dilation)
             x = (y.permute(0, 2, 3, 4, 1) + self.bias.to(dt)).contiguous()
         if self.act:
             x = leaky_relu(x)
         if self.bn is not None:
-            x = self.bn(x)
+            x = self.bn(x, mesh=mesh)
         return x
 
 
@@ -249,13 +280,25 @@ class Generator(nn.Module):
         self.semantic_head_c = block(nf, cfg.num_classes, act=False, bn=False, dtype=None)
 
     def forward(self, x, mask, pred_color: bool, pred_sdf: bool = True,
-                pred_semantic: bool = False):
+                pred_semantic: bool = False, mesh=None, spatial: bool = False):
         """Args: x (B,Z,Y,X,4) = [tsdf, color x3]; mask (B,Z,Y,X,1).
         Returns (occ_logits (B,Z,Y,X,1), sdf (B,Z,Y,X,1), color, semantic) —
         color/semantic are None unless requested (reference forward,
         model.py:345-396). Train or eval mode is the module's
-        (``.train()`` / ``.eval()``)."""
+        (``.train()`` / ``.eval()``).
+
+        ``mesh`` (``parallel.Mesh``): train-mode BatchNorm statistics over
+        the global batch. ``spatial``: ``x`` and ``mask`` are this rank's
+        Y-slab of a volume split in rank order into equal slabs of a multiple
+        of 4 rows, and the outputs are the slab's (:class:`ConvBlock`);
+        eval mode only."""
         cfg = self.cfg
+        if spatial and self.training:
+            raise ValueError("Generator: spatial sharding serves in eval mode only")
+
+        def run(block, h):
+            return block(h, mesh, spatial)
+
         if cfg.input_mask:
             x = torch.cat([x, mask], dim=-1)
         x_geo = x[..., :1]
@@ -265,20 +308,20 @@ class Generator(nn.Module):
         x_geo = torch.where(x_geo.abs() >= cfg.truncation - 0.01, 0.0, x_geo)
         x = torch.cat([x_geo, x[..., 1:]], dim=-1)
 
-        g = self.geo_0a(x_geo)
-        g = self.geo_0b(g)
-        g = self.geo_0c(g)
-        g = self.geo_1a(g)
-        g = self.geo_1b(g)
-        g = self.geo_1c(g)
-        g = self.geo_1d(g)
+        g = run(self.geo_0a, x_geo)
+        g = run(self.geo_0b, g)
+        g = run(self.geo_0c, g)
+        g = run(self.geo_1a, g)
+        g = run(self.geo_1b, g)
+        g = run(self.geo_1c, g)
+        g = run(self.geo_1d, g)
         g = upsample2x(g)
-        g = self.geo_2a(g)
-        g = self.geo_2b(g)
+        g = run(self.geo_2a, g)
+        g = run(self.geo_2b, g)
         geo = upsample2x(g)
 
-        out_occ = self.geo_occ_b(self.geo_occ_a(geo))
-        out_sdf = self.geo_3c(self.geo_3b(self.geo_3a(geo)))
+        out_occ = run(self.geo_occ_b, run(self.geo_occ_a, geo))
+        out_sdf = run(self.geo_3c, run(self.geo_3b, run(self.geo_3a, geo)))
 
         out_color = None
         out_semantic = None
@@ -290,35 +333,35 @@ class Generator(nn.Module):
                 enc_in = torch.cat([masked_x, m], dim=-1)
             else:
                 enc_in = x_color
-            e = self.encoder_0a(enc_in)
-            e = self.encoder_0b(e)
-            e = self.encoder_0c(e)
+            e = run(self.encoder_0a, enc_in)
+            e = run(self.encoder_0b, e)
+            e = run(self.encoder_0c, e)
             if cfg.pass_geo_feats:
-                e = torch.cat([e, self.encoder_geo(geo)], dim=-1)
+                e = torch.cat([e, run(self.encoder_geo, geo)], dim=-1)
             encoded_half = e
-            e = self.encoder_1a(e)
-            e = self.encoder_1b(e)
-            e = self.encoder_1c(e)
+            e = run(self.encoder_1a, e)
+            e = run(self.encoder_1b, e)
+            e = run(self.encoder_1c, e)
             dec = upsample2x(e)
-            dec = self.decoder_2a(dec)
-            dec = self.decoder_2b(dec)
-            dec = self.decoder_2c(dec)
+            dec = run(self.decoder_2a, dec)
+            dec = run(self.decoder_2b, dec)
+            dec = run(self.decoder_2c, dec)
             dec = torch.cat([dec, encoded_half], dim=-1)
             dec = upsample2x(dec)
-            dec = self.decoder_3a(dec)
-            dec = self.decoder_3b(dec)
-            dec = self.decoder_3c(dec)
-            dec = self.decoder_3d(dec)
-            dec = self.decoder_3e(dec)
+            dec = run(self.decoder_3a, dec)
+            dec = run(self.decoder_3b, dec)
+            dec = run(self.decoder_3c, dec)
+            dec = run(self.decoder_3d, dec)
+            dec = run(self.decoder_3e, dec)
             dec = torch.cat([dec, x.to(dec.dtype)], dim=-1)
 
             if pred_color:
-                c = leaky_relu(self.color_head_bn0(dec))
-                c = self.color_head_c(self.color_head_b(self.color_head_a(c)))
+                c = leaky_relu(self.color_head_bn0(dec, mesh=mesh))
+                c = run(self.color_head_c, run(self.color_head_b, run(self.color_head_a, c)))
                 out_color = torch.clamp(c, -1.0, 1.0)
             if pred_semantic:
-                t = leaky_relu(self.semantic_head_bn0(dec))
-                out_semantic = self.semantic_head_c(
-                    self.semantic_head_b(self.semantic_head_a(t)))
+                t = leaky_relu(self.semantic_head_bn0(dec, mesh=mesh))
+                out_semantic = run(self.semantic_head_c, 
+                    run(self.semantic_head_b, run(self.semantic_head_a, t)))
         return out_occ, out_sdf, out_color, out_semantic
 

@@ -3,8 +3,14 @@
 epoch iteration, curriculum flags, CSV logging, checkpoints, validation,
 visual dumps, phase timing and the render cache.
 
-Not carried over: the multi-host feed (``--distributed``, ROADMAP.md Queue A
-item 11) and ``steps_per_call``, which only batches XLA dispatches.
+Multi-process (``mesh=`` of ``parallel.make_mesh()``, one process a device,
+``parallel/multihost.py``): each rank feeds its interleaved slice of every
+global batch (``multihost.local_indices``), the step's collectives make its
+reductions global, the skip decisions and the preemption stop are agreed
+across ranks, and only the primary rank writes logs, checkpoints and visual
+dumps; the render cache stays per rank (a rank caches the views of its own
+samples). Not carried over: ``steps_per_call``, which only batches XLA
+dispatches.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ import numpy as np
 import torch
 
 from ..data.pipeline import batch_iterator
+from ..parallel import mesh as pmesh
+from ..parallel import multihost
 from ..utils.logging import MetricsAccumulator, TrainLog
 from ..utils.timing import PhaseTimer
 from . import state as state_lib
@@ -158,6 +166,7 @@ def run_training(
     vis_at_epoch_end: bool = True,
     device="cuda",
     vgg=None,
+    mesh=None,
 ) -> TrainResult:
     """Train to ``max_epoch`` (default ``cfg.max_epoch``) on ``device`` (the
     GPU unless the caller asks for the CPU).
@@ -179,9 +188,17 @@ def run_training(
     SIGTERM / SIGINT write ``model-preempt-iter{it}.pt`` at the next step
     boundary and return; the previous handlers are restored. ``vgg`` is the
     style / content extractor (``models/vgg.py::load_vgg_for_style``), which
-    the steps need once ``StepFlags.for_iter`` schedules style or content."""
+    the steps need once ``StepFlags.for_iter`` schedules style or content.
+    ``mesh`` trains data-parallel over its ranks (the module docstring);
+    ``cfg.batch_size`` is then the global batch, which the world size must
+    divide."""
+    n_ranks = mesh.size if mesh is not None else 1
+    if cfg.batch_size % n_ranks:
+        raise ValueError(f"batch_size {cfg.batch_size} does not split over {n_ranks} ranks")
+    local_bs = cfg.batch_size // n_ranks
+    primary = multihost.is_primary()
     os.makedirs(save_dir, exist_ok=True)
-    trainer = Trainer(cfg, device, seed=seed, vgg=vgg)
+    trainer = Trainer(cfg, device, seed=seed, vgg=vgg, mesh=mesh)
     epoch0 = start_epoch
     if retrain:
         _, epoch0 = state_lib.load_any_checkpoint(retrain, trainer)
@@ -191,8 +208,15 @@ def run_training(
         # the discriminator from a separate checkpoint (reference train.py:43, :171-178)
         state_lib.load_discriminator(retrain_disc, trainer)
         print(f"loaded disc checkpoint {retrain_disc}")
+    pmesh.replicate_state(trainer, mesh)
 
-    log = TrainLog(save_dir, has_val=val_dataset is not None)
+    def batches(dataset, epoch_seed, shuffle):
+        if n_ranks == 1:
+            return batch_iterator(dataset, cfg.batch_size, shuffle=shuffle, seed=epoch_seed)
+        return batch_iterator(dataset, local_bs, shuffle=False, indices=multihost.local_indices(
+            len(dataset), cfg.batch_size, seed=epoch_seed, epoch=0))
+
+    log = TrainLog(save_dir, has_val=val_dataset is not None) if primary else None
     acc = MetricsAccumulator()
     timer = PhaseTimer(report_every=100)
     render_cache = RenderCache(trainer, cfg.cache_renders) if cfg.cache_renders > 0 else None
@@ -216,7 +240,8 @@ def run_training(
             pass
 
     def finish():
-        log.close()
+        if log is not None:
+            log.close()
         for sig, h in prev_handlers.items():
             signal.signal(sig, h)
         return TrainResult(trainer, it, render_cache, timer)
@@ -226,11 +251,11 @@ def run_training(
     start = time.time()
     last_batch = last_flags = None
     for epoch in range(epoch0, max_epoch):
-        for batch in batch_iterator(train_dataset, cfg.batch_size, shuffle=True,
-                                    seed=seed + epoch):
+        for batch in batches(train_dataset, seed + epoch, shuffle=True):
             with timer.phase("setup"):
                 names, frame_ids = batch.get("name"), batch.get("frame_ids")
-                have_frames = _has_frames(batch)
+                # every rank must skip alike, or the next collective waits forever
+                have_frames = pmesh.all_true(_has_frames(batch), mesh)
                 flags = StepFlags.for_iter(it, cfg, have_frames=have_frames)
                 skip = flags.use_2d and not have_frames  # reference skip (train.py:428-432)
                 if not skip:
@@ -247,18 +272,21 @@ def run_training(
             it += 1
             with timer.phase("log"):
                 acc.add(row)
-                if it % log_every == 0:
+                if it % log_every == 0 and log is not None:
                     log.log_train(epoch, it, acc.means(), time.time() - start)
                 if ckpt_every_iters and it % ckpt_every_iters == 0:
                     checkpoint(f"model-iter{it}-epoch{epoch}.pt", epoch)
             timer.step()
+            # a signal usually reaches one rank: any rank stopping stops all
+            stop_requested["flag"] = not pmesh.all_true(not stop_requested["flag"], mesh)
             if stop_requested["flag"]:
                 checkpoint(f"model-preempt-iter{it}.pt", epoch)
                 print(f"preemption checkpoint written at iter {it}; exiting")
                 return finish()
 
-        # end of epoch: visual dumps of the last train batch (train.py:771, 789-849)
-        if vis_at_epoch_end and last_batch is not None:
+        # end of epoch: visual dumps of the last train batch (train.py:771, 789-849),
+        # the primary's rows (an eval-mode forward runs no collective)
+        if vis_at_epoch_end and last_batch is not None and primary:
             try:
                 _dump_visuals(trainer, cfg, last_batch, it, epoch, save_dir, last_flags)
             except Exception as e:  # the dump must never stop training
@@ -267,13 +295,14 @@ def run_training(
         # end of epoch: validation and checkpoint (train.py:1294-1320)
         if val_dataset is not None:
             val_acc = MetricsAccumulator()
-            for batch in batch_iterator(val_dataset, cfg.batch_size, shuffle=False, seed=0):
-                have_frames = _has_frames(batch)
+            for batch in batches(val_dataset, 0, shuffle=False):
+                have_frames = pmesh.all_true(_has_frames(batch), mesh)
                 flags = StepFlags.for_iter(it, cfg, have_frames=have_frames, train=False)
                 if flags.use_2d and not have_frames:
                     continue
                 val_acc.add(_to_host(trainer.step(_prepare_batch(batch, cfg, it), flags)))
-            log.log_val(epoch, it, acc.means(), val_acc.means(), time.time() - start)
+            if log is not None:
+                log.log_val(epoch, it, acc.means(), val_acc.means(), time.time() - start)
         acc.reset()
         if (epoch + 1) % cfg.save_epoch == 0 or epoch + 1 == max_epoch:
             checkpoint(f"model-epoch{epoch}.pt", epoch + 1)

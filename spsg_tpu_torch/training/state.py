@@ -9,7 +9,12 @@ discriminator, ``"disc_state_dict"``, ``"sn_state"`` (its spectral ``u`` /
 ``sigma``) and ``"disc_optimizer"``: what the JAX package's orbax checkpoint
 holds in its ``GenState`` / ``DiscState``. Serving reads ``"state_dict"``
 only. :func:`load_any_checkpoint` also reads the original PyTorch reference's
-checkpoints (``.pth``), converting its module names."""
+checkpoints (``.pth``), converting its module names.
+
+In a process group (``parallel/multihost.py``) only the primary rank writes a
+checkpoint; every rank reads one (the same file gives every rank the same
+state, which ``parallel.replicate_state`` can then assert by broadcasting
+rank 0's)."""
 
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch
 from ..models import convert
 from ..models.discriminator import Discriminator2D, SpectralState, init_spectral_state
 from ..models.generator import Generator, GeneratorConfig, use_true_float32
+from ..parallel import multihost
 from .config import TrainConfig
 
 
@@ -129,7 +135,9 @@ def save_checkpoint(path: str, model: Union[Generator, "Trainer"], epoch: int) -
     """``torch.save`` of a checkpoint (the module docstring's layout), tensors
     on the CPU. ``model`` is a ``Trainer`` (the whole training state, as the
     JAX package's ``save_checkpoint`` of both states) or a bare generator (its
-    weights only)."""
+    weights only). In a process group only the primary rank writes."""
+    if not multihost.is_primary():
+        return
     def cpu(tree):
         if isinstance(tree, torch.Tensor):
             return tree.detach().cpu()

@@ -57,6 +57,22 @@ one after the other, which is the JAX package's default.
 PyTorch idiom: the state lives in the modules, their optimizers and the
 discriminator's spectral state, not in a state object threaded through the
 step.
+
+Data-parallel training (``Trainer(..., mesh=parallel.make_mesh())``, one
+process a device, ``parallel/multihost.py``): each rank steps on its rows of
+the global batch and every reduction is the global batch's, as GSPMD makes
+them in the JAX package: BatchNorm's batch statistics (the fused kernel's sums
+all-reduced, ``models/generator.py``), every loss's masked mean, the IoU, the
+gates (``gate2d``, the valid-pixel count, the valid patches, the depth gate of
+``skip_batch_on_bad_depth``, and so the discriminator's update: every rank
+takes the same branch), the patch weights' maximum and the style loss's Gram
+matrices. Each rank's loss is the global loss; the parameter gradients of
+both networks are summed over the ranks before each Adam step
+(``parallel/mesh.py``), so the rank's step equals the one-process step on the
+global batch. The gradient penalty's ``alpha`` is drawn for the global batch
+and each rank takes its rows. The parameters, the Adam state and the
+spectral state start as rank 0's (``replicate_state``) and stay identical,
+since every rank applies the same update.
 """
 
 from __future__ import annotations
@@ -78,6 +94,7 @@ from ..ops import depth as depth_ops
 from ..ops import normals3d
 from ..ops import raycast as raycast_ops
 from ..ops.raycast import RaycastConfig, raycast
+from ..parallel import mesh as pmesh
 from .config import StepFlags, TrainConfig
 from .state import (
     disc_optimizer, gen_optimizer, init_discriminator, init_generator, resolve_device)
@@ -136,11 +153,14 @@ class Trainer:
     the generator's testing hook (the kernels' plain versions on any
     device). ``vgg`` (``models/vgg.py::VGGFeatures``) is the style / content
     extractor, moved to the trainer's device and frozen; the steps that
-    compute style or content need it."""
+    compute style or content need it. ``mesh`` (``parallel.Mesh``) trains
+    data-parallel over its ranks (the module docstring); every rank
+    constructs its trainer with the same arguments."""
 
     def __init__(self, cfg: TrainConfig, device="cuda", seed: int = 0,
-                 plain_convs: bool = False, vgg=None):
+                 plain_convs: bool = False, vgg=None, mesh=None):
         self.cfg = cfg
+        self.mesh = pmesh.check_mesh(mesh)
         self.device = resolve_device(device)
         rng = torch.Generator().manual_seed(seed)
         self.generator = init_generator(cfg, rng, self.device, plain_convs=plain_convs)
@@ -156,6 +176,7 @@ class Trainer:
         self.class_weights = torch.as_tensor(
             np.asarray(category.CLASS_WEIGHTS, np.float32), device=self.device)
         self.iteration = 0
+        pmesh.replicate_state(self, self.mesh)
 
     # -- public API ---------------------------------------------------------
 
@@ -169,8 +190,9 @@ class Trainer:
         also ``images_depth`` (B[,F],H,W), ``images_color`` (B[,F],3,H,W),
         ``images_view`` (B[,F],4,4) and ``images_intrinsic`` (B[,F],4).
         ``generator`` (CPU ``torch.Generator``, default the trainer's own) draws
-        the gradient penalty's ``alpha`` (``wgan_gp``), unless ``gp_alpha``
-        (B,1,1,1) is given. ``precomp`` is what :meth:`precompute_views` gives
+        the gradient penalty's ``alpha`` (``wgan_gp``) for the global batch,
+        unless ``gp_alpha`` (the global batch's, B*F*ranks,1,1,1) is given;
+        the rank takes its rows. Under a mesh ``batch`` is the rank's rows. ``precomp`` is what :meth:`precompute_views` gives
         for this batch, or a tuple of per-sample slices of it (the training
         loop's cache entries), concatenated here; the 2D block then uses it in
         place of the input and target marches and the depth chain. Returns the
@@ -206,6 +228,7 @@ class Trainer:
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            pmesh.sum_gradients(params, self.mesh)
             if skip_on_depth and not bool(aux["gate_depth"] > 0):  # a host read
                 # the reference's whole-batch skip (train.py:539-541): no
                 # optimizer step, no running statistics, no iteration
@@ -303,6 +326,7 @@ class Trainer:
         target_img = aux["target_img"]
         sn0 = self.sn_state
         weighted = cfg.weight_by_percent_pixels and cfg.disc_loss_type != "hinge"
+        mesh = self.mesh
         with torch.set_grad_enabled(train):
             # the stored spectral state threads through the two calls
             d_real, sn1 = self._disc(target_img, sn0, train)
@@ -313,17 +337,24 @@ class Trainer:
                 aux["weight_color_disc"] if cfg.patch_disc else None,
                 sample_weight_real=aux["sample_weight_real"] if weighted else None,
                 sample_weight_fake=aux["sample_weight_fake"] if weighted else None,
+                mesh=mesh,
             )
             if cfg.disc_loss_type.startswith("wgan"):
                 dl = cfg.weight_disc_loss * 0.005 * (real_l + fake_l)
                 if cfg.disc_loss_type == "wgan_gp" and train:
+                    n = target_img.shape[0]
+                    ranks = mesh.size if mesh is not None else 1
                     if gp_alpha is None:
-                        gp_alpha = torch.rand((target_img.shape[0], 1, 1, 1),
+                        # drawn for the global batch, the same on every rank
+                        gp_alpha = torch.rand((n * ranks, 1, 1, 1),
                                               generator=generator or self.rng)
                     alpha = torch.as_tensor(np.array(gp_alpha, dtype=np.float32)).to(self.device)
+                    if ranks > 1:
+                        alpha = alpha[mesh.rank * n:(mesh.rank + 1) * n]
                     # from the stored statistics, without an update
                     penalty = gan_losses.gradient_penalty(
-                        lambda x: self._disc(x, sn0, False)[0], target_img, synth_sg, alpha)
+                        lambda x: self._disc(x, sn0, False)[0], target_img, synth_sg, alpha,
+                        mesh)
                     dl = dl + 10.0 * penalty
             else:
                 dl = cfg.weight_disc_loss * (real_l + fake_l)
@@ -337,15 +368,17 @@ class Trainer:
             for p in dparams:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            pmesh.sum_gradients(dparams, mesh)
             # the reference steps the discriminator only with enough valid
             # pixels (train.py:662, 726-727): one host read of the gate a step
+            # (a global value: every rank takes the same branch)
             if bool(aux["gate2d"] > 0):
                 self.disc_optimizer.step()
             self.sn_state = sn2
         # against the updated parameters and statistics, without an update
         with torch.set_grad_enabled(train):
             d_fake_g, _ = self._disc(synth, self.sn_state, False)
-            gen_l = gan_losses.generator_loss(cfg.disc_loss_type, d_fake_g)
+            gen_l = gan_losses.generator_loss(cfg.disc_loss_type, d_fake_g, mesh)
         metrics["loss_gen"] = gen_l.detach()
         return gen_l
 
@@ -354,11 +387,12 @@ class Trainer:
         of the JAX package). Returns (loss, metrics, aux)."""
         cfg = self.cfg
         trunc = cfg.truncation
+        mesh = self.mesh
         metrics: Dict[str, torch.Tensor] = {}
 
         occ_logits, pred_sdf, pred_color, pred_sem = self.generator(
             batch["input"], batch["mask"], pred_color=flags.pred_color, pred_sdf=True,
-            pred_semantic=flags.pred_semantic)
+            pred_semantic=flags.pred_semantic, mesh=mesh)
         occ_logits = occ_logits[..., 0]
         pred_sdf_g = pred_sdf[..., 0]
 
@@ -374,16 +408,17 @@ class Trainer:
         empty = torch.sigmoid(occ_logits.detach()) < 0.5
         weight = torch.where(empty, 0.0, weight)
 
-        loss_occ = geo_losses.occ_loss(target_sdf, occ_logits, known, weight, trunc)
+        loss_occ = geo_losses.occ_loss(target_sdf, occ_logits, known, weight, trunc, mesh)
         # weight_occ is 1 during the geo-only phase, weight_occ_loss after
         # (train.py:476)
         loss = batch["weight_occ"] * loss_occ
         metrics["loss_occ"] = loss_occ
-        metrics["iou_occ"] = geo_losses.occ_iou(target_sdf, occ_logits.detach(), known, trunc)
+        metrics["iou_occ"] = geo_losses.occ_iou(target_sdf, occ_logits.detach(), known, trunc,
+                                                mesh)
 
         if flags.pred_sdf and cfg.weight_sdf_loss > 0:
             loss_sdf = geo_losses.sdf_l1_loss(
-                target_sdf, pred_sdf_g, known, weight, cfg.logweight_sdf)
+                target_sdf, pred_sdf_g, known, weight, cfg.logweight_sdf, mesh)
             loss = loss + cfg.weight_sdf_loss * loss_sdf
             metrics["loss_sdf"] = loss_sdf
 
@@ -392,7 +427,7 @@ class Trainer:
 
         if flags.pred_semantic and cfg.pred_3d_semantic:
             loss_sem = sem_losses.semantic_3d_loss(
-                pred_sem, batch["semantics"], surface_pred, self.class_weights)
+                pred_sem, batch["semantics"], surface_pred, self.class_weights, mesh)
             loss = loss + cfg.weight_semantic_loss * loss_sem
             metrics["loss_semantic"] = loss_sem
 
@@ -431,7 +466,7 @@ class Trainer:
         with torch.no_grad():
             f_tgt = self.vgg(style_tgt)
         return style_losses.style_content_loss(f_out, f_tgt, flags.compute_style,
-                                               flags.compute_content)
+                                               flags.compute_content, self.mesh)
 
     def _2d_losses(self, batch, flags, target_sdf, pred_sdf_g, pred_color, pred_sem,
                    surface_pred, precomp=None):
@@ -442,6 +477,7 @@ class Trainer:
         cfg = self.cfg
         trunc = cfg.truncation
         rc = _raycast_cfg(cfg)
+        mesh = self.mesh
         metrics: Dict[str, torch.Tensor] = {}
 
         images_depth, images_color, view, intr, rep = _frames(batch)
@@ -464,7 +500,7 @@ class Trainer:
             images_normals, _, frames_ok = depth_ops.depth_to_normals(
                 images_depth, intr, cfg.max_depth_fill_iters)
         # the reference skips the sample when holes remain (train.py:539-541)
-        gate2d = frames_ok.all().float()
+        gate2d = pmesh.all_min(frames_ok.all().float(), mesh)
         view_inv_rot = torch.linalg.inv(view)[:, :3, :3]
 
         # per-pixel colour weights where the input misses the target (train.py:546-554)
@@ -533,13 +569,14 @@ class Trainer:
                 target2d_label = sem_losses.rendered_semantic_label(rc_tgt.semantic)
 
         # depth L1 (train.py:634-641)
-        loss_depth = twod_losses.depth_l1_loss(rc_pred.depth, images_depth, cfg.voxelsize)
+        loss_depth = twod_losses.depth_l1_loss(rc_pred.depth, images_depth, cfg.voxelsize, mesh)
         loss2d = cfg.weight_depth_loss * gate2d * loss_depth
         metrics["loss_depth"] = loss_depth
 
         # colour L1 (train.py:642-648)
         if flags.pred_color and cfg.weight_color_loss > 0:
-            loss_color = twod_losses.color_l1_loss(rc_pred.color, images_color, weight_color)
+            loss_color = twod_losses.color_l1_loss(rc_pred.color, images_color, weight_color,
+                                                   mesh)
             loss2d = loss2d + cfg.weight_color_loss * gate2d * loss_color
             metrics["loss_color"] = loss_color
 
@@ -547,20 +584,21 @@ class Trainer:
         raycast_stack = (torch.cat([rc_pred.color, rc_pred.normal], dim=-1) if flags.pred_color
                          else rc_pred.normal)
         valid_px = raycast_stack.detach() != NEG_INF
-        num_valid = valid_px.sum()
+        num_valid = pmesh.global_sum(valid_px.sum(), mesh)
         gate_numvalid = (num_valid > cfg.min_num_valid_2d).float()
         valid_patches = weight_color_disc = None
         if (self.discriminator is not None and cfg.patch_disc
                 and cfg.patch_size < cfg.style_height):
             vp = self.discriminator.compute_valids(valid_px[..., -1:].float())
             valid_patches = vp[..., 0] > cfg.valid_thresh
-            gate_numvalid = gate_numvalid * (valid_patches.sum() > 0).float()
+            gate_numvalid = gate_numvalid * (
+                pmesh.global_sum(valid_patches.sum(), mesh) > 0).float()
             if weight_color is not None:
                 # per-patch discriminator weights from the missing-colour map
                 # (train.py:657-661)
                 wcd = self.discriminator.compute_valids(weight_color[..., None])
                 weight_color_disc = (cfg.weight_missing_color * wcd
-                                     / torch.clamp(wcd.max(), min=1e-12))
+                                     / torch.clamp(pmesh.all_max(wcd.max(), mesh), min=1e-12))
 
         # style / content (train.py:663-686)
         if flags.compute_style or flags.compute_content:
@@ -576,7 +614,7 @@ class Trainer:
         # 2D semantic CE (train.py:743-747)
         if flags.pred_semantic and not cfg.pred_3d_semantic and target2d_label is not None:
             loss_sem2d = sem_losses.semantic_2d_loss(
-                rc_pred.semantic, target2d_label, self.class_weights)
+                rc_pred.semantic, target2d_label, self.class_weights, mesh)
             loss2d = loss2d + cfg.weight_semantic_loss * gate2d * loss_sem2d
             metrics["loss_semantic"] = loss_sem2d
 

@@ -173,12 +173,13 @@ def test_window_batch_size_invariance():
                         "colors": np.zeros((16, 16, 16, 3), np.float32)}),
     dict(mesh=object())])
 def test_unported_options_raise(kw):
-    """mesh= is not ported and raises, naming ROADMAP.md; compact_scene is
+    """mesh= takes the port's parallel.Mesh (tests/test_torch_parallel_serving.py)
+    and refuses anything else; compact_scene is ported
     (tests/test_torch_compact_feed.py) and refuses float colours, as the JAX
     package does."""
     gen = _port_setup()
     sample = _sample(CHUNK, 3)
-    err, match = ((NotImplementedError, "ROADMAP") if "mesh" in kw
+    err, match = ((TypeError, "parallel.Mesh") if "mesh" in kw
                   else (TypeError, "must be uint8"))
     with pytest.raises(err, match=match):
         chunked.run_chunked_inference(

@@ -92,16 +92,19 @@ def test_blocks_compute_in_bf16_heads_and_parameters_in_float32():
         tg.Generator(tg.GeneratorConfig(nf=4, dtype="float16"))
 
 
-def test_training_in_bf16_raises_naming_the_roadmap():
+def test_training_in_bf16_raises_naming_the_roadmap(monkeypatch):
     """Training in bf16 is ported (tests/test_torch_train_step_bf16.py): the
-    Trainer builds the bf16 generator. What training still lacks, multi-host
-    training (the train CLI's --distributed), raises naming ROADMAP.md."""
+    Trainer builds the bf16 generator. The train CLI's --distributed is ported
+    too (tests/test_torch_parallel_cli.py) and, without the SPSG_* variables
+    of a process group, raises naming them."""
     from spsg_tpu_torch.cli import train as train_cli
 
+    for var in ("SPSG_COORDINATOR", "SPSG_NUM_PROCESSES", "SPSG_PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
     trainer = Trainer(TrainConfig(input_dim=H.CHUNK, nf_gen=4, compute_dtype="bfloat16"),
                       device="cpu")
     assert trainer.generator.cfg.dtype == "bfloat16"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(RuntimeError, match="SPSG_COORDINATOR"):
         train_cli.main(["--device", "cpu", "--synthetic_chunks", "2", "--input_dim", "16",
                         "--nf_gen", "4", "--compute_dtype", "bfloat16", "--distributed"])
 

@@ -71,11 +71,14 @@ def test_default_device_without_a_gpu_raises(tmp_path, monkeypatch):
 def test_cpu_flag_and_unported_options(tmp_path):
     """--cpu means --device cpu (here with a bf16 generator, the scene cut by
     --input_dim, and the flags the JAX package's compiler reads);
-    --spatial_shard raises, naming ROADMAP.md."""
+    --spatial_shard without a process group is a world of one and runs
+    (two ranks: tests/test_torch_parallel_cli.py)."""
     out = str(tmp_path / "bf16")
     cli.main(ARGS + ["--cpu", "--compute_dtype", "bfloat16", "--num_to_vis", "0",
                      "--input_dim", "16", "64", "64", "--output", out, "--zslab_conv",
                      "--folded_conv"])
     assert os.listdir(out) == []
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        cli.main(ARGS + ["--device", "cpu", "--spatial_shard", "--output", str(tmp_path / "s")])
+    out = str(tmp_path / "s")
+    cli.main(ARGS + ["--device", "cpu", "--spatial_shard", "--num_to_vis", "0",
+                     "--input_dim", "16", "64", "64", "--output", out])
+    assert os.listdir(out) == []

@@ -104,8 +104,13 @@ def test_retrain_disc_takes_the_discriminator_of_another_run(geo_run, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [["--distributed"]])
-def test_unported_options_raise(argv, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+def test_unported_options_raise(argv, tmp_path, monkeypatch):
+    """--distributed needs the SPSG_* variables of a process group and raises
+    without them, before it writes anything (two ranks:
+    tests/test_torch_parallel_cli.py)."""
+    for var in ("SPSG_COORDINATOR", "SPSG_NUM_PROCESSES", "SPSG_PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="SPSG_COORDINATOR"):
         cli.main(GEO + argv + ["--save", str(tmp_path / "run")])
     assert not os.path.exists(tmp_path / "run")
 

@@ -16,6 +16,7 @@ from spsg_tpu_torch.cli import test_scene as cli
 from spsg_tpu_torch.data import pipeline, synthetic
 from spsg_tpu_torch.inference import whole_scene
 from spsg_tpu_torch.ops.raycast import RaycastConfig
+from spsg_tpu_torch.parallel import make_mesh
 
 import torch_port_helpers as H
 
@@ -83,10 +84,20 @@ def test_run_whole_scene_matches_jax(scene_outputs):
 
 
 def test_mesh_raises_naming_the_roadmap(scene_outputs):
+    """mesh= takes the port's parallel.Mesh and refuses anything else; the
+    mesh of a process without a group (a world of one) gives the unsharded
+    outputs to the bit (two ranks: tests/test_torch_parallel_serving.py)."""
     sample, v, _ = scene_outputs
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        whole_scene.run_whole_scene(H.torch_generator(v), sample["input"], sample["mask"],
-                                    mesh=object(), device="cpu")
+    gen = H.torch_generator(v)
+    with pytest.raises(TypeError, match="parallel.Mesh"):
+        whole_scene.run_whole_scene(gen, sample["input"], sample["mask"], mesh=object(),
+                                    device="cpu")
+    kw = dict(truncation=TRUNC, max_height=16, device="cpu")
+    one = whole_scene.run_whole_scene(gen, sample["input"], sample["mask"], mesh=make_mesh(),
+                                      **kw)
+    for a, b in zip(one, whole_scene.run_whole_scene(gen, sample["input"], sample["mask"],
+                                                     **kw)):
+        np.testing.assert_array_equal(a, b)
 
 
 def _grids(sample, outputs):
