@@ -214,6 +214,40 @@ fails. Phases, each printing one JSON line:
            region PLY, filelist; one chunk through data/pipeline.ChunkDataset
            with the shapes of a training chunk. category (matplotlib) is not
            driven: a line says so
+  conv_forms
+           the three forms of the convs the hand kernels do not take (F.conv3d;
+           z-slab 2D convs, ops/zslab_conv.py; output-folded patch products,
+           ops/folded_conv.py, on the two 5^3 entry convs), GeneratorConfig's
+           zslab_conv (all seven as z-slab convs) and folded_conv (the two 5^3
+           entry convs as z-slab convs, the faster form on them) and remat, in
+           true float32: each of the seven
+           layers at the input it gets in the full step (batch 2, (128,64,64),
+           nf 20; found by hooks on a forward) in each form that takes it, y,
+           dx and dW against F.conv3d and its autograd within 1e-4 of each one's
+           largest entry, and device times (CUDA events) of the forward, the
+           input gradient alone, the weight gradient alone and forward + both;
+           the two 5^3 entry convs of the whole scene ((1,128,160,192)) forward
+           only; one bfloat16 forward per form against F.conv3d in bfloat16 (the
+           kernels' bf16 rule); the full step of train2d (its weights and
+           batch) with each flag and with remat beside the default step, each
+           trainer from the same state: launches per step (K1 33, K2 28, K3 23
+           with either flag; with remat K1 38 and K3 46: every block's forward
+           kernel once more in the backward), metrics within 1e-4 relative (2D
+           and adversarial 1e-3) and the generator's gradients within 1e-2 of a
+           leaf's largest entry of the default step's (train2d's twin rule),
+           one warm-up and three timed steps (median seconds, peak memory) and
+           device time by kind; the generator alone with and without remat on
+           the card, and without it twice (outputs, running statistics and
+           gradients identical to the bit or not); a gradient witness on three
+           seeds (weights and batch), reported: the full step with the seven
+           library convs in float64, the default step twice and the step with
+           each flag, each one's generator gradients against the float64 step's
+           per leaf (the worst leaves, the readings on the leaf that is worst
+           between zslab_conv and the default) and the LeakyReLU slope flips of
+           its forward against the float64 step's; the scene phase's whole
+           scene with each flag: launches
+           (K1 5, K3 23), seconds, peak, device time of the forward by kind,
+           outputs within 1e-3 of the scene phase's
   parallel two ranks of a process group (spsg_tpu_torch/parallel/), each a
            process of its own started by this one (chip_smoke.py --parallel-rank):
            NCCL with a card a rank when the machine has two cards, else gloo
@@ -240,7 +274,9 @@ fails. Phases, each printing one JSON line:
   kernels  one line {"kernels": [...]}: per kernel its launches on the
            paths (serve, scene, train, train2d, train2d_missing_colour,
            train2d_style, train2d_bf16, train_cli, datagen, parallel_train,
-           parallel_chunked, parallel_scene (both ranks' counts added);
+           parallel_chunked, parallel_scene (both ranks' counts added),
+           train2d_zslab_conv, train2d_folded_conv, train2d_remat,
+           scene_zslab_conv, scene_folded_conv;
            each counter set to 0 just before the path's run and read just
            after) and its numbers at the heaviest main-path shape (for the
            raycaster's, the prediction grid at the path's size; for K7 the
@@ -327,8 +363,10 @@ from spsg_tpu_torch.datagen import fusion as tsdf  # noqa: E402
 from spsg_tpu_torch.inference import chunked  # noqa: E402
 from spsg_tpu_torch.losses import geo as geo_losses  # noqa: E402
 from spsg_tpu_torch.models import convert  # noqa: E402
-from spsg_tpu_torch.models.generator import use_true_float32  # noqa: E402
+from spsg_tpu_torch.models.generator import ConvBlock, use_true_float32  # noqa: E402
 from spsg_tpu_torch.ops import _build, conv3x3 as conv_ops  # noqa: E402
+from spsg_tpu_torch.ops.folded_conv import conv_folded, pick_fold  # noqa: E402
+from spsg_tpu_torch.ops.zslab_conv import conv3d_zslab  # noqa: E402
 from spsg_tpu_torch.ops import depth as depth_ops, normals3d, raycast as rc_ops  # noqa: E402
 from spsg_tpu_torch.training import StepFlags, TrainConfig  # noqa: E402
 from spsg_tpu_torch.training import state  # noqa: E402
@@ -1847,11 +1885,11 @@ def rel_diff(a, b):
     return abs(a - b) / max(abs(b), 1e-12)
 
 
-def compare_grads(a, b, grad_tol, what, module="generator"):
-    """Parameter gradients of ``module`` of two trainers after the same step,
-    each within ``grad_tol`` of its largest entry; with ``grad_tol`` None the
-    differences are reported, not held to a tolerance."""
-    reached, noise, errs = 0, [], []
+def leaf_gaps(a, b, what, module="generator"):
+    """Parameter gradients of ``module`` of two trainers after the same step:
+    ({name: max |a - b| over the largest |b|} over the leaves that have a
+    gradient, [the leaves whose gradient is rounding noise on both sides])."""
+    noise, errs = [], {}
     pb = dict(getattr(b, module).named_parameters())
     largest = max(p.grad.abs().max().item() for p in pb.values())
     for name, p in getattr(a, module).named_parameters():
@@ -1866,18 +1904,25 @@ def compare_grads(a, b, grad_tol, what, module="generator"):
             if scale > 0.0:
                 noise.append(name)
             continue
-        reached += 1
-        err = (g - r).abs().max().item() / scale
-        errs.append((err, name))
-    worst, worst_name = max(errs)
+        errs[name] = (g - r).abs().max().item() / scale
+    return errs, noise
+
+
+def compare_grads(a, b, grad_tol, what, module="generator"):
+    """Parameter gradients of ``module`` of two trainers after the same step,
+    each within ``grad_tol`` of its largest entry; with ``grad_tol`` None the
+    differences are reported, not held to a tolerance."""
+    gaps, noise = leaf_gaps(a, b, what, module)
+    errs = sorted((e, n) for n, e in gaps.items())
+    worst, worst_name = errs[-1]
     if grad_tol is not None and not worst <= grad_tol:
         raise SystemExit(f"chip_smoke: {what}: gradient of {module} {worst_name} differs by "
-                         f"{worst:.3e} of its largest entry; worst five {sorted(errs)[-5:]}, "
-                         f"median {sorted(errs)[len(errs) // 2][0]:.3e}")
+                         f"{worst:.3e} of its largest entry; worst five {errs[-5:]}, "
+                         f"median {errs[len(errs) // 2][0]:.3e}")
     return dict(grad_max_rel_diff=worst, grad_worst_parameter=worst_name,
-                parameters_with_gradient=reached,
-                grad_median_rel_diff=sorted(errs)[len(errs) // 2][0],
-                grad_worst_five=[[n, e] for e, n in sorted(errs)[-5:]],
+                parameters_with_gradient=len(errs),
+                grad_median_rel_diff=errs[len(errs) // 2][0],
+                grad_worst_five=[[n, e] for e, n in errs[-5:]],
                 gradients_of_rounding_noise=noise)
 
 
@@ -3430,6 +3475,445 @@ def phase_train2d_bf16(train2d_device):
     return launches
 
 
+# --------------------------------------------------------------------------- conv_forms
+# GeneratorConfig's two flags for the convs the hand kernels do not take (both
+# z-slab convs in the port: all seven, or the two 5^3 entry convs), and remat
+FORM_FLAGS = ("zslab_conv", "folded_conv")
+# the full step's launches with remat: every block's forward kernel once more
+# in the backward (23 fused, 5 bare), the rest as WANT_2D
+WANT_2D_REMAT = dict(WANT_2D, conv3x3_act_stats=2 * 23, conv3x3=2 * 5 + 28)
+FORM_REPS = 5
+# the gradient witness: the full step from these seeds' weights (batches 7 + seed)
+WITNESS_SEEDS = (0, 1, 2)
+
+
+def library_layers(gen, shape):
+    """The blocks of ``gen`` that the hand kernels do not take, in call order,
+    each with the input shape it gets in an eval forward of a (B, Z, Y, X)
+    ``shape`` chunk: [(name, block, input shape)]."""
+    seen = []
+    hooks = [b.register_forward_pre_hook(
+        lambda mod, args, name=n: seen.append((name, mod, tuple(args[0].shape))))
+        for n, b in gen.named_modules() if isinstance(b, ConvBlock) and not b.eligible]
+    x = torch.zeros(shape + (4,), device=DEV)
+    try:
+        with torch.no_grad():
+            gen.eval()(x, x[..., :1], pred_color=True, pred_semantic=True)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def layer_fold(block, shape):
+    """The fold the folded form (ops/folded_conv.py) takes for ``block`` on an
+    input of ``shape``, None where it does not take the layer: the JAX
+    package's rule (an odd SAME stride-1 conv, a fold other than (1, 1))."""
+    k = block.weight.shape[2]
+    if not (k % 2 == 1 and block.stride == 1 and block.dilation == 1
+            and block.padding == k // 2):
+        return None
+    fold = pick_fold(shape[2], shape[3], block.weight.shape[0], k=k)
+    return fold if fold != (1, 1) else None
+
+
+def conv_form(form, block, fold=None):
+    """(x channel-last, w (Cout, Cin, k, k, k)) -> channel-last output of one
+    form ("library", "zslab", "folded"), without the bias."""
+    s, p, d = block.stride, block.padding, block.dilation
+    if form == "library":
+        return lambda x, w: F.conv3d(x.permute(0, 4, 1, 2, 3), w, None, s, p, d).permute(
+            0, 2, 3, 4, 1)
+    if form == "zslab":
+        return lambda x, w: conv3d_zslab(x, w.permute(2, 3, 4, 1, 0), s, p, d)
+    return lambda x, w: conv_folded(x, w.permute(2, 3, 4, 1, 0), fold)
+
+
+def rel_err(a, b):
+    """max |a - b| over the largest |b|."""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def form_values(fn, x, w, g):
+    """y, dx, dW of one form under the cotangent ``g``."""
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y = fn(xg, wg)
+    dx, dw = torch.autograd.grad(y, (xg, wg), g)
+    return y.detach(), dx, dw
+
+
+def form_times(fn, x, w, g, reps=FORM_REPS):
+    """Device ms (CUDA events) of one form: the forward, the input gradient
+    alone (the weight not requiring one), the weight gradient alone, and
+    forward + both gradients. A backward is timed on a graph kept from one
+    forward, so it holds what that backward launches (the folded form's
+    patch extraction included)."""
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: fn(x, w), reps)
+    y_dx, y_dw = fn(xg, w), fn(x, wg)
+    dgrad = cuda_ms(lambda: torch.autograd.grad(y_dx, xg, g, retain_graph=True), reps)
+    wgrad = cuda_ms(lambda: torch.autograd.grad(y_dw, wg, g, retain_graph=True), reps)
+    both = cuda_ms(lambda: torch.autograd.grad(fn(xg, wg), (xg, wg), g), reps)
+    del y_dx, y_dw
+    return dict(forward_ms=fwd, dgrad_ms=dgrad, wgrad_ms=wgrad, forward_backward_ms=both)
+
+
+def conv_forms_layers(gen, shape, backward=True):
+    """Each library layer of ``gen`` at the input it gets from a ``shape``
+    chunk, in each form that takes it: float32 values (y, and with
+    ``backward`` dx and dW) against F.conv3d and its autograd within 1e-4 of
+    each one's largest entry, and device times."""
+    rng = torch.Generator().manual_seed(11)
+    recs = []
+    for name, block, xshape in library_layers(gen, shape):
+        fold = layer_fold(block, xshape)
+        x = torch.randn(xshape, generator=rng).to(DEV)
+        w = block.weight.detach().clone()
+        lib = conv_form("library", block)
+        with torch.no_grad():
+            yshape = tuple(lib(x, w).shape)
+        g = torch.randn(yshape, generator=rng).to(DEV)
+        k = w.shape[2]
+        flops = 2.0 * k ** 3 * w.shape[1] * w.shape[0] * float(np.prod(yshape[:4]))
+        rec = dict(layer=name, input=list(xshape), cout=w.shape[0], kernel=k,
+                   stride=block.stride, fold=list(fold) if fold else None, flops=flops, forms={})
+        forms = ["library", "zslab"] + (["folded"] if fold else [])
+        ref = form_values(lib, x, w, g) if backward else None
+        for form in forms:
+            fn = conv_form(form, block, fold)
+            if form != "library":
+                if backward:
+                    errs = [rel_err(a, b) for a, b in zip(form_values(fn, x, w, g), ref)]
+                else:
+                    with torch.no_grad():
+                        errs = [rel_err(fn(x, w), lib(x, w))]
+                if not max(errs) <= 1e-4:
+                    raise SystemExit(f"chip_smoke: conv_forms {name} {xshape}: {form} against "
+                                     f"F.conv3d, y / dx / dW off by {errs} of their largest entry")
+                rec.setdefault("rel_err", {})[form] = errs
+            if backward:
+                t = form_times(fn, x, w, g)
+            else:
+                with torch.no_grad():
+                    t = dict(forward_ms=cuda_ms(lambda: fn(x, w), FORM_REPS))
+            t["forward_tflops"] = flops / t["forward_ms"] / 1e9
+            rec["forms"][form] = t
+        recs.append(rec)
+        del x, g, ref
+    torch.cuda.empty_cache()
+    return recs
+
+
+def conv_forms_bf16(gen, shape):
+    """One bfloat16 forward per form against F.conv3d in bfloat16 (the
+    kernels' bf16 rule: both round a float32 sum once): z-slab on the heaviest
+    strided conv, folded on encoder_0a."""
+    rng = torch.Generator().manual_seed(12)
+    layers = {name: (block, xshape) for name, block, xshape in library_layers(gen, shape)}
+    out = {}
+    for form, name in (("zslab", "encoder_1a"), ("folded", "encoder_0a")):
+        block, xshape = layers[name]
+        x = torch.randn(xshape, generator=rng).to(DEV).bfloat16()
+        w = block.weight.detach().bfloat16()
+        with torch.no_grad():
+            got = conv_form(form, block, layer_fold(block, xshape))(x, w)
+            ref = conv_form("library", block)(x, w)
+        if got.dtype != torch.bfloat16:
+            raise SystemExit(f"chip_smoke: conv_forms bf16 {form} computed in {got.dtype}")
+        out[form] = dict(layer=name, max_abs_err=check_y(got, ref, torch.bfloat16,
+                                                         f"conv_forms bf16 {form} {name}"))
+    return out
+
+
+def conv_forms_steps(batch):
+    """The full default step (train2d's configuration, weights and batch) and
+    the same step with each form and with remat, each trainer from the same
+    state: launches of the first step, its metrics and the generator's
+    gradients against the default step's; then one warm-up and three timed
+    steps (median seconds, peak memory) and device time by kind."""
+    cfg = TrainConfig()
+    flags = StepFlags(**FULL_2D)
+    base = Trainer(cfg, DEV, seed=0)
+    scale_conv_weights(base.generator, 2.0)
+    centre_train_occupancy(base, batch)
+    gsd = {k: v.clone() for k, v in base.generator.state_dict().items()}
+    dsd = {k: v.clone() for k, v in base.discriminator.state_dict().items()}
+    sn = {k: {kk: vv.clone() for kk, vv in v.items()} for k, v in base.sn_state.items()}
+    trainers, recs, launches, first = {}, {}, {}, {}
+    for name in ("default",) + FORM_FLAGS + ("remat",):
+        tr = base if name == "default" else Trainer(
+            dataclasses.replace(cfg, **{name: True}), DEV, seed=0)
+        tr.generator.load_state_dict(gsd)
+        tr.discriminator.load_state_dict(dsd)
+        tr.sn_state = {k: {kk: vv.clone() for kk, vv in v.items()} for k, v in sn.items()}
+        reset_all_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics = tr.step(batch, flags)
+        torch.cuda.synchronize()
+        launches[name] = all_launch_counts()
+        want = WANT_2D_REMAT if name == "remat" else WANT_2D
+        if launches[name] != want:
+            raise SystemExit(f"chip_smoke: conv_forms: launches of the full step with {name} "
+                             f"{launches[name]}, expected {want}")
+        trainers[name], first[name] = tr, metrics
+        recs[name] = dict(launches_per_step=launches[name],
+                          first_step_max_memory_allocated=torch.cuda.max_memory_allocated(),
+                          first_step_metrics={k: float(v) for k, v in metrics.items()})
+        if name != "default":
+            # metrics at train2d's rule; the generator's gradients within 1e-2 of a
+            # leaf's largest entry (the LeakyReLU slope flips of the twin rule; the
+            # gradient witness below measures them)
+            recs[name]["against_default"] = dict(
+                metrics_rel_diff=compare_metrics(metrics, first["default"],
+                                                 f"full step with {name} vs default"),
+                generator_gradients=compare_grads(tr, trainers["default"], 1e-2,
+                                                  f"full step with {name} vs default"))
+            recs[name]["against_default"]["gradients_identical"] = all(
+                torch.equal(p.grad, q.grad) for p, q in zip(
+                    tr.generator.parameters(), trainers["default"].generator.parameters()))
+    for name, tr in trainers.items():
+        tr.step(batch, flags)
+        seconds = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.time()
+            m = tr.step(batch, flags)
+            torch.cuda.synchronize()
+            seconds.append(time.time() - t)
+        if not all(np.isfinite(float(v)) for v in m.values()):
+            raise SystemExit(f"chip_smoke: conv_forms: the step with {name} is not finite: {m}")
+        recs[name].update(seconds_per_step=sorted(seconds)[1], seconds_per_step_all=seconds,
+                          max_memory_allocated_steady=torch.cuda.max_memory_allocated(),
+                          step_device_time=profile_train2d_step(tr, batch, FULL_2D))
+    return recs, launches, trainers
+
+
+def generator_remat_bits(trainers, batch):
+    """The generator alone (no raycaster, whose scatter adds atomically), one
+    train forward and backward of a fixed loss from the same state: with remat
+    against without, and without remat twice (what the card repeats of its
+    own). Outputs, running statistics and gradients identical to the bit or
+    not, and the gradients' largest difference over a leaf's largest entry."""
+    dev_batch = trainers["default"]._to_device(batch)
+    x, m = dev_batch["input"], dev_batch["mask"]
+    sd = {k: v.clone() for k, v in trainers["default"].generator.state_dict().items()}
+    runs = {}
+    for key, name in (("default", "default"), ("remat", "remat"), ("default_again", "default")):
+        gen = trainers[name].generator.train()
+        gen.load_state_dict(sd)
+        gen.zero_grad(set_to_none=True)
+        outs = gen(x, m, pred_color=True, pred_semantic=True)
+        sum((o.float() ** 2).mean() for o in outs).backward()
+        torch.cuda.synchronize()
+        runs[key] = ([o.detach() for o in outs],
+                     {k: v.clone() for k, v in gen.state_dict().items()},
+                     [p.grad.clone() for p in gen.parameters()])
+    (oa, sa, ga) = runs["default"]
+    out = {}
+    for key in ("remat", "default_again"):
+        ob, sb, gb = runs[key]
+        out[f"{key}_vs_default"] = dict(
+            outputs_identical=all(torch.equal(a, b) for a, b in zip(oa, ob)),
+            running_statistics_identical=all(torch.equal(sa[k], sb[k]) for k in sa),
+            gradients_identical=all(torch.equal(a, b) for a, b in zip(ga, gb)),
+            gradient_max_rel_diff=max(rel_err(b, a) for a, b in zip(ga, gb)))
+    return out
+
+
+def _library_conv_float64(self, x, dt, halo):
+    """ConvBlock._library_conv with F.conv3d in float64, forward and backward,
+    its output rounded once to the block's type: the witness's yardstick."""
+    y = F.conv3d(x.double().permute(0, 4, 1, 2, 3), self.weight.double(), None, self.stride,
+                 self.padding, self.dilation)
+    return y.permute(0, 2, 3, 4, 1).to(dt)
+
+
+class SlopeSigns:
+    """Forward pre-hooks on the BatchNorm of every ConvBlock with a LeakyReLU:
+    the sign of each activation (that of its pre-activation, which LeakyReLU
+    keeps), one bool tensor a block call, in call order."""
+
+    def __init__(self, gen):
+        self.signs = []
+        self.hooks = [b.bn.register_forward_pre_hook(
+            lambda mod, args: self.signs.append(args[0].detach() >= 0))
+            for b in gen.modules() if isinstance(b, ConvBlock) and b.act and b.bn is not None]
+
+    def remove(self):
+        for h in self.hooks:
+            h.remove()
+        return self.signs
+
+
+def slope_flips(signs, ref):
+    """Activations whose LeakyReLU slope differs from ``ref``'s, and of how many."""
+    if len(signs) != len(ref) or any(a.shape != b.shape for a, b in zip(signs, ref)):
+        raise SystemExit("chip_smoke: conv_forms witness: the forwards called other blocks")
+    return dict(flipped=int(sum((a != b).sum().item() for a, b in zip(signs, ref))),
+                of=int(sum(a.numel() for a in ref)))
+
+
+def conv_forms_gradient_witness(seeds=WITNESS_SEEDS):
+    """Why the flags' steps part from the default step's gradients. For each
+    seed (the trainer's weights, scaled and centred as in train2d, and the
+    batch of seed 7 + seed), the full step from one state: with the seven
+    library convs in float64 (the yardstick), the default step twice, and the
+    step with each flag. Per leaf, each step's generator gradients against the
+    yardstick's (and the flags' against the default's, the rule held above)
+    over the leaf's largest entry: the worst leaf of each, the readings of
+    every step on the leaf that is worst against the default; and the
+    LeakyReLU slope flips of each step's forward against the yardstick's.
+    Reported, not held: it says whether a flag's gap is its own fault or the
+    float32 step's rounding, which the default step shows against the
+    yardstick too."""
+    from spsg_tpu_torch.data import synthetic
+
+    cfg = TrainConfig()
+    flags = StepFlags(**FULL_2D)
+    names = ("float64", "default", "default_again") + FORM_FLAGS
+    out = []
+    for seed in seeds:
+        batch = synthetic.make_chunk_batch(cfg.batch_size, cfg.input_dim,
+                                           (cfg.style_width, cfg.style_height), seed=7 + seed,
+                                           with_frames=True, device=DEV)
+        batch.pop("name")
+        batch["weight_occ"] = np.float32(cfg.weight_occ_loss)
+        trainers, signs, metrics = {}, {}, {}
+        for name in names:
+            kw = {name: True} if name in FORM_FLAGS else {}
+            tr = Trainer(dataclasses.replace(cfg, **kw), DEV, seed=seed)
+            if name == "float64":
+                scale_conv_weights(tr.generator, 2.0)
+                centre_train_occupancy(tr, batch)
+                gsd = {k: v.clone() for k, v in tr.generator.state_dict().items()}
+                dsd = {k: v.clone() for k, v in tr.discriminator.state_dict().items()}
+                sn = {k: {kk: vv.clone() for kk, vv in v.items()} for k, v in tr.sn_state.items()}
+                for b in tr.generator.modules():
+                    if isinstance(b, ConvBlock) and not b.eligible:
+                        b._library_conv = _library_conv_float64.__get__(b)
+            tr.generator.load_state_dict(gsd)
+            tr.discriminator.load_state_dict(dsd)
+            tr.sn_state = {k: {kk: vv.clone() for kk, vv in v.items()} for k, v in sn.items()}
+            hooks = SlopeSigns(tr.generator)
+            m = tr.step(batch, flags)
+            torch.cuda.synchronize()
+            signs[name] = hooks.remove()
+            metrics[name] = {k: float(v) for k, v in m.items()}
+            if not all(np.isfinite(v) for v in metrics[name].values()):
+                raise SystemExit(f"chip_smoke: conv_forms witness seed {seed}: the step with "
+                                 f"{name} is not finite: {metrics[name]}")
+            trainers[name] = tr
+        pairs = {f"{n}_vs_float64": (n, "float64") for n in names[1:]}
+        pairs.update({f"{n}_vs_default": (n, "default") for n in ("default_again",) + FORM_FLAGS})
+        gaps = {k: leaf_gaps(trainers[a], trainers[b], f"witness seed {seed} {k}")[0]
+                for k, (a, b) in pairs.items()}
+        leaf = max(gaps["zslab_conv_vs_default"], key=gaps["zslab_conv_vs_default"].get)
+        rec = dict(seed=seed, batch_seed=7 + seed, zslab_worst_leaf=leaf,
+                   on_zslab_worst_leaf={k: g[leaf] for k, g in gaps.items()})
+        for k, g in gaps.items():
+            worst = sorted(g, key=g.get)[-3:][::-1]
+            rec[k] = dict(worst=[[n, g[n]] for n in worst],
+                          median=float(np.median(list(g.values()))),
+                          metrics_max_rel_diff=max(rel_diff(metrics[pairs[k][0]][q],
+                                                            metrics[pairs[k][1]][q])
+                                                   for q in metrics["float64"]))
+        rec["slope_flips_vs_float64"] = {n: slope_flips(signs[n], signs["float64"])
+                                         for n in names[1:]}
+        rec["slope_flips_default_again_vs_default"] = slope_flips(signs["default_again"],
+                                                                  signs["default"])
+        out.append(rec)
+        print(f"conv_forms witness seed {seed}: worst leaf against the default step "
+              f"{leaf} " + ", ".join(f"{k} {v:.3e}" for k, v in rec["on_zslab_worst_leaf"].items())
+              + "; worst leaf " + ", ".join(f"{k} {rec[k]['worst'][0][0]} "
+                                            f"{rec[k]['worst'][0][1]:.3e}" for k in gaps)
+              + "; slope flips against float64 " + ", ".join(
+                  f"{n} {v['flipped']}" for n, v in rec["slope_flips_vs_float64"].items())
+              + f" of {rec['slope_flips_vs_float64']['default']['of']}", flush=True)
+        del trainers, signs
+        torch.cuda.empty_cache()
+    return out
+
+
+def conv_forms_scene(par):
+    """The scene phase's whole scene (its weights, input and outputs, kept in
+    the parallel phase's directory) served by the generator with each form:
+    launches, seconds, peak memory, device time of the forward by kind beside
+    the default forward's, the outputs within 1e-3 of the default scene's."""
+    from spsg_tpu_torch.inference import whole_scene
+
+    saved = torch.load(os.path.join(par, "scene.pt"), weights_only=False)
+    inp, msk, _ = whole_scene.pad_scene(saved["scene_input"], saved["scene_mask"], 3.0,
+                                        saved["kwargs"]["max_height"])
+    x, m = torch.from_numpy(inp[None]).to(DEV), torch.from_numpy(msk[None]).to(DEV)
+    recs, launches = {}, {}
+    for name in ("default",) + FORM_FLAGS:
+        kw = {name: True} if name != "default" else {}
+        gen = state.make_generator(TrainConfig(**kw), DEV)
+        gen.load_state_dict(saved["state_dict"])
+        gen.eval()
+        reset_all_launch_counts()
+        out, seconds, peak = timed_scene(whole_scene.run_whole_scene, gen, saved["scene_input"],
+                                         saved["scene_mask"], saved["kwargs"])
+        launches[name] = all_launch_counts()
+        want = {**{k: 0 for k in launches[name]}, "conv3x3_act_stats": 23, "conv3x3": 5}
+        diffs = {n: float(np.abs(a - b).max()) for n, a, b in zip(OUTPUTS, out, saved["out"])}
+        if launches[name] != want or not max(diffs.values()) <= 1e-3 or not all(
+                np.isfinite(o).all() for o in out):
+            raise SystemExit(f"chip_smoke: conv_forms: the whole scene with {name}: launches "
+                             f"{launches[name]}, outputs off the scene phase's by {diffs}")
+        recs[name] = dict(launches=launches[name], seconds_per_scene=seconds,
+                          max_memory_allocated=peak, max_abs_diff_from_scene_phase=diffs,
+                          forward_device_time=profile_forward(gen, x, m))
+        del gen, out
+        torch.cuda.empty_cache()
+    return recs, launches
+
+
+def phase_conv_forms(par):
+    """Phase conv_forms: the z-slab and folded forms and remat on the card."""
+    from spsg_tpu_torch.data import synthetic
+
+    t0 = time.time()
+    use_true_float32()
+    cfg = TrainConfig()
+    # the forms are called on each library layer's weight directly
+    gen = state.init_generator(cfg, torch.Generator().manual_seed(0), DEV)
+    rec = dict(step_layers=conv_forms_layers(gen, (cfg.batch_size,) + tuple(cfg.input_dim)),
+               scene_layers=[r for r in conv_forms_layers(gen, (1,) + SCENE_DIMS, backward=False)
+                             if r["kernel"] == 5],
+               bfloat16=conv_forms_bf16(gen, (cfg.batch_size,) + tuple(cfg.input_dim)))
+    del gen
+    batch = synthetic.make_chunk_batch(cfg.batch_size, cfg.input_dim,
+                                       (cfg.style_width, cfg.style_height), seed=7,
+                                       with_frames=True, device=DEV)
+    batch.pop("name")
+    batch["weight_occ"] = np.float32(cfg.weight_occ_loss)
+    rec["steps"], step_launches, trainers = conv_forms_steps(batch)
+    rec["generator_remat_bits"] = generator_remat_bits(trainers, batch)
+    del trainers
+    torch.cuda.empty_cache()
+    rec["gradient_witness"] = conv_forms_gradient_witness()
+    rec["scene"], scene_launches = conv_forms_scene(par)
+    rec["seconds"] = time.time() - t0
+    for r in rec["step_layers"]:
+        print("conv_forms: " + r["layer"] + " " + str(r["input"]) + " -> " + str(r["cout"]) + ": "
+              + ", ".join(f"{f} {t['forward_ms']:.3f} / {t['dgrad_ms']:.3f} / {t['wgrad_ms']:.3f}"
+                          f" / {t['forward_backward_ms']:.3f} ms" for f, t in r["forms"].items()),
+              flush=True)
+    print("conv_forms: the full step " + ", ".join(
+        f"{n} {r['seconds_per_step']:.4f} s, peak {r['max_memory_allocated_steady']}"
+        + (f", gradients {g['grad_max_rel_diff']:.3e} ({g['grad_worst_parameter']})"
+           if (g := r.get("against_default", {}).get("generator_gradients")) else "")
+        for n, r in rec["steps"].items()) + f"; phase {rec['seconds']:.1f} s", flush=True)
+    emit("conv_forms", **rec)
+    paths = {f"train2d_{n}": step_launches[n] for n in FORM_FLAGS + ("remat",)}
+    paths.update({f"scene_{n}": scene_launches[n] for n in FORM_FLAGS})
+    return paths
+
+
 # --------------------------------------------------------------------------- parallel
 PAR_WORLD = 2
 # the train CLI's few iterations: 4 chunks in global batches of 2 (one a rank),
@@ -3732,6 +4216,7 @@ def run_phases(args, par):
     train2d, train2d_mc, train2d_device = phase_train2d()
     train2d_style = phase_train2d_style()
     train2d_bf16 = phase_train2d_bf16(train2d_device)
+    forms = phase_conv_forms(par)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as tmp:
         train_cli = phase_train_cli(tmp, smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as tmp:
@@ -3749,7 +4234,9 @@ def run_phases(args, par):
                "train": CONV_KERNELS,
                "train2d": full_step, "train2d_missing_colour": training,
                "train2d_style": full_step, "train2d_bf16": full_step, "train_cli": full_step,
-               "datagen": ("tsdf_integrate",), **PAR_PATHS}
+               "datagen": ("tsdf_integrate",), **PAR_PATHS,
+               **{path: (full_step if path.startswith("train2d") else
+                         ("conv3x3", "conv3x3_act_stats")) for path in forms}}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         by_path = {"serve": serve[name], "scene": scene[name], "train": train[name],
@@ -3757,7 +4244,8 @@ def run_phases(args, par):
                    "train2d_missing_colour": train2d_mc[name],
                    "train2d_style": train2d_style[name], "train2d_bf16": train2d_bf16[name],
                    "train_cli": train_cli[name], "datagen": datagen[name],
-                   **{path: counts[name] for path, counts in parallel.items()}}
+                   **{path: counts[name] for path, counts in parallel.items()},
+                   **{path: counts[name] for path, counts in forms.items()}}
         for path, names in on_path.items():
             if name in names and by_path[path] < 1:
                 raise SystemExit(f"chip_smoke: {name} was not launched on the {path} path")

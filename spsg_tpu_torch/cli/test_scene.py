@@ -63,10 +63,11 @@ def build_parser():
     p.add_argument("--max_input_height", type=int, default=128)
     p.add_argument("--compute_dtype", type=str, default="",
                    help="'bfloat16' runs the generator's blocks in bf16 (the heads in f32)")
-    # flags that steer the JAX package's compiler; accepted, without effect here
-    for flag in ("--zslab_conv", "--folded_conv"):
-        p.add_argument(flag, action="store_true",
-                       help="accepted for compatibility with the JAX package's CLI; no effect")
+    p.add_argument("--zslab_conv", action="store_true",
+                   help="z-slab rank-4 conv formulation (ops/zslab_conv.py)")
+    p.add_argument("--folded_conv", action="store_true",
+                   help="the 5x5x5 entry convs, which the JAX package folds into "
+                   "matmuls, as z-slab convs (ops/zslab_conv.py)")
     p.add_argument("--num_to_vis", type=int, default=10)
     p.add_argument("--max_to_process", type=int, default=150)
     p.add_argument("--vis_only", action="store_true",

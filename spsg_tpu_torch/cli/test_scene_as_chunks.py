@@ -66,8 +66,13 @@ def build_parser():
                    "there; incompatible with --augment_rgb_scaling")
     p.add_argument("--compute_dtype", type=str, default="",
                    help="'bfloat16' runs the generator's blocks in bf16 (the heads in f32)")
+    p.add_argument("--zslab_conv", action="store_true",
+                   help="z-slab rank-4 conv formulation (ops/zslab_conv.py)")
+    p.add_argument("--folded_conv", action="store_true",
+                   help="the 5x5x5 entry convs, which the JAX package folds into "
+                   "matmuls, as z-slab convs (ops/zslab_conv.py)")
     # flags that steer the JAX package's compiler; accepted, without effect here
-    for flag in ("--scan_windows", "--stitch_slices", "--zslab_conv", "--folded_conv"):
+    for flag in ("--scan_windows", "--stitch_slices"):
         p.add_argument(flag, action="store_true",
                        help="accepted for compatibility with the JAX package's CLI; no effect")
     p.set_defaults(pass_geo_feats=True)

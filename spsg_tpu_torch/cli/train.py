@@ -149,13 +149,22 @@ def build_parser():
     parser.add_argument("--shared_card", action="store_true",
                         help="with --distributed: the ranks share one card and "
                              "communicate over gloo (a correctness run, not a speed-up)")
+    parser.add_argument("--zslab_conv", action=argparse.BooleanOptionalAction,
+                        default=False,
+                        help="z-slab rank-4 formulation for every generator "
+                        "conv (kz taps fold into channels; ops/zslab_conv.py)")
+    parser.add_argument("--folded_conv", action=argparse.BooleanOptionalAction,
+                        default=False,
+                        help="the 5x5x5 generator convs, which the JAX package "
+                        "folds into matmuls, as z-slab convs (ops/zslab_conv.py)")
+    parser.add_argument("--remat", action="store_true",
+                        help="recompute the generator's conv blocks in the backward "
+                        "(less activation memory for more work)")
     for flag in ("channels_first", "pair_raycast", "compact_global", "fused_conv",
-                 "pallas_conv", "zslab_conv", "folded_conv", "compact_resid"):
+                 "pallas_conv", "compact_resid"):
         parser.add_argument(f"--{flag}", action=argparse.BooleanOptionalAction, default=False,
                             help="accepted for compatibility with the JAX package's CLI; "
                             "no effect")
-    parser.add_argument("--remat", action="store_true",
-                        help="accepted for compatibility with the JAX package's CLI; no effect")
     for flag, default in (("march_group", 0), ("steps_per_call", 1)):
         parser.add_argument(f"--{flag}", type=int, default=default,
                             help="accepted for compatibility with the JAX package's CLI; "

@@ -11,12 +11,28 @@ semantics (14ch logits).
 
 Layout: inputs, outputs and every activation are contiguous channel-last
 ``(B, Z, Y, X, C)``. The 28 convs that are 3x3x3 / stride 1 / pad 1 /
-dilation 1 go through ``ops.conv3x3`` (hand-written CUDA kernels on a CUDA
-tensor, their plain versions on a CPU tensor; no flag): the 23 followed by
-LeakyReLU + BatchNorm through the fused ``conv3x3_act_stats``, the 5 bare ones
-through ``conv3x3`` plus a bias add. The other 7 (5^3 entry convs, 4^3
-stride-2 downsamplers) are ``F.conv3d`` on the ``(B, C, Z, Y, X)`` view of the
-same memory (``channels_last_3d`` strides, no copy).
+dilation 1 go through ``ops.conv3x3`` under every flag (hand-written CUDA
+kernels on a CUDA tensor, their plain versions on a CPU tensor): the 23
+followed by LeakyReLU + BatchNorm through the fused ``conv3x3_act_stats``, the
+5 bare ones through ``conv3x3`` plus a bias add. That is the JAX package's
+generator with ``pallas_conv`` and ``fused_conv``, and its precedence decides
+the other 7 (the 5^3 entry convs ``geo_0a`` / ``encoder_0a``, the 4^3 stride-2
+downsamplers; ``geo_1d`` too with ``max_dilation > 1``):
+
+- ``GeneratorConfig.zslab_conv``: every one of them as one 2D conv over
+  z-slabs (``ops/zslab_conv.py``);
+- else ``folded_conv``: the odd, cubic, stride-1, dilation-1 SAME ones (the
+  two 5^3 entry convs), which the JAX package folds into one patch product
+  (``ops/folded_conv.py``), as z-slab convs too: on an H100 the z-slab form
+  is the faster of the two on both layers (PERF.md, the conv forms' table);
+- else (the default) ``F.conv3d`` on the ``(B, C, Z, Y, X)`` view of the same
+  memory (``channels_last_3d`` strides, no copy).
+
+``GeneratorConfig.remat`` (train mode) recomputes each conv block's
+activations in the backward instead of keeping them (the JAX package's
+``nn.remat(ConvBlock)``): ``torch.utils.checkpoint``, non-reentrant, around
+every block call but the two head BatchNorms; the recompute leaves the
+BatchNorm running statistics alone, so they move once a step.
 
 Parameters: one convention for every conv, PyTorch's: ``weight``
 ``(Cout, Cin, kz, ky, kx)`` and ``bias`` ``(Cout,)``. Eligible layers permute
@@ -43,6 +59,7 @@ times (ROADMAP.md Queue C states the tolerance that results).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional, Tuple
@@ -50,8 +67,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import conv3x3 as conv_ops
+from ..ops.zslab_conv import conv3d_zslab
 from ..parallel import mesh as pmesh
 
 NUM_CLASSES = 14
@@ -79,6 +98,14 @@ class GeneratorConfig:
     input_mask: bool = True  # nf_in_color > 3 (model.py:172)
     num_classes: int = NUM_CLASSES
     dtype: Optional[str] = None  # 'bfloat16': the blocks compute in bf16, the heads in f32
+    # the convs the hand kernels do not take as z-slab 2D convs
+    # (ops/zslab_conv.py): all of them, or with folded_conv only the 5^3 entry
+    # convs, the layers the JAX package folds. Parameters identical either way
+    folded_conv: bool = False
+    zslab_conv: bool = False
+    # recompute each conv block's activations in the backward (train mode):
+    # less activation memory for more work (the JAX package's nn.remat)
+    remat: bool = False
 
 
 def leaky_relu(x):
@@ -103,7 +130,11 @@ class BatchNorm(nn.Module):
     voxel count are summed over the ranks before the mean and the variance
     are formed (one all-reduce, whose backward sums the gradient over the
     ranks), so that the statistics, and the running statistics updated from
-    them, are the global batch's on every rank. Eval mode is local."""
+    them, are the global batch's on every rank. Eval mode is local.
+
+    ``update_running`` False (while :meth:`ConvBlock.replaying` recomputes a
+    rematerialised block) normalises with the batch statistics as before and
+    leaves the running statistics alone: they move once a step."""
 
     def __init__(self, channels: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -113,6 +144,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.update_running = True
 
     def forward(self, x, stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 mesh=None):
@@ -129,10 +161,11 @@ class BatchNorm(nn.Module):
                 stats, n = (packed[:c], packed[c:2 * c]), packed[2 * c]
             mean = stats[0] / n
             var = torch.clamp(stats[1] / n - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1 - m).add_(m * mean)
-                self.running_var.mul_(1 - m).add_(m * var)
+            if self.update_running:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(1 - m).add_(m * mean)
+                    self.running_var.mul_(1 - m).add_(m * var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
@@ -152,6 +185,11 @@ class ConvBlock(nn.Module):
     kernels' plain versions on any device, so that a run with the kernels can
     be held against a run without them. It is not consulted as a fallback.
 
+    ``route`` says how the conv is computed: ``"hand"`` (eligible: the kernels
+    of ``ops/conv3x3.py``, under every flag), ``"zslab"`` (``zslab_conv``: every
+    other conv; ``folded_conv``: the odd, cubic, stride-1, dilation-1 SAME
+    convs that are not eligible) or ``"library"`` (``F.conv3d``).
+
     ``forward(x, mesh, spatial)``: ``mesh`` makes a train-mode BatchNorm's
     statistics global (:class:`BatchNorm`). ``spatial`` (eval mode) serves a
     volume split along Y over the mesh's ranks, ``x`` being this rank's slab:
@@ -159,24 +197,54 @@ class ConvBlock(nn.Module):
     (``parallel/mesh.py::halo_exchange``, zeros at the volume's edges), which
     is every row a 3^3 pad-1, a 5^3 pad-2, a dilation-2 pad-2 or a 4^3
     stride-2 pad-1 conv reads across the slab's edge when slabs start at even
-    rows. The library convs then run with no Y padding; the hand kernels,
-    which pad by one themselves, run on the ``Y + 2`` slab unchanged and its
-    first and last output rows are dropped."""
+    rows. The library and z-slab convs then run with no Y padding; the hand
+    kernels, which pad by one themselves, run on the ``Y + 2`` slab unchanged
+    and its first and last output rows are dropped."""
 
     def __init__(self, cin: int, features: int, kernel: int = 3, stride: int = 1,
                  padding: int = 1, dilation: int = 1, act: bool = True, bn: bool = True,
-                 dtype: Optional[torch.dtype] = None, plain_convs: bool = False):
+                 dtype: Optional[torch.dtype] = None, plain_convs: bool = False,
+                 zslab_conv: bool = False, folded_conv: bool = False):
         super().__init__()
         self.stride, self.padding, self.dilation, self.act = stride, padding, dilation, act
         self.dtype = dtype or torch.float32
         self.plain_convs = plain_convs
         self.eligible = kernel == 3 and stride == 1 and padding == 1 and dilation == 1
+        foldable = (kernel % 2 == 1 and stride == 1 and dilation == 1
+                    and padding == kernel // 2)
+        self.route = ("hand" if self.eligible
+                      else "zslab" if zslab_conv or (folded_conv and foldable) else "library")
         self.weight = nn.Parameter(torch.empty(features, cin, kernel, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(features))
         # torch Conv3d default: kaiming_uniform(a=sqrt(5)) == U(+-sqrt(1/fan_in));
         # training/state.py::init_generator re-draws from an explicit Generator
         nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
         self.bn = BatchNorm(features) if bn else None
+
+    @contextlib.contextmanager
+    def replaying(self):
+        """While a rematerialised block is recomputed in the backward: its
+        BatchNorm leaves the running statistics alone."""
+        if self.bn is None:
+            yield
+            return
+        self.bn.update_running = False
+        try:
+            yield
+        finally:
+            self.bn.update_running = True
+
+    def _library_conv(self, x, dt, halo):
+        """The conv of a layer the hand kernels do not take, by its route;
+        channel-last in and out, without the bias."""
+        p = self.padding
+        w = self.weight.to(dt)
+        if self.route == "zslab":
+            return conv3d_zslab(x, w.permute(2, 3, 4, 1, 0), self.stride,
+                                (p, 0, p) if halo else p, self.dilation)
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, None, self.stride,
+                     (p, 0, p) if halo else p, self.dilation)
+        return y.permute(0, 2, 3, 4, 1)
 
     def forward(self, x, mesh=None, spatial: bool = False):
         dt = self.dtype
@@ -198,10 +266,7 @@ class ConvBlock(nn.Module):
             y = conv(x, wk)
             x = (y[:, :, 1:-1] if halo else y) + self.bias.to(dt)
         else:
-            pad = (self.padding, 0, self.padding) if halo else self.padding
-            y = F.conv3d(x.permute(0, 4, 1, 2, 3), self.weight.to(dt), None, self.stride,
-                         pad, self.dilation)
-            x = (y.permute(0, 2, 3, 4, 1) + self.bias.to(dt)).contiguous()
+            x = (self._library_conv(x, dt, halo) + self.bias.to(dt)).contiguous()
         if self.act:
             x = leaky_relu(x)
         if self.bn is not None:
@@ -230,7 +295,8 @@ class Generator(nn.Module):
 
         def block(cin, features, kernel=3, stride=1, padding=1, dtype=self.dtype, **kw):
             return ConvBlock(cin, features, kernel, stride, padding, dtype=dtype,
-                             plain_convs=plain_convs, **kw)
+                             plain_convs=plain_convs, zslab_conv=cfg.zslab_conv,
+                             folded_conv=cfg.folded_conv, **kw)
 
         # geometry branch (model.py:194-242)
         self.geo_0a = block(cfg.nf_in_geo, nf // 2, 5, 1, 2)
@@ -296,7 +362,14 @@ class Generator(nn.Module):
         if spatial and self.training:
             raise ValueError("Generator: spatial sharding serves in eval mode only")
 
+        remat = cfg.remat and self.training and torch.is_grad_enabled()
+
         def run(block, h):
+            if remat:
+                # the blocks draw no random numbers: no RNG state to stash
+                return checkpoint(block, h, mesh, spatial, use_reentrant=False,
+                                  preserve_rng_state=False,
+                                  context_fn=lambda: (contextlib.nullcontext(), block.replaying()))
             return block(h, mesh, spatial)
 
         if cfg.input_mask:
@@ -361,7 +434,7 @@ class Generator(nn.Module):
                 out_color = torch.clamp(c, -1.0, 1.0)
             if pred_semantic:
                 t = leaky_relu(self.semantic_head_bn0(dec, mesh=mesh))
-                out_semantic = run(self.semantic_head_c, 
+                out_semantic = run(self.semantic_head_c,
                     run(self.semantic_head_b, run(self.semantic_head_a, t)))
         return out_occ, out_sdf, out_color, out_semantic
 

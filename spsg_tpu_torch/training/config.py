@@ -76,12 +76,17 @@ class TrainConfig:
     min_num_valid_2d: int = 2000  # train.py:662
     # compute
     compute_dtype: Optional[str] = None  # 'bfloat16': the generator's blocks (serving, training)
-    # The fields below steer the JAX package's compiler and scheduling on its
-    # own accelerator. This package accepts them, so that a stored config
-    # round-trips between the two packages, and gives them no effect: eligible
-    # 3x3x3 convs always take the CUDA kernels of ops/conv3x3.py on a CUDA
-    # tensor (pallas_conv / fused_conv are therefore moot), and layout,
-    # rematerialisation and ray-march scheduling are decided by this package.
+    # folded_conv, zslab_conv and remat below take effect (GeneratorConfig: the
+    # generator's convs that the hand kernels do not take as z-slab 2D convs,
+    # only the 5^3 entry convs with folded_conv; conv blocks rematerialised in
+    # the backward). The other fields
+    # below steer the JAX package's compiler and scheduling on its own
+    # accelerator. This package accepts them, so that a stored config
+    # round-trips between the two packages (in the same field order), and
+    # gives them no effect: eligible 3x3x3 convs always take the CUDA kernels
+    # of ops/conv3x3.py on a CUDA tensor (pallas_conv / fused_conv are
+    # therefore moot), and layout and ray-march scheduling are decided by this
+    # package.
     channels_first: bool = False
     pallas_conv: bool = False
     fused_conv: bool = False

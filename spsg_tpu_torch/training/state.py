@@ -57,6 +57,9 @@ def make_generator(cfg: TrainConfig, device="cuda", plain_convs: bool = False) -
             truncation=cfg.truncation,
             input_mask=cfg.input_mask,
             dtype=cfg.compute_dtype,
+            folded_conv=cfg.folded_conv,
+            zslab_conv=cfg.zslab_conv,
+            remat=cfg.remat,
         ),
         plain_convs=plain_convs,
     )

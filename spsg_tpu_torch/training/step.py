@@ -49,10 +49,11 @@ VGG's parameters are frozen, outside both optimizers and the checkpoint.
 the JAX package's generator ``dtype``: its blocks compute in bfloat16 (the
 bf16 variants of the conv kernels, forward, dx and dW), its parameters, their
 Adam state, the four heads and the losses stay float32; the discriminator is
-float32 either way. The JAX
-package's compiler scheduling (``step_many``, ``compact_resid``, ``remat``,
-``fuse_raycast``, ``pair_raycast``) has no counterpart: the three raycasts run
-one after the other, which is the JAX package's default.
+float32 either way. ``TrainConfig.remat`` recomputes the generator's conv blocks
+in the backward (``models/generator.py``). The JAX package's compiler
+scheduling (``step_many``, ``compact_resid``, ``fuse_raycast``,
+``pair_raycast``) has no counterpart: the three raycasts run one after the
+other, which is the JAX package's default.
 
 PyTorch idiom: the state lives in the modules, their optimizers and the
 discriminator's spectral state, not in a state object threaded through the

@@ -46,10 +46,38 @@ def test_cli_writes_iou_txt_and_meshes(tmp_path):
 def test_cli_accepts_the_jax_cli_flags_without_effect(tmp_path):
     base = cli.main(TINY + ["--output", str(tmp_path / "a"), "--num_to_vis", "0"])
     flags = cli.main(TINY + ["--output", str(tmp_path / "b"), "--num_to_vis", "0",
-                             "--scan_windows", "--stitch_slices", "--zslab_conv",
-                             "--folded_conv", "--gpu", "3"])
+                             "--scan_windows", "--stitch_slices", "--gpu", "3"])
     assert base == flags
     assert open(tmp_path / "a" / "IoU.txt").read() == open(tmp_path / "b" / "IoU.txt").read()
+
+
+class _Built(Exception):
+    """Raised by a stand-in for init_generator: the CLI got as far as building
+    its generator, and the test stops it there."""
+
+
+def built_generator_config(main, argv, monkeypatch):
+    """The GeneratorConfig a CLI's ``main(argv)`` builds its generator with,
+    without running anything after that."""
+    seen = {}
+
+    def init_generator(cfg, rng, device="cuda", plain_convs=False):
+        seen["cfg"] = state.make_generator(cfg, device).cfg
+        raise _Built
+
+    monkeypatch.setattr(state, "init_generator", init_generator)
+    with pytest.raises(_Built):
+        main(argv)
+    return seen["cfg"]
+
+
+@pytest.mark.parametrize("flags", [[], ["--zslab_conv"], ["--folded_conv"],
+                                   ["--zslab_conv", "--folded_conv"]])
+def test_conv_form_flags_reach_the_generator(tmp_path, monkeypatch, flags):
+    cfg = built_generator_config(cli.main, TINY + ["--output", str(tmp_path / "o")] + flags,
+                                 monkeypatch)
+    assert (cfg.zslab_conv, cfg.folded_conv, cfg.remat) == (
+        "--zslab_conv" in flags, "--folded_conv" in flags, False)
 
 
 def test_exported_checkpoint_loads_and_serves(tmp_path):

@@ -35,7 +35,8 @@ def test_every_module_imports_without_jax_triton_or_the_jax_package():
     mods = _modules()
     assert len(mods) >= 24 and "spsg_tpu_torch.ops._build" in mods
     assert {"spsg_tpu_torch.losses.geo", "spsg_tpu_torch.losses.semantic",
-            "spsg_tpu_torch.training.step", "spsg_tpu_torch.cli.datagen"} <= set(mods)
+            "spsg_tpu_torch.training.step", "spsg_tpu_torch.cli.datagen",
+            "spsg_tpu_torch.ops.zslab_conv", "spsg_tpu_torch.ops.folded_conv"} <= set(mods)
     assert {f"spsg_tpu_torch.datagen.{m}" for m in (
         "chunks", "fusion", "params", "raster", "scan", "semantics", "sens")} <= set(mods)
     script = f"""

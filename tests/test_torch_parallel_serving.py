@@ -68,19 +68,36 @@ def test_chunked_inference_on_two_ranks(tmp_path, weights):
     assert np.abs(r0["colors"][both].astype(int) - ref.colors[both].astype(int)).max() <= 1
 
 
-def test_whole_scene_on_two_ranks(tmp_path, weights):
+# the generator's conv forms served Y-sharded beside the default one, in the
+# same launch of the ranks
+FORMS = {"zslab_conv": {"zslab_conv": True}, "folded_conv": {"folded_conv": True}}
+SCENE_KW = dict(truncation=3.0, max_height=16)
+
+
+@pytest.fixture(scope="module")
+def whole_scene_ranks(tmp_path_factory, weights):
+    """One launch of the two ranks: the whole scene of Y 14 with mesh=, by the
+    default generator and by each of FORMS. Returns (sample, rank 0's results,
+    rank 1's)."""
+    _, _, arrays = weights
+    sample = C._sample((16, 14, 48), 11)
+    directory = tmp_path_factory.mktemp("whole_scene")
+    W.save_inputs(directory, dict(arrays, input=sample["input"], mask=sample["mask"]),
+                  nf=4, kw=SCENE_KW, forms={"": {}, **FORMS})
+    r0, r1 = W.run_ranks("whole_scene", directory)
+    return sample, r0, r1
+
+
+def test_whole_scene_on_two_ranks(whole_scene_ranks, weights):
     """A scene of Y 14, padded to 16 (a multiple of 4 * 2 ranks): each rank a
     slab of 8 rows, 4 at half and 2 at quarter resolution, so that every conv
     reads across a slab edge and the 5^3 entry convs take two halo rows. Both
     ranks return the whole scene; it equals the port's unsharded forward on the
     same padded scene to the bit and the JAX package's Y-sharded run on a
     2-device mesh within 1e-4 (tests/test_torch_whole_scene.py's tolerance)."""
-    v, gen, arrays = weights
-    sample = C._sample((16, 14, 48), 11)
-    kw = dict(truncation=3.0, max_height=16)
-    W.save_inputs(tmp_path, dict(arrays, input=sample["input"], mask=sample["mask"]),
-                  nf=4, kw=kw)
-    r0, r1 = W.run_ranks("whole_scene", tmp_path)
+    v, gen, _ = weights
+    sample, r0, r1 = whole_scene_ranks
+    kw = SCENE_KW
     one = whole_scene.run_whole_scene(gen, sample["input"], sample["mask"], device="cpu", **kw)
     ref = jwhole.run_whole_scene(JaxGenerator(JaxGeneratorConfig(nf=4)), v, sample["input"],
                                  sample["mask"], mesh=_jax_mesh(), **kw)
@@ -89,3 +106,20 @@ def test_whole_scene_on_two_ranks(tmp_path, weights):
         assert np.array_equal(r0[name], r1[name]), name
         assert np.array_equal(r0[name], o), name
         np.testing.assert_allclose(r0[name], w, rtol=0, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+def test_whole_scene_forms_on_two_ranks(whole_scene_ranks, weights, form):
+    """The Y-sharded scene with zslab_conv (the 7 library convs as z-slab
+    convs on the halo'd slab with Y padding 0) and with folded_conv (the two
+    5^3 entry convs so): both ranks return the one-process run of the same
+    generator to the bit."""
+    v, _, _ = weights
+    sample, r0, r1 = whole_scene_ranks
+    gen = H.torch_generator(v, **FORMS[form])
+    one = whole_scene.run_whole_scene(gen, sample["input"], sample["mask"], device="cpu",
+                                      **SCENE_KW)
+    for name, o in zip(("occ", "sdf", "color", "semantic"), one):
+        got = r0[f"{form}/{name}"]
+        assert got.shape == o.shape and np.array_equal(got, r1[f"{form}/{name}"]), name
+        assert np.array_equal(got, o), (name, np.abs(got - o).max())

@@ -72,8 +72,10 @@ def two_ranks(tmp_path_factory):
     spectral state."""
     pairs = {"geo": S3._pair(), "full3d": S3._pair(), "full": S2._pair(), "style": ST._pair(),
              "holes": (Trainer(TrainConfig(**HOLES), device="cpu"),)}
+    pairs["full3d_remat"] = pairs["full3d"]  # the same weights, stepped with remat
     runs = {"geo": (S3._numpy_batch(), S3.TINY, S3.FLAGS["geo"]),
             "full3d": (S3._numpy_batch(), S3.TINY, S3.FLAGS["full3d"]),
+            "full3d_remat": (S3._numpy_batch(), dict(S3.TINY, remat=True), S3.FLAGS["full3d"]),
             "full": (S2._numpy_batch(), S2.TINY, S2.FULL),
             "style": (S2._numpy_batch(), dict(S2.TINY, **ST.WEIGHTS), ST.FLAGS),
             "holes": (_holes_batch(), HOLES, S2.FULL)}
@@ -183,6 +185,20 @@ def test_3d_step_on_two_ranks_matches_jax_and_one_process(two_ranks, flags, grad
     _params_close(got.generator.state_dict(), trainer.generator.state_dict(),
                   1e-6 if flags == "geo" else 2 * lr, 0.9999)
     assert got.iteration == trainer.iteration == 1
+
+
+def test_3d_step_with_remat_on_two_ranks_is_the_step_without_it(two_ranks):
+    """TrainConfig.remat on two ranks: each rank recomputes its conv blocks in
+    the backward, BatchNorm's all-reduce of the global sums with them, in the
+    same order on both ranks. The metrics, the gradients and the state after
+    the step (the running statistics moved once) equal the step without remat
+    on the same weights and batch to the bit."""
+    _, plain = two_ranks["full3d"]
+    _, remat = two_ranks["full3d_remat"]
+    assert plain.keys() == remat.keys()
+    assert any(k.startswith("grad/") for k in plain)
+    for k in plain:
+        assert np.array_equal(plain[k], remat[k]), k
 
 
 def flax_state(gs):

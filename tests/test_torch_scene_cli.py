@@ -82,3 +82,14 @@ def test_cpu_flag_and_unported_options(tmp_path):
     cli.main(ARGS + ["--device", "cpu", "--spatial_shard", "--num_to_vis", "0",
                      "--input_dim", "16", "64", "64", "--output", out])
     assert os.listdir(out) == []
+
+
+@pytest.mark.parametrize("flags", [["--zslab_conv"], ["--folded_conv"]])
+def test_conv_form_flags_reach_the_generator(tmp_path, monkeypatch, flags):
+    from test_torch_cli import built_generator_config
+
+    cfg = built_generator_config(
+        cli.main, ARGS + ["--device", "cpu", "--output", str(tmp_path / "o")] + flags,
+        monkeypatch)
+    assert (cfg.zslab_conv, cfg.folded_conv) == ("--zslab_conv" in flags,
+                                                 "--folded_conv" in flags)

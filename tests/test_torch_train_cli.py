@@ -27,9 +27,8 @@ GEO = TINY + ["--weight_disc_loss", "0", "--weight_depth_loss", "0"]
 # the full step at 48x32 with a discriminator of 4 features and 16-pixel patches
 FULL = TINY + ["--style_width", "48", "--style_height", "32", "--patch_size", "16",
                "--nf_disc", "4", "--max_depth_fill_iters", "20"]
-XLA_ONLY = ["--pallas_conv", "--fused_conv", "--zslab_conv", "--folded_conv", "--compact_resid",
-            "--channels_first", "--pair_raycast", "--compact_global", "--march_group", "2",
-            "--remat", "--steps_per_call", "4"]
+XLA_ONLY = ["--pallas_conv", "--fused_conv", "--compact_resid", "--channels_first",
+            "--pair_raycast", "--compact_global", "--march_group", "2", "--steps_per_call", "4"]
 
 
 @pytest.fixture(scope="module")
@@ -147,6 +146,18 @@ def test_the_jax_cli_compiler_flags_are_accepted_without_effect(geo_run, tmp_pat
     assert _val_rows(save) == _val_rows(geo_run[0])
     assert os.path.isfile(tmp_path / "trace" / "trace.json")
     assert not any(f.startswith("iter") for f in os.listdir(save))  # --no_vis
+
+
+@pytest.mark.parametrize("flags", [["--zslab_conv"], ["--folded_conv"], ["--remat"],
+                                   ["--zslab_conv", "--folded_conv", "--remat"]])
+def test_conv_form_and_remat_flags_reach_the_generator(flags):
+    from spsg_tpu_torch.training.state import make_generator
+
+    cfg = cli.config_from_args(cli.build_parser().parse_args(GEO + flags))
+    gen_cfg = make_generator(cfg, "cpu").cfg
+    want = tuple(f"--{n}" in flags for n in ("zslab_conv", "folded_conv", "remat"))
+    assert (cfg.zslab_conv, cfg.folded_conv, cfg.remat) == want
+    assert (gen_cfg.zslab_conv, gen_cfg.folded_conv, gen_cfg.remat) == want
 
 
 def test_cli_without_a_gpu_raises_unless_asked_for_the_cpu(tmp_path, monkeypatch):

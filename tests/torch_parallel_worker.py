@@ -171,10 +171,10 @@ def case_batchnorm(args, arrays, mesh):
             **{f"bn/{k}": v.numpy() for k, v in bn.state_dict().items()}}
 
 
-def _generator(args, arrays):
+def _generator(args, arrays, **cfg_kw):
     from spsg_tpu_torch.models.generator import Generator, GeneratorConfig
 
-    gen = Generator(GeneratorConfig(nf=args["nf"]))
+    gen = Generator(GeneratorConfig(nf=args["nf"], **cfg_kw))
     gen.load_state_dict(_tensors(_sub(arrays, "gen")), strict=True)
     return gen
 
@@ -194,14 +194,20 @@ def case_chunked(args, arrays, mesh):
 
 
 def case_whole_scene(args, arrays, mesh):
-    """run_whole_scene with mesh=: every rank returns the whole scene."""
+    """run_whole_scene with mesh=, once for each generator of ``args["forms"]``
+    (name -> GeneratorConfig flags; its results under ``name/``, the default
+    generator's, name "", without a prefix): every rank returns the whole
+    scene."""
     from spsg_tpu_torch.inference import whole_scene
 
-    occ, sdf, color, sem = whole_scene.run_whole_scene(
-        _generator(args, arrays), arrays["input"], arrays["mask"], mesh=mesh, device="cpu",
-        **args["kw"])
-    out = {"occ": occ, "sdf": sdf, "color": color, "semantic": sem}
-    return {k: v for k, v in out.items() if v is not None}
+    out = {}
+    for form, cfg_kw in args.get("forms", {"": {}}).items():
+        occ, sdf, color, sem = whole_scene.run_whole_scene(
+            _generator(args, arrays, **cfg_kw), arrays["input"], arrays["mask"], mesh=mesh,
+            device="cpu", **args["kw"])
+        res = {"occ": occ, "sdf": sdf, "color": color, "semantic": sem}
+        out.update({(f"{form}/{k}" if form else k): v for k, v in res.items() if v is not None})
+    return out
 
 
 def case_train_cli(args, arrays, mesh):
