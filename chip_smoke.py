@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-needs one CUDA device, nvcc, and nothing else (no network, no dataset, no
-trained weights: everything is made from seeds). It exits with a code other
-than 0, and without its last line, if there is no CUDA device or if any phase
-fails. Phases, each printing one JSON line:
+needs one CUDA device, nvcc, and nothing else (no network, no dataset:
+everything is made from seeds, but phase "trained", which reads the JAX
+package's trained weights and golden files committed under docs/evidence).
+It exits with a code other than 0, and without its last line, if there is no
+CUDA device or if any phase fails. Phases, each printing one JSON line:
 
   device   the card (name and power limit as nvidia-smi gives them), versions
   build    builds the CUDA kernels from spsg_tpu_torch/ops/csrc with nvcc (one
@@ -233,18 +234,25 @@ fails. Phases, each printing one JSON line:
            trainer from the same state: launches per step (K1 33, K2 28, K3 23
            with either flag; with remat K1 38 and K3 46: every block's forward
            kernel once more in the backward), metrics within 1e-4 relative (2D
-           and adversarial 1e-3) and the generator's gradients within 1e-2 of a
-           leaf's largest entry of the default step's (train2d's twin rule),
+           and adversarial 1e-3) and the generator's gradients held to the
+           gradient rule against the default step (Tolerances, below),
            one warm-up and three timed steps (median seconds, peak memory) and
            device time by kind; the generator alone with and without remat on
            the card, and without it twice (outputs, running statistics and
-           gradients identical to the bit or not); a gradient witness on three
-           seeds (weights and batch), reported: the full step with the seven
-           library convs in float64, the default step twice and the step with
-           each flag, each one's generator gradients against the float64 step's
-           per leaf (the worst leaves, the readings on the leaf that is worst
-           between zslab_conv and the default) and the LeakyReLU slope flips of
-           its forward against the float64 step's; the scene phase's whole
+           gradients identical to the bit or not); the gradient rule's witness on
+           three seeds (weights and batch): the full step with the seven library
+           convs in float64 (with the kernels, and with the plain convs and
+           raycaster: the two yardsticks), the default step twice, the plain
+           twin, the step with each flag and two seeded faults (a wrong weight
+           tap in encoder_1a's z-slab conv; a wrong tap in K2's first output of
+           the step): the kernels against the plain twin and each flag against
+           the default step pass the rule, both faults fail it, on every seed,
+           and on each seed a fault fails the 1e-2 rule too (both faults'
+           readings printed); reported as before: each step's generator
+           gradients against the float64 step's per leaf (the worst leaves, the
+           readings on the leaf that is worst between zslab_conv and the
+           default) and the LeakyReLU slope flips of each forward against the
+           float64 step's; the scene phase's whole
            scene with each flag: launches
            (K1 5, K3 23), seconds, peak, device time of the forward by kind,
            outputs within 1e-3 of the scene phase's
@@ -257,9 +265,10 @@ fails. Phases, each printing one JSON line:
            barrier, finding them built). At full width: the full default step
            (train2d's) with mesh=, one framed chunk a rank of the global batch of
            2, against this process's step on the same batch and weights (metrics
-           as train2d's twin, 1e-4 / 1e-3 relative; the generator's gradients
-           within 1e-2 of each leaf's largest entry, the LeakyReLU slope flips of
-           train2d's twin; the discriminator's within 1e-4), the ranks' metrics,
+           as train2d's twin, 1e-4 / 1e-3 relative; the generator's gradients by
+           the gradient rule, the one-process default step the reference, also
+           on the witness's seeds 1 and 2; the discriminator's within 1e-4), the
+           ranks' metrics,
            gradients and parameters identical; the chunked scene of the path
            phase with mesh= (4 windows a rank of every batch of 8, rank 0
            stitches) against the path phase's scene, every field identical to
@@ -271,21 +280,59 @@ fails. Phases, each printing one JSON line:
            process line, only rank 0 writes, both end with the same parameters.
            Per part and rank: seconds (host clock, synchronised), peak memory,
            launches (counters set to 0 just before each part, read just after)
+  trained  the JAX package's trained nf 20 model (bench_r4's model-epoch59) from
+           docs/evidence/torch_port/epoch59 (tools/export_torch_goldens.py; each
+           file's sha256 against MANIFEST.json): the chunked CLI with its .pt on
+           the golden's (128,160,192) scene, float32, against the JAX package's
+           golden_chunked.npz (overlap counts, occupancy and labels on >= 99.9 %
+           of the voxels, SDF within 1e-3 and colour within 1 where both
+           predict, IoU and mIoU within 0.005, class weights equal), the same in
+           bf16 against float32 (reported); the whole-scene CLI with the .pt
+           (seconds, device time by kind, K4's lattice samples, samples in
+           occupied blocks and samples loaded per ray of the prediction's
+           render, beside the scene phase's seeded-weight figures; K4 / K5
+           against their plain versions on it), a bf16 scene against float32
+           (as the scene phase); the validation pass of golden_val.json's 8
+           chunks (their frames rendered on the CPU, each frame's sha256 against
+           the golden's, reported) against the JAX package's metrics per chunk
+           and mean (3D 1e-4 relative, 2D and adversarial 1e-3); the JAX
+           package's style run (bench_r5's args.txt: batch 8, bf16, style /
+           content 0.01, geometry-only 1, before-content 1, from the .pt at
+           epoch 60) through the train CLI in this process, its 64 synthetic
+           chunks, cut to 2 epochs, in bf16, float32 and float32 with --remat:
+           seconds per iteration by kind, peak memory, launches, every loss
+           finite, the first validation's metrics within the golden's range
+           over its chunks; the full step's peak memory at batch 2, 4 and 8
+           with and without remat, a line through each mode's peaks predicting
+           the largest batch under 90 % of the card's memory, that batch run
+           once in each mode; max_dilation 2 on seeded weights: one window
+           batch against its plain-conv twin (1e-3; 27 launches, geo_1d off
+           K1 / K3) and one full step against its plain twin (launches K3 22,
+           K1 32, K2 27; metrics as train2d's, gradients by the gradient rule)
   kernels  one line {"kernels": [...]}: per kernel its launches on the
            paths (serve, scene, train, train2d, train2d_missing_colour,
            train2d_style, train2d_bf16, train_cli, datagen, parallel_train,
            parallel_chunked, parallel_scene (both ranks' counts added),
            train2d_zslab_conv, train2d_folded_conv, train2d_remat,
-           scene_zslab_conv, scene_folded_conv;
+           scene_zslab_conv, scene_folded_conv, trained_chunked, trained_scene,
+           trained_validation, trained_style_bfloat16, trained_style_float32,
+           trained_style_remat, trained_largest_batch,
+           trained_largest_batch_remat, dilation2_window, dilation2_step;
            each counter set to 0 just before the path's run and read just
-           after) and its numbers at the heaviest main-path shape (for the
-           raycaster's, the prediction grid at the path's size; for K7 the
+           after; with --phases, the paths that ran) and its numbers at the
+           heaviest main-path shape (for the raycaster's, the prediction grid
+           at the path's size; for K7 the
            mask with the most samples; for K8 the mean of 8 of the room scan's
            frames), with every shape (and, for the convs,
            both storage types) nested inside
   last     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}
 
 Options (none when the script is run as the check of a checkout):
+  --phases NAME,...  only these phases (and those whose outputs they read:
+           metrics and conv_forms take scene, parallel takes path and scene);
+           device and build always run; the kernels line lists the launches of
+           the paths that ran, and a kernel's times only if its compare phase
+           (compare, compare_raycast, datagen) ran
   --baseline-source PATH  another version of csrc/conv3x3.cu (e.g. the parent
            commit's, unpacked with git archive): built beside this one, and its
            K1 / K3 timed at every shape in turns with this one (baseline, this,
@@ -310,18 +357,22 @@ sums straddle a rounding boundary, by one step: <= 2e-2 for |y| < 4, and
 precision) of the largest entry of dW; two runs bitwise equal. Backward of the
 Functions, kernels against plain versions inside: dx, dW, db within 1e-4 of
 their largest entry. Train step against the plain-conv twin: metrics within 1e-4
-relative (also GPU against CPU at 16^3), each parameter gradient within 1e-2 of
-its largest entry. The gradients' tolerance is not rounding of the backward: the
-two forwards differ by float32 rounding (1e-5), which gives a few thousand of
-the 1.5e9 activations, those within rounding of 0, the other LeakyReLU slope;
-a weight gradient is a sum over N voxels of terms of either sign, of size
-sqrt(N) terms, so k flipped terms move it by sqrt(k/N): 1e-3 to 2e-3 at the
-(32,16,16) layers (N = 16384), where the largest differences are seen. Full
+relative (also GPU against CPU at 16^3), the generator's gradients by the
+gradient rule (grad_rule): each step is measured from a yardstick, the
+reference step (the plain twin, or the default step) with its seven library
+convs in float64; per leaf d(step, yardstick) = max difference over the
+yardstick's largest entry; the candidate's d at most 3 times the reference's or
+3e-2 (3 times a floor of 1e-2) on every leaf, and its median leaf at most 3 times
+the reference's median. Two float32 forwards differ by rounding, which gives a
+few hundred of the 3.1e8 activations of the full step, those within rounding of
+0, the other LeakyReLU slope, and one flip moves some leaf by ~1e-2 (the
+gradient witness of conv_forms): a leaf-by-leaf rule between two float32 steps
+(1e-2, the earlier rule) was a lottery over seeds. Full
 step against its twin, and GPU against CPU: the 3D metrics within 1e-4 relative,
 the 2D and adversarial ones within 1e-3 (a prediction pixel whose hit flips
 between two float32 forwards moves a mean over a few thousand pixels by ~1e-4);
-against its twin also each parameter gradient of the generator within 1e-2 of
-its largest entry, as in the train step; the discriminator's are reported only
+against its twin also the generator's gradients by the gradient rule, as in the
+train step; the discriminator's are reported only
 (no hand kernel in its backward; they follow the render, whose rounding
 differs between the two forwards); GPU against CPU: reported only. The
 occupancy march: identical on every pixel (a select of bytes at positions the
@@ -351,7 +402,7 @@ import warnings
 import numpy as np
 import torch
 
-if not torch.cuda.is_available():
+if __name__ == "__main__" and not torch.cuda.is_available():
     print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA device",
           file=sys.stderr)
     sys.exit(2)
@@ -371,6 +422,7 @@ from spsg_tpu_torch.ops import depth as depth_ops, normals3d, raycast as rc_ops 
 from spsg_tpu_torch.training import StepFlags, TrainConfig  # noqa: E402
 from spsg_tpu_torch.training import state  # noqa: E402
 from spsg_tpu_torch.training.step import Trainer  # noqa: E402
+from spsg_tpu_torch.utils import goldens  # noqa: E402
 
 DEV = torch.device("cuda:0")
 T0 = time.time()
@@ -1438,11 +1490,12 @@ def profile_forward(gen, cb, mb):
 OUTPUTS = ("occ", "sdf", "color", "semantic")
 
 
-def against_plain_twin(gen, plain, x, m, what):
-    """One eval forward of ``gen`` (the hand kernels: 28 launches) and of its
-    twin whose convs are the kernels' plain versions (no launch) on (x, m):
-    every output within 1e-3 of the twin's and finite. Returns (seconds of
-    gen's forward, max abs difference by output, max abs output by output)."""
+def against_plain_twin(gen, plain, x, m, what, launches=28):
+    """One eval forward of ``gen`` (the hand kernels: ``launches``, 28 at the
+    default max_dilation) and of its twin whose convs are the kernels' plain
+    versions (no launch) on (x, m): every output within 1e-3 of the twin's
+    and finite. Returns (seconds of gen's forward, max abs difference by
+    output, max abs output by output)."""
     conv_ops.reset_launch_counts()
     with torch.no_grad():
         torch.cuda.synchronize()
@@ -1453,7 +1506,7 @@ def against_plain_twin(gen, plain, x, m, what):
         n_kernel = sum(conv_ops.launch_counts.values())
         b = plain(x, m, pred_color=True, pred_semantic=True)
         torch.cuda.synchronize()
-    if n_kernel != 28 or sum(conv_ops.launch_counts.values()) != 28:
+    if n_kernel != launches or sum(conv_ops.launch_counts.values()) != launches:
         raise SystemExit(f"chip_smoke: {what}: the plain-version generator launched a kernel, "
                          "or the other one did not")
     diffs = {}
@@ -1476,6 +1529,29 @@ def seeded_generator(cfg):
     return gen
 
 
+@contextlib.contextmanager
+def recording_chunked_run(seen):
+    """Inside, run_chunked_inference (which the chunked CLI keeps to itself)
+    records into ``seen`` its outputs, its seconds (host clock, synchronised),
+    the generator and the arguments it was given."""
+    real_run = chunked.run_chunked_inference
+
+    def run(generator, scene_input, scene_mask, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = real_run(generator, scene_input, scene_mask, *a, **kw)
+        torch.cuda.synchronize()
+        seen.update(out=out, seconds=time.time() - t, generator=generator,
+                    scene_input=scene_input, scene_mask=scene_mask, args=a, kwargs=kw)
+        return out
+
+    chunked.run_chunked_inference = run
+    try:
+        yield real_run
+    finally:
+        chunked.run_chunked_inference = real_run
+
+
 def phase_path(tmp, par):
     cfg = TrainConfig()  # reference defaults: nf_gen 20, (128,64,64), colour + semantics
     gen = seeded_generator(cfg)
@@ -1485,27 +1561,13 @@ def phase_path(tmp, par):
 
     # the CLI keeps the stitched scene to itself: record what it passes on
     seen = {}
-    real_run = chunked.run_chunked_inference
-
-    def recording_run(generator, scene_input, scene_mask, *a, **kw):
-        torch.cuda.synchronize()
-        t = time.time()
-        out = real_run(generator, scene_input, scene_mask, *a, **kw)
-        torch.cuda.synchronize()
-        seen.update(out=out, seconds=time.time() - t, generator=generator,
-                    scene_input=scene_input, scene_mask=scene_mask, args=a, kwargs=kw)
-        return out
-
     out_dir = os.path.join(tmp, "output")
-    chunked.run_chunked_inference = recording_run
     torch.cuda.reset_peak_memory_stats()
     reset_all_launch_counts()
     t = time.time()
-    try:
+    with recording_chunked_run(seen):
         summary = cli.main(["--synthetic_scenes", "1", "--model_path", ckpt, "--output", out_dir,
                             "--num_to_vis", "1"])
-    finally:
-        chunked.run_chunked_inference = real_run
     cli_seconds = time.time() - t
     launches = all_launch_counts()
 
@@ -1685,6 +1747,64 @@ def timed_scene(run, gen, scene_input, scene_mask, kw):
     return out, time.time() - t, torch.cuda.max_memory_allocated()
 
 
+@contextlib.contextmanager
+def recording_scene_cli(seen, renders):
+    """Inside, the whole-scene CLI's run_whole_scene records into ``seen``
+    its outputs, seconds and peak memory (timed_scene), the peak before it,
+    the generator and its arguments; each render_views call appends its
+    arguments, seconds and hit pixels to ``renders``. Yields the real
+    run_whole_scene."""
+    from spsg_tpu_torch.cli import test_scene as scene_cli
+    from spsg_tpu_torch.inference import whole_scene
+
+    real_run, real_render = whole_scene.run_whole_scene, scene_cli.render_views
+
+    def run(generator, scene_input, scene_mask, **kw):
+        seen["peak_before"] = torch.cuda.max_memory_allocated()
+        out, seconds, peak = timed_scene(real_run, generator, scene_input, scene_mask, kw)
+        seen.update(out=out, seconds=seconds, forward_peak=peak, generator=generator,
+                    scene_input=scene_input, scene_mask=scene_mask, kwargs=kw)
+        return out
+
+    def render(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.time()
+        images = real_render(*args, **kw)  # numpy images: the card is done
+        renders.append(dict(args=args, seconds=time.time() - t,
+                            hits=int(np.isfinite(images["depth"]).sum())))
+        return images
+
+    whole_scene.run_whole_scene, scene_cli.render_views = run, render
+    try:
+        yield real_run
+    finally:
+        whole_scene.run_whole_scene, scene_cli.render_views = real_run, real_render
+
+
+def bf16_scene(cfg, seen, want, run):
+    """The scene of ``seen`` (recording_scene_cli) again with the generator in
+    bf16 (the kernels' bf16 variants, bf16 library convs, f32 heads): the
+    launches of ``want`` without the renders' and finite outputs held; its
+    seconds, peak memory and difference from the float32 scene."""
+    g16 = state.make_generator(dataclasses.replace(cfg, compute_dtype="bfloat16"), DEV)
+    g16.load_state_dict(seen["generator"].state_dict())
+    reset_all_launch_counts()
+    out16, seconds, peak16 = timed_scene(run, g16, seen["scene_input"], seen["scene_mask"],
+                                         seen["kwargs"])
+    launches16 = all_launch_counts()
+    if launches16 != dict(want, raycast_march=0, raycast_shade=0) or not all(
+            np.isfinite(o).all() for o in out16):
+        raise SystemExit(f"chip_smoke: the bf16 scene launched {launches16}, or is not finite")
+    rec = dict(
+        seconds_per_scene=seconds, voxels_per_second=float(np.prod(out16[0].shape)) / seconds,
+        max_memory_allocated=peak16, launches=launches16,
+        max_abs_diff_from_float32={n: float(np.abs(a - b).max())
+                                   for n, a, b in zip(OUTPUTS, out16, seen["out"])},
+        rms_diff_from_float32={n: float(np.sqrt(np.mean((a - b) ** 2.0)))
+                               for n, a, b in zip(OUTPUTS, out16, seen["out"])})
+    return rec, g16
+
+
 def phase_scene(tmp, rc_results, par):
     """The whole-scene CLI (spsg_tpu_torch.cli.test_scene) at its defaults from
     a reference-format .pth of the serving paths' seeded weights, and around
@@ -1703,32 +1823,12 @@ def phase_scene(tmp, rc_results, par):
 
     # the CLI keeps the scene to itself: record what it passes on
     seen, renders = {}, []
-    real_run, real_render = whole_scene.run_whole_scene, scene_cli.render_views
-
-    def recording_run(generator, scene_input, scene_mask, **kw):
-        seen["peak_before"] = torch.cuda.max_memory_allocated()
-        out, seconds, peak = timed_scene(real_run, generator, scene_input, scene_mask, kw)
-        seen.update(out=out, seconds=seconds, forward_peak=peak, generator=generator,
-                    scene_input=scene_input, scene_mask=scene_mask, kwargs=kw)
-        return out
-
-    def recording_render(*args, **kw):
-        torch.cuda.synchronize()
-        t = time.time()
-        images = real_render(*args, **kw)  # numpy images: the card is done
-        renders.append(dict(args=args, seconds=time.time() - t,
-                            hits=int(np.isfinite(images["depth"]).sum())))
-        return images
-
     out_dir = os.path.join(tmp, "scene")
-    whole_scene.run_whole_scene, scene_cli.render_views = recording_run, recording_render
     torch.cuda.reset_peak_memory_stats()
     reset_all_launch_counts()
     t = time.time()
-    try:
+    with recording_scene_cli(seen, renders) as real_run:
         scene_cli.main(["--synthetic_scenes", "1", "--model_path", pth, "--output", out_dir])
-    finally:
-        whole_scene.run_whole_scene, scene_cli.render_views = real_run, real_render
     cli_seconds = time.time() - t
     launches = all_launch_counts()
     peak = max(seen["peak_before"], torch.cuda.max_memory_allocated())
@@ -1801,43 +1901,31 @@ def phase_scene(tmp, rc_results, par):
     del plain, x, m, xb, mb, big, big_mask
     torch.cuda.empty_cache()
 
-    # one scene in bf16 (the kernels' bf16 variants, bf16 library convs, f32 heads)
-    g16 = state.make_generator(dataclasses.replace(cfg, compute_dtype="bfloat16"), DEV)
-    g16.load_state_dict(gen.state_dict())
-    reset_all_launch_counts()
-    out16, seconds, peak16 = timed_scene(real_run, g16, seen["scene_input"], seen["scene_mask"],
-                                         seen["kwargs"])
-    launches16 = all_launch_counts()
-    if launches16 != dict(want, raycast_march=0, raycast_shade=0) or not all(
-            np.isfinite(o).all() for o in out16):
-        raise SystemExit(f"chip_smoke: the bf16 scene launched {launches16}, or is not finite")
-    rec["bfloat16"] = dict(
-        seconds_per_scene=seconds, voxels_per_second=vox / seconds, max_memory_allocated=peak16,
-        launches=launches16,
-        max_abs_diff_from_float32={n: float(np.abs(a - b).max())
-                                   for n, a, b in zip(OUTPUTS, out16, out)},
-        rms_diff_from_float32={n: float(np.sqrt(np.mean((a - b) ** 2.0)))
-                               for n, a, b in zip(OUTPUTS, out16, out)})
+    # one scene in bf16
+    rec["bfloat16"], g16 = bf16_scene(cfg, seen, want, real_run)
     x, m = torch.from_numpy(inp[None]).to(DEV), torch.from_numpy(msk[None]).to(DEV)
     rec["bfloat16"]["forward_device_time"] = profile_forward(g16.eval(), x, m)
-    del g16, out16, x, m
+    del g16, x, m
 
     # K4 / K5 on the prediction's render, against their plain versions
     cfg_rc = renders[2]["args"][6]
     march_rec, shade_rec = scene_render_kernels(renders[2]["args"], cfg_rc)
-    rc_results["raycast_march"].append(march_rec)
-    rc_results["raycast_shade"].append(shade_rec)
+    if rc_results is not None:  # None when --phases left compare_raycast out
+        rc_results["raycast_march"].append(march_rec)
+        rc_results["raycast_shade"].append(shade_rec)
     rec["prediction_render"] = {k: {kk: r[kk] for kk in ("hits", "ms", "plain_ms", "library_ms",
                                                          "bound_ms", "bound_by")}
                                 for k, r in (("raycast_march", march_rec),
                                              ("raycast_shade", shade_rec))}
-    rec["prediction_render"]["raycast_march"]["samples_per_ray"] = march_rec["samples_per_ray"]
+    rec["prediction_render"]["raycast_march"].update(
+        {k: march_rec[k] for k in ("samples_per_ray", "in_blocks_per_ray", "evaluated_per_ray")})
     print(f"scene: {SCENE_DIMS} {seen['seconds']:.4f} s a scene "
           f"({vox / seen['seconds']:.4g} voxels/s), peak {peak} bytes; {BIG_SCENE} "
           f"{rec['reference_bound']['seconds_per_scene']:.4f} s, peak {big_peak} bytes; bf16 "
-          f"{rec['bfloat16']['seconds_per_scene']:.4f} s, peak {peak16} bytes", flush=True)
+          f"{rec['bfloat16']['seconds_per_scene']:.4f} s, peak "
+          f"{rec['bfloat16']['max_memory_allocated']} bytes", flush=True)
     emit("scene", **rec)
-    return launches
+    return launches, rec
 
 
 # --------------------------------------------------------------------------- train
@@ -1885,15 +1973,24 @@ def rel_diff(a, b):
     return abs(a - b) / max(abs(b), 1e-12)
 
 
+def grads_of(x, module="generator"):
+    """{name: gradient, float32 on the CPU} of ``module`` of a trainer after a
+    step; a dict of that form is returned as it is."""
+    if isinstance(x, dict):
+        return x
+    return {n: p.grad.float().cpu() for n, p in getattr(x, module).named_parameters()}
+
+
 def leaf_gaps(a, b, what, module="generator"):
-    """Parameter gradients of ``module`` of two trainers after the same step:
-    ({name: max |a - b| over the largest |b|} over the leaves that have a
-    gradient, [the leaves whose gradient is rounding noise on both sides])."""
+    """Parameter gradients of ``module`` of two trainers (or :func:`grads_of`
+    dicts) after the same step: ({name: max |a - b| over the largest |b|}
+    over the leaves that have a gradient, [the leaves whose gradient is
+    rounding noise on both sides])."""
     noise, errs = [], {}
-    pb = dict(getattr(b, module).named_parameters())
-    largest = max(p.grad.abs().max().item() for p in pb.values())
-    for name, p in getattr(a, module).named_parameters():
-        g, r = p.grad.float().cpu(), pb[name].grad.float().cpu()
+    ga, gb = grads_of(a, module), grads_of(b, module)
+    largest = max(r.abs().max().item() for r in gb.values())
+    for name, g in ga.items():
+        r = gb[name]
         scale = r.abs().max().item()
         if scale <= 1e-6 * largest:
             # no gradient (the colour head without 2D losses), or one that is zero in
@@ -1926,16 +2023,110 @@ def compare_grads(a, b, grad_tol, what, module="generator"):
                 gradients_of_rounding_noise=noise)
 
 
-def compare_trainers(a, b, ma, mb, metric_tol, grad_tol, what):
+# The gradient rule of the card (ROADMAP.md Queue C, agreed tolerances): see
+# grad_rule. Its constants, from the gradient witness's readings (NVIDIA H100 80GB HBM3,
+# the full step at TrainConfig() width on seeds 0 / 1 / 2, each generator leaf's
+# max difference from the step with float64 library convs over the leaf's
+# largest entry): worst leaf of the default step 9.739e-3 / 1.420e-3 / 1.136e-2,
+# of the z-slab step 3.643e-3 / 1.716e-2 / 5.066e-3, of the folded step 9.803e-3 /
+# 1.731e-2 / 1.153e-2; median leaf 5.2e-4 / 3.1e-4 / 8.7e-4 (default), 4.7e-4 /
+# 3.9e-4 / 6.5e-4 (z-slab), 8.0e-4 / 3.5e-4 / 1.0e-3 (folded): a form's median at
+# most 1.54 times the default's on the same seed.
+GRAD_RULE_K = 3.0          # a leaf at most 3 times the reference's distance ...
+GRAD_RULE_FLOOR = 1e-2     # ... or 3 times what one slope flip moves a leaf by
+GRAD_RULE_MEDIAN_K = 3.0   # the median leaf at most 3 times the reference's
+RULE_SECONDS = [0.0]       # the yardstick steps' seconds, the rule's cost
+
+
+def grad_rule(cand, ref, yard, what, hold=True):
+    """The gradient rule: the generator's gradients of a candidate step
+    (``cand``: hand kernels, a conv form, two ranks, a fault) against those
+    of a reference float32 step of the same state on the same batch (``ref``:
+    the plain-conv twin, or the default step), both measured from a yardstick
+    (``yard``: the reference's step with its seven library convs in float64).
+    Each is a trainer after its step or a :func:`grads_of` dict; d(x, y) of
+    a leaf is max |x - y| over y's largest entry.
+
+    Held: for every leaf d(cand, yard) <= GRAD_RULE_K * max(d(ref, yard),
+    GRAD_RULE_FLOOR), and the median leaf's d(cand, yard) <= GRAD_RULE_MEDIAN_K
+    times the reference's median. Why not d(cand, ref) <= 1e-2, the earlier
+    rule: a float32 step flips the LeakyReLU slope of ~300 of its 3.1e8
+    activations against the yardstick, and one flip moves some leaf by ~1e-2,
+    a lottery over seeds that the reference loses as often as the candidate
+    (the readings above GRAD_RULE_K): the reference's own distance, floored
+    at one flip's move, is what a float32 step may read; a fault that moves
+    every leaf moves the median, which the flips leave at 3e-4 - 1e-3.
+
+    Returns the readings (the rule's and d(cand, ref), what the 1e-2 rule
+    read); with ``hold`` raises SystemExit if the rule fails."""
+    dc, noise = leaf_gaps(cand, yard, what)
+    dr, _ = leaf_gaps(ref, yard, what)
+    share = {n: dc[n] / (GRAD_RULE_K * max(dr[n], GRAD_RULE_FLOOR)) for n in dc}
+    worst = max(share, key=share.get)
+    med_c, med_r = float(np.median(list(dc.values()))), float(np.median(list(dr.values())))
+    old = leaf_gaps(cand, ref, what)[0]
+    old_worst = max(old, key=old.get)
+    rec = dict(
+        passed=bool(share[worst] <= 1.0 and med_c <= GRAD_RULE_MEDIAN_K * med_r),
+        worst_leaf=worst, worst_leaf_share_of_limit=share[worst],
+        worst_leaf_vs_yardstick=dc[worst], reference_vs_yardstick_on_worst_leaf=dr[worst],
+        largest_vs_yardstick=max(dc.values()), reference_largest_vs_yardstick=max(dr.values()),
+        median_vs_yardstick=med_c, reference_median_vs_yardstick=med_r,
+        median_share_of_limit=med_c / (GRAD_RULE_MEDIAN_K * med_r),
+        vs_reference_max_rel_diff=old[old_worst], vs_reference_worst_parameter=old_worst,
+        parameters_with_gradient=len(dc), gradients_of_rounding_noise=noise)
+    if hold and not rec["passed"]:
+        raise SystemExit(f"chip_smoke: {what}: the gradient rule fails: {rec}")
+    return rec
+
+
+def float64_library_convs(trainer):
+    """The trainer's generator with its library convs in float64, forward and
+    backward: the gradient rule's yardstick."""
+    for b in trainer.generator.modules():
+        if isinstance(b, ConvBlock) and not b.eligible:
+            b._library_conv = _library_conv_float64.__get__(b)
+    return trainer
+
+
+def clone_trainer(src, cfg=None, plain=False, float64=False):
+    """A trainer on ``src``'s device (plain convs with ``plain``, float64
+    library convs with ``float64``; ``cfg`` or ``src``'s configuration) holding
+    ``src``'s generator, discriminator and spectral state, with fresh Adams."""
+    tr = Trainer(cfg or src.cfg, src.device, seed=0, plain_convs=plain)
+    tr.generator.load_state_dict(src.generator.state_dict())
+    if src.discriminator is not None and tr.discriminator is not None:
+        tr.discriminator.load_state_dict(src.discriminator.state_dict())
+        tr.sn_state = {k: {kk: vv.clone() for kk, vv in v.items()}
+                       for k, v in src.sn_state.items()}
+    return float64_library_convs(tr) if float64 else tr
+
+
+def yardstick_step(tr, batch, flags, plain_raycast):
+    """One step of a yardstick trainer (:func:`clone_trainer` with
+    ``float64``); its generator's gradients (:func:`grads_of`). Its seconds
+    count into RULE_SECONDS."""
+    t = time.time()
+    with plain_raycast_inside() if plain_raycast else contextlib.nullcontext():
+        tr.step(batch, flags)
+    grads = grads_of(tr)
+    RULE_SECONDS[0] += time.time() - t
+    return grads
+
+
+def compare_trainers(a, b, ma, mb, metric_tol, what, yard=None):
     """Metrics and the generator's parameter gradients of two trainers after
-    the same step (``grad_tol`` as in :func:`compare_grads`)."""
+    the same step: with a yardstick ``yard`` the gradients held to the rule
+    (:func:`grad_rule`, ``b`` the reference), else reported."""
     if set(ma) != set(mb):
         raise SystemExit(f"chip_smoke: {what}: metrics {sorted(ma)} vs {sorted(mb)}")
     mdiff = {k: rel_diff(ma[k], mb[k]) for k in ma}
     bad = {k: v for k, v in mdiff.items() if not v <= metric_tol}
     if bad or not all(np.isfinite(float(v)) for v in ma.values()):
         raise SystemExit(f"chip_smoke: {what}: metrics differ: {bad}, {ma} vs {mb}")
-    return dict(metrics_max_rel_diff=max(mdiff.values()), **compare_grads(a, b, grad_tol, what))
+    grads = (compare_grads(a, b, None, what) if yard is None
+             else dict(gradient_rule=grad_rule(a, b, yard, what)))
+    return dict(metrics_max_rel_diff=max(mdiff.values()), **grads)
 
 
 def centre_train_occupancy(trainer, batch):
@@ -1961,8 +2152,8 @@ def phase_train():
     trainer = Trainer(cfg, DEV, seed=0)
     scale_conv_weights(trainer.generator, 2.0)
     centre_train_occupancy(trainer, batch)
-    twin = Trainer(cfg, DEV, seed=0, plain_convs=True)
-    twin.generator.load_state_dict(trainer.generator.state_dict())
+    twin = clone_trainer(trainer, plain=True)
+    yard = clone_trainer(trainer, plain=True, float64=True)
     before = {k: v.clone() for k, v in trainer.generator.state_dict().items()}
 
     # (a) one step with the kernels, and the same step with the plain versions
@@ -1979,6 +2170,7 @@ def phase_train():
     twin_peak = torch.cuda.max_memory_allocated()
     if all_launch_counts() != launches:
         raise SystemExit("chip_smoke: the plain-conv twin launched a kernel")
+    yard = yardstick_step(yard, batch, full, False)
     # (b) launch counters of one step: 28 eligible convs forward, 25 backward (the
     # three convs of the colour head have no loss without the 2D terms); no raycast
     want = {"conv3x3_act_stats": 23, "conv3x3": 5 + 25, "conv3x3_dw": 25,
@@ -1992,11 +2184,12 @@ def phase_train():
                twin_max_memory_allocated=twin_peak,
                first_step_metrics={k: float(v) for k, v in metrics.items()},
                kernels_vs_plain_twin=compare_trainers(trainer, twin, metrics, twin_metrics,
-                                                      1e-4, 1e-2, "train step vs plain-conv twin"))
+                                                      1e-4, "train step vs plain-conv twin",
+                                                      yard))
     if not (metrics["loss_occ"] > 0 and metrics["loss_sdf"] > 0 and metrics["loss_semantic"] > 0
             and 0 < metrics["iou_occ"] < 1):
         raise SystemExit(f"chip_smoke: the first step's losses are degenerate: {metrics}")
-    del twin
+    del twin, yard
     torch.cuda.empty_cache()
 
     # (c) three more steps, timed
@@ -2089,7 +2282,7 @@ def phase_train():
     # of 0) moves a gradient by percents (seen: 13 %); without such a voxel they agree
     # to 1e-5. The kernels' backward is held to 1e-4 in the compare phase.
     rec["small_step_gpu_vs_cpu"] = compare_trainers(
-        pair["cuda"][0], pair["cpu"][0], pair["cuda"][1], pair["cpu"][1], 1e-4, None,
+        pair["cuda"][0], pair["cpu"][0], pair["cuda"][1], pair["cpu"][1], 1e-4,
         "16^3 step, GPU vs CPU")
     emit("train", **rec)
     return launches
@@ -2108,6 +2301,60 @@ WANT_2D = {"conv3x3_act_stats": 23, "conv3x3": 5 + 28, "conv3x3_dw": 28,
 # prediction pixel's hit flips (one pixel moves a mean over a few thousand by
 # ~1e-4): those are held to 1e-3, the 3D metrics to 1e-4
 METRICS_3D = ("loss_occ", "iou_occ", "loss_sdf", "loss_semantic")
+
+
+# the full step's batch and unstepped trainer, by seed (full_step_fixture), and
+# the gradients of steps taken from them that several phases hold to the rule
+_FULL_STEP, _STEP_GRADS = {}, {}
+
+
+def full_step_fixture(seed=0):
+    """The full step's fixture for ``seed``: the batch of make_chunk_batch's
+    seed 7 + seed (TrainConfig() chunks, one 320x256 frame a chunk rendered
+    on the card) and a trainer that is never stepped (Trainer(seed=seed),
+    conv weights x2, the occupancy head centred on the batch); clone it with
+    :func:`clone_trainer`. Cached: train2d, conv_forms and parallel share
+    seed 0's, the gradient witness and parallel seeds 0-2. Returns (batch,
+    trainer, seconds that rendering the frames took)."""
+    if seed not in _FULL_STEP:
+        from spsg_tpu_torch.data import synthetic
+
+        cfg = TrainConfig()
+        t = time.time()
+        batch = synthetic.make_chunk_batch(cfg.batch_size, cfg.input_dim,
+                                           (cfg.style_width, cfg.style_height), seed=7 + seed,
+                                           with_frames=True, device=DEV)
+        frames_seconds = time.time() - t
+        batch.pop("name")
+        batch["weight_occ"] = np.float32(cfg.weight_occ_loss)
+        base = Trainer(cfg, DEV, seed=seed)
+        scale_conv_weights(base.generator, 2.0)
+        centre_train_occupancy(base, batch)
+        _FULL_STEP[seed] = (batch, base, frames_seconds)
+    return _FULL_STEP[seed]
+
+
+def full_step_grads(kind, seed=0):
+    """The generator's gradients (:func:`grads_of`) of one full step from
+    :func:`full_step_fixture` (``seed``), cached: ``kind`` "default" (the
+    kernels, float32: the rule's reference for the conv forms and two ranks),
+    "yard_default" (the same with float64 library convs: their yardstick) or
+    "yard_plain" (plain convs and plain raycaster, float64 library convs: the
+    yardstick of the kernels against the plain twin)."""
+    if (kind, seed) not in _STEP_GRADS:
+        batch, base, _ = full_step_fixture(seed)
+        flags = StepFlags(**FULL_2D)
+        if kind == "default":
+            tr = clone_trainer(base)
+            tr.step(batch, flags)
+            grads = grads_of(tr)
+        else:
+            plain = kind == "yard_plain"
+            grads = yardstick_step(clone_trainer(base, plain=plain, float64=True), batch, flags,
+                                   plain)
+        _STEP_GRADS[kind, seed] = grads
+        torch.cuda.empty_cache()
+    return _STEP_GRADS[kind, seed]
 
 
 @contextlib.contextmanager
@@ -2300,10 +2547,8 @@ def missing_colour_step(batch):
     trainer = Trainer(cfg, DEV, seed=0)
     scale_conv_weights(trainer.generator, 2.0)
     centre_train_occupancy(trainer, batch)
-    twin = Trainer(cfg, DEV, seed=0, plain_convs=True)
-    twin.generator.load_state_dict(trainer.generator.state_dict())
-    twin.discriminator.load_state_dict(trainer.discriminator.state_dict())
-    twin.sn_state = {k: {kk: vv.clone() for kk, vv in v.items()} for k, v in trainer.sn_state.items()}
+    twin = clone_trainer(trainer, plain=True)
+    yard = clone_trainer(trainer, plain=True, float64=True)
     seen = {}
     reset_all_launch_counts()
     with recording_views(seen):
@@ -2324,14 +2569,15 @@ def missing_colour_step(batch):
     torch.cuda.synchronize()
     if any(all_launch_counts().values()):
         raise SystemExit(f"chip_smoke: the plain twin launched a kernel: {all_launch_counts()}")
+    yard = yardstick_step(yard, batch, flags, True)
     rec = dict(launches_per_step=launches, weighted_pixels=weighted,
                metrics={k: float(v) for k, v in metrics.items()},
                kernels_vs_plain_twin=dict(
                    metrics_rel_diff=compare_metrics(metrics, twin_metrics,
                                                     "missing-colour step vs plain twin"),
-                   generator_gradients=compare_grads(trainer, twin, 1e-2,
-                                                     "missing-colour step vs plain twin")))
-    del twin
+                   gradient_rule=grad_rule(trainer, twin, yard,
+                                           "missing-colour step vs plain twin")))
+    del twin, yard
     pre = trainer.precompute_views(batch)
     differing = views_differing(pre, seen)
     if any(differing.values()):
@@ -2351,13 +2597,7 @@ def phase_train2d():
     from spsg_tpu_torch.data import synthetic
 
     cfg = TrainConfig()  # defaults: nf_gen 20, (128,64,64), batch 2, 320x256, nf_disc 8
-    t = time.time()
-    batch = synthetic.make_chunk_batch(cfg.batch_size, cfg.input_dim,
-                                       (cfg.style_width, cfg.style_height), seed=7,
-                                       with_frames=True, device=DEV)
-    frames_seconds = time.time() - t
-    batch.pop("name")
-    batch["weight_occ"] = np.float32(cfg.weight_occ_loss)
+    batch, base, frames_seconds = full_step_fixture(0)
     flags = StepFlags(**FULL_2D)
     rec = dict(config=dict(nf_gen=cfg.nf_gen, input_dim=list(cfg.input_dim),
                            batch_size=cfg.batch_size, image=[cfg.style_width, cfg.style_height],
@@ -2366,13 +2606,8 @@ def phase_train2d():
                frames_seconds=frames_seconds,
                frame_holes=int((batch["images_depth"] == 0).sum()))
 
-    trainer = Trainer(cfg, DEV, seed=0)
-    scale_conv_weights(trainer.generator, 2.0)
-    centre_train_occupancy(trainer, batch)
-    twin = Trainer(cfg, DEV, seed=0, plain_convs=True)
-    twin.generator.load_state_dict(trainer.generator.state_dict())
-    twin.discriminator.load_state_dict(trainer.discriminator.state_dict())
-    twin.sn_state = {k: {kk: vv.clone() for kk, vv in v.items()} for k, v in trainer.sn_state.items()}
+    trainer = clone_trainer(base)
+    twin = clone_trainer(base, plain=True)
     disc_before = {k: v.clone() for k, v in trainer.discriminator.state_dict().items()}
 
     # (a) one step with the kernels, and the same step of a twin with the plain
@@ -2435,8 +2670,9 @@ def phase_train2d():
             prediction_hit_pixels_differing=pred_hit_diff, render_max_abs_diff=synth_diff,
             # the step's backward on the card (K6 inside the prediction's raycast,
             # the colour head's dx and dW) against autograd through the plain
-            # versions, at the train phase's tolerance and for its reason
-            generator_gradients=compare_grads(trainer, twin, 1e-2, "full step vs plain twin"),
+            # versions, by the gradient rule (the plain twin's yardstick)
+            gradient_rule=grad_rule(trainer, twin, full_step_grads("yard_plain", 0),
+                                    "full step vs plain twin"),
             # reported only: no hand kernel is in the discriminator's backward, and
             # its gradients follow the render it is given, which the two forwards
             # round differently (render_max_abs_diff)
@@ -3626,27 +3862,18 @@ def conv_forms_bf16(gen, shape):
     return out
 
 
-def conv_forms_steps(batch):
+def conv_forms_steps():
     """The full default step (train2d's configuration, weights and batch) and
     the same step with each form and with remat, each trainer from the same
     state: launches of the first step, its metrics and the generator's
     gradients against the default step's; then one warm-up and three timed
     steps (median seconds, peak memory) and device time by kind."""
-    cfg = TrainConfig()
+    batch, base, _ = full_step_fixture(0)
     flags = StepFlags(**FULL_2D)
-    base = Trainer(cfg, DEV, seed=0)
-    scale_conv_weights(base.generator, 2.0)
-    centre_train_occupancy(base, batch)
-    gsd = {k: v.clone() for k, v in base.generator.state_dict().items()}
-    dsd = {k: v.clone() for k, v in base.discriminator.state_dict().items()}
-    sn = {k: {kk: vv.clone() for kk, vv in v.items()} for k, v in base.sn_state.items()}
     trainers, recs, launches, first = {}, {}, {}, {}
     for name in ("default",) + FORM_FLAGS + ("remat",):
-        tr = base if name == "default" else Trainer(
-            dataclasses.replace(cfg, **{name: True}), DEV, seed=0)
-        tr.generator.load_state_dict(gsd)
-        tr.discriminator.load_state_dict(dsd)
-        tr.sn_state = {k: {kk: vv.clone() for kk, vv in v.items()} for k, v in sn.items()}
+        kw = {} if name == "default" else {name: True}
+        tr = clone_trainer(base, dataclasses.replace(base.cfg, **kw))
         reset_all_launch_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3662,14 +3889,14 @@ def conv_forms_steps(batch):
                           first_step_max_memory_allocated=torch.cuda.max_memory_allocated(),
                           first_step_metrics={k: float(v) for k, v in metrics.items()})
         if name != "default":
-            # metrics at train2d's rule; the generator's gradients within 1e-2 of a
-            # leaf's largest entry (the LeakyReLU slope flips of the twin rule; the
-            # gradient witness below measures them)
+            # metrics at train2d's rule; the generator's gradients by the gradient
+            # rule, the default step the reference (the witness below: on 3 seeds)
             recs[name]["against_default"] = dict(
                 metrics_rel_diff=compare_metrics(metrics, first["default"],
                                                  f"full step with {name} vs default"),
-                generator_gradients=compare_grads(tr, trainers["default"], 1e-2,
-                                                  f"full step with {name} vs default"))
+                gradient_rule=grad_rule(tr, trainers["default"],
+                                        full_step_grads("yard_default", 0),
+                                        f"full step with {name} vs default"))
             recs[name]["against_default"]["gradients_identical"] = all(
                 torch.equal(p.grad, q.grad) for p, q in zip(
                     tr.generator.parameters(), trainers["default"].generator.parameters()))
@@ -3756,63 +3983,133 @@ def slope_flips(signs, ref):
                 of=int(sum(a.numel() for a in ref)))
 
 
-def conv_forms_gradient_witness(seeds=WITNESS_SEEDS):
-    """Why the flags' steps part from the default step's gradients. For each
-    seed (the trainer's weights, scaled and centred as in train2d, and the
-    batch of seed 7 + seed), the full step from one state: with the seven
-    library convs in float64 (the yardstick), the default step twice, and the
-    step with each flag. Per leaf, each step's generator gradients against the
-    yardstick's (and the flags' against the default's, the rule held above)
-    over the leaf's largest entry: the worst leaf of each, the readings of
-    every step on the leaf that is worst against the default; and the
-    LeakyReLU slope flips of each step's forward against the yardstick's.
-    Reported, not held: it says whether a flag's gap is its own fault or the
-    float32 step's rounding, which the default step shows against the
-    yardstick too."""
-    from spsg_tpu_torch.data import synthetic
+# the steps of the gradient rule's cases: the kernels' and the forms' float32
+# steps, the plain-conv twin, the two yardsticks (float64 library convs) and two
+# seeded faults; each case: (candidate, reference, yardstick, whether it passes)
+WITNESS_STEPS = ("float64", "default", "default_again", "zslab_conv", "folded_conv", "plain",
+                 "float64_plain", "fault_zslab_tap", "fault_k2_tap")
+RULE_CASES = {
+    "default": ("default", "plain", "float64_plain", True),
+    "zslab_conv": ("zslab_conv", "default", "float64", True),
+    "folded_conv": ("folded_conv", "default", "float64", True),
+    "fault_zslab_tap": ("fault_zslab_tap", "default", "float64", False),
+    "fault_k2_tap": ("fault_k2_tap", "plain", "float64_plain", False),
+}
+FAULT_LAYER = "encoder_1a"  # the z-slab fault's conv (4^3, stride 2)
 
-    cfg = TrainConfig()
-    flags = StepFlags(**FULL_2D)
-    names = ("float64", "default", "default_again") + FORM_FLAGS
-    out = []
-    for seed in seeds:
-        batch = synthetic.make_chunk_batch(cfg.batch_size, cfg.input_dim,
-                                           (cfg.style_width, cfg.style_height), seed=7 + seed,
-                                           with_frames=True, device=DEV)
-        batch.pop("name")
-        batch["weight_occ"] = np.float32(cfg.weight_occ_loss)
-        trainers, signs, metrics = {}, {}, {}
-        for name in names:
-            kw = {name: True} if name in FORM_FLAGS else {}
-            tr = Trainer(dataclasses.replace(cfg, **kw), DEV, seed=seed)
-            if name == "float64":
-                scale_conv_weights(tr.generator, 2.0)
-                centre_train_occupancy(tr, batch)
-                gsd = {k: v.clone() for k, v in tr.generator.state_dict().items()}
-                dsd = {k: v.clone() for k, v in tr.discriminator.state_dict().items()}
-                sn = {k: {kk: vv.clone() for kk, vv in v.items()} for k, v in tr.sn_state.items()}
-                for b in tr.generator.modules():
-                    if isinstance(b, ConvBlock) and not b.eligible:
-                        b._library_conv = _library_conv_float64.__get__(b)
-            tr.generator.load_state_dict(gsd)
-            tr.discriminator.load_state_dict(dsd)
-            tr.sn_state = {k: {kk: vv.clone() for kk, vv in v.items()} for k, v in sn.items()}
-            hooks = SlopeSigns(tr.generator)
+
+def zslab_wrong_tap(self, x, dt, halo):
+    """ConvBlock._library_conv on the z-slab route with the weight tap at the
+    kernel's centre read from its neighbour along x (a wrong index into the
+    weight of one library conv): a seeded fault of the gradient rule."""
+    c = self.weight.shape[2] // 2
+    w = self.weight.to(dt).clone()
+    w[:, :, c, c, c] = self.weight[:, :, c, c, c + 1].to(dt)
+    p = self.padding
+    return conv3d_zslab(x, w.permute(2, 3, 4, 1, 0), self.stride, (p, 0, p) if halo else p,
+                        self.dilation)
+
+
+@contextlib.contextmanager
+def k2_wrong_tap():
+    """Inside, the first weight gradient that K2's wrapper gives has its
+    centre tap's entries replaced by its neighbour's along x (one wrong tap in
+    K2's output): a seeded fault of the gradient rule."""
+    real, calls = conv_ops.conv3x3_dw, []
+
+    def faulty(x, dy):
+        dw = real(x, dy)
+        calls.append(tuple(dw.shape))
+        if len(calls) == 1:
+            dw = dw.clone()
+            dw[1, 1, 1] = dw[1, 1, 2]
+        return dw
+
+    conv_ops.conv3x3_dw = faulty
+    try:
+        yield calls
+    finally:
+        conv_ops.conv3x3_dw = real
+
+
+def witness_steps(base, batch, flags, names=WITNESS_STEPS):
+    """One step of each of ``names`` from ``base``'s state on ``batch``
+    (:func:`clone_trainer`): "float64" / "float64_plain" with float64 library
+    convs (plain convs and the plain raycaster for the latter, and for
+    "plain"), the forms with their flag, "fault_zslab_tap" the z-slab step with
+    :func:`zslab_wrong_tap` in FAULT_LAYER, "fault_k2_tap" the default step
+    under :func:`k2_wrong_tap`. Returns ({name: grads_of}, {name: metrics},
+    {name: the LeakyReLU slopes of its forward, SlopeSigns})."""
+    grads, metrics, signs = {}, {}, {}
+    for name in names:
+        kw = ({"zslab_conv": True} if name in ("zslab_conv", "fault_zslab_tap")
+              else {"folded_conv": True} if name == "folded_conv" else {})
+        plain = name in ("plain", "float64_plain")
+        tr = clone_trainer(base, dataclasses.replace(base.cfg, **kw), plain=plain,
+                           float64=name.startswith("float64"))
+        if name == "fault_zslab_tap":
+            block = getattr(tr.generator, FAULT_LAYER)
+            block._library_conv = zslab_wrong_tap.__get__(block)
+        hooks = SlopeSigns(tr.generator)
+        t = time.time()
+        with (plain_raycast_inside() if plain else k2_wrong_tap() if name == "fault_k2_tap"
+              else contextlib.nullcontext()):
             m = tr.step(batch, flags)
-            torch.cuda.synchronize()
-            signs[name] = hooks.remove()
-            metrics[name] = {k: float(v) for k, v in m.items()}
-            if not all(np.isfinite(v) for v in metrics[name].values()):
-                raise SystemExit(f"chip_smoke: conv_forms witness seed {seed}: the step with "
-                                 f"{name} is not finite: {metrics[name]}")
-            trainers[name] = tr
+        grads[name] = grads_of(tr)
+        if name.startswith("float64"):
+            RULE_SECONDS[0] += time.time() - t
+        signs[name] = hooks.remove()
+        metrics[name] = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(v) for v in metrics[name].values()):
+            raise SystemExit(f"chip_smoke: gradient witness: the step {name} is not finite: "
+                             f"{metrics[name]}")
+        del tr, hooks
+    return grads, metrics, signs
+
+
+def rule_cases(grads, what):
+    """The gradient rule on each of RULE_CASES (readings, not held), with
+    whether the 1e-2 rule (d(candidate, reference) <= 1e-2) would pass and
+    whether each verdict is the expected one."""
+    out = {}
+    for case, (cand, ref, yard, should_pass) in RULE_CASES.items():
+        r = grad_rule(grads[cand], grads[ref], grads[yard], f"{what} {case}", hold=False)
+        r.update(expected_to_pass=should_pass, as_expected=r["passed"] == should_pass,
+                 old_rule_passed=bool(r["vs_reference_max_rel_diff"] <= 1e-2))
+        out[case] = r
+    return out
+
+
+def conv_forms_gradient_witness(seeds=WITNESS_SEEDS):
+    """The gradient rule on three seeds (full_step_fixture's weights and
+    batches), each step of WITNESS_STEPS from one state: RULE_CASES held (the
+    kernels against the plain twin, each form against the default step: pass;
+    the two seeded faults: fail, on every seed, and on each seed one fault
+    that the 1e-2 rule fails too), with both faults' readings; and, reported as
+    before the rule, per leaf each float32 step's generator gradients against the
+    float64 step's (and the forms' against the default's) over the leaf's
+    largest entry, the readings of every step on the leaf that is worst
+    between zslab_conv and the default, and the LeakyReLU slope flips of each
+    step's forward against the float64 step's. The float64, default and
+    plain yardstick gradients join full_step_grads' cache (the parallel phase
+    holds two ranks to the rule on the same seeds)."""
+    flags = StepFlags(**FULL_2D)
+    out, broken = [], []
+    for seed in seeds:
+        batch, base, _ = full_step_fixture(seed)
+        grads, metrics, signs = witness_steps(base, batch, flags)
+        for kind, name in (("default", "default"), ("yard_default", "float64"),
+                           ("yard_plain", "float64_plain")):
+            _STEP_GRADS.setdefault((kind, seed), grads[name])
+        names = ("float64", "default", "default_again") + FORM_FLAGS
         pairs = {f"{n}_vs_float64": (n, "float64") for n in names[1:]}
         pairs.update({f"{n}_vs_default": (n, "default") for n in ("default_again",) + FORM_FLAGS})
-        gaps = {k: leaf_gaps(trainers[a], trainers[b], f"witness seed {seed} {k}")[0]
+        gaps = {k: leaf_gaps(grads[a], grads[b], f"witness seed {seed} {k}")[0]
                 for k, (a, b) in pairs.items()}
         leaf = max(gaps["zslab_conv_vs_default"], key=gaps["zslab_conv_vs_default"].get)
         rec = dict(seed=seed, batch_seed=7 + seed, zslab_worst_leaf=leaf,
-                   on_zslab_worst_leaf={k: g[leaf] for k, g in gaps.items()})
+                   on_zslab_worst_leaf={k: g[leaf] for k, g in gaps.items()},
+                   rule=rule_cases(grads, f"witness seed {seed}"))
         for k, g in gaps.items():
             worst = sorted(g, key=g.get)[-3:][::-1]
             rec[k] = dict(worst=[[n, g[n]] for n in worst],
@@ -3821,19 +4118,28 @@ def conv_forms_gradient_witness(seeds=WITNESS_SEEDS):
                                                             metrics[pairs[k][1]][q])
                                                    for q in metrics["float64"]))
         rec["slope_flips_vs_float64"] = {n: slope_flips(signs[n], signs["float64"])
-                                         for n in names[1:]}
+                                         for n in WITNESS_STEPS[1:]}
         rec["slope_flips_default_again_vs_default"] = slope_flips(signs["default_again"],
                                                                   signs["default"])
+        broken += [(seed, c) for c, r in rec["rule"].items() if not r["as_expected"]]
+        if not any(not r["passed"] and not r["old_rule_passed"]
+                   for c, r in rec["rule"].items() if not r["expected_to_pass"]):
+            broken.append((seed, "no fault that the 1e-2 rule fails too"))
         out.append(rec)
-        print(f"conv_forms witness seed {seed}: worst leaf against the default step "
-              f"{leaf} " + ", ".join(f"{k} {v:.3e}" for k, v in rec["on_zslab_worst_leaf"].items())
-              + "; worst leaf " + ", ".join(f"{k} {rec[k]['worst'][0][0]} "
-                                            f"{rec[k]['worst'][0][1]:.3e}" for k in gaps)
+        print(f"gradient rule seed {seed}: " + "; ".join(
+            f"{c} {'passes' if r['passed'] else 'fails'} (leaf {r['worst_leaf']} "
+            f"{r['worst_leaf_vs_yardstick']:.3e} of limit "
+            f"{r['worst_leaf_vs_yardstick'] / r['worst_leaf_share_of_limit']:.3e}, median "
+            f"{r['median_vs_yardstick']:.3e} of limit "
+            f"{r['median_vs_yardstick'] / r['median_share_of_limit']:.3e}; the 1e-2 rule reads "
+            f"{r['vs_reference_max_rel_diff']:.3e})" for c, r in rec["rule"].items())
               + "; slope flips against float64 " + ", ".join(
                   f"{n} {v['flipped']}" for n, v in rec["slope_flips_vs_float64"].items())
               + f" of {rec['slope_flips_vs_float64']['default']['of']}", flush=True)
-        del trainers, signs
+        del grads, signs
         torch.cuda.empty_cache()
+    if broken:
+        raise SystemExit(f"chip_smoke: the gradient rule's witness: not as expected: {broken}")
     return out
 
 
@@ -3874,8 +4180,6 @@ def conv_forms_scene(par):
 
 def phase_conv_forms(par):
     """Phase conv_forms: the z-slab and folded forms and remat on the card."""
-    from spsg_tpu_torch.data import synthetic
-
     t0 = time.time()
     use_true_float32()
     cfg = TrainConfig()
@@ -3886,13 +4190,8 @@ def phase_conv_forms(par):
                              if r["kernel"] == 5],
                bfloat16=conv_forms_bf16(gen, (cfg.batch_size,) + tuple(cfg.input_dim)))
     del gen
-    batch = synthetic.make_chunk_batch(cfg.batch_size, cfg.input_dim,
-                                       (cfg.style_width, cfg.style_height), seed=7,
-                                       with_frames=True, device=DEV)
-    batch.pop("name")
-    batch["weight_occ"] = np.float32(cfg.weight_occ_loss)
-    rec["steps"], step_launches, trainers = conv_forms_steps(batch)
-    rec["generator_remat_bits"] = generator_remat_bits(trainers, batch)
+    rec["steps"], step_launches, trainers = conv_forms_steps()
+    rec["generator_remat_bits"] = generator_remat_bits(trainers, full_step_fixture(0)[0])
     del trainers
     torch.cuda.empty_cache()
     rec["gradient_witness"] = conv_forms_gradient_witness()
@@ -3905,13 +4204,559 @@ def phase_conv_forms(par):
               flush=True)
     print("conv_forms: the full step " + ", ".join(
         f"{n} {r['seconds_per_step']:.4f} s, peak {r['max_memory_allocated_steady']}"
-        + (f", gradients {g['grad_max_rel_diff']:.3e} ({g['grad_worst_parameter']})"
-           if (g := r.get("against_default", {}).get("generator_gradients")) else "")
+        + (f", gradient rule: leaf {g['worst_leaf']} {g['worst_leaf_share_of_limit']:.3f} of "
+           f"its limit, median {g['median_share_of_limit']:.3f} of its limit"
+           if (g := r.get("against_default", {}).get("gradient_rule")) else "")
         for n, r in rec["steps"].items()) + f"; phase {rec['seconds']:.1f} s", flush=True)
     emit("conv_forms", **rec)
     paths = {f"train2d_{n}": step_launches[n] for n in FORM_FLAGS + ("remat",)}
     paths.update({f"scene_{n}": scene_launches[n] for n in FORM_FLAGS})
     return paths
+
+
+# --------------------------------------------------------------------------- trained
+REPO = os.path.dirname(os.path.abspath(__file__))
+# the JAX package's trained nf 20 model and its golden files (tools/export_torch_goldens.py)
+TRAINED_DIR = os.path.join(REPO, "docs", "evidence", "torch_port", "epoch59")
+# the JAX package's style run, continued from that model (its flags, bar the cuts below)
+STYLE_RUN_ARGS = os.path.join(REPO, "docs", "evidence", "bench_r5", "style_run", "args.txt")
+# the style run cut to 2 of its 40 epochs; its 64 synthetic chunks stay (16 would
+# leave 2 validation chunks, fewer than a batch of 8: no validation at all)
+STYLE_EPOCHS = 2
+# the flags of args.txt that say where a run writes or which card it takes
+STYLE_SKIP = ("save", "retrain", "retrain_disc", "gpu", "device", "distributed", "profile_dir",
+              "synthetic_chunks", "max_epoch")
+MEMORY_BATCHES = (2, 4, 8)
+MEMORY_BUDGET = 0.9  # the share of the card's memory the largest batch is predicted to fill
+# launches of one full step with GeneratorConfig.max_dilation 2: geo_1d (fused
+# conv + LeakyReLU + BatchNorm) leaves K3 for the library route, and its dx / dW K1 / K2
+WANT_2D_DILATION2 = dict(WANT_2D, conv3x3_act_stats=22, conv3x3=5 + 27, conv3x3_dw=27)
+
+
+def load_goldens(directory=TRAINED_DIR):
+    """(manifest, golden_val, golden_chunked, the .pt's path) of a directory
+    that tools/export_torch_goldens.py wrote; every file's sha256 against the
+    manifest's."""
+    try:
+        manifest = goldens.check_manifest(directory)
+    except ValueError as e:
+        raise SystemExit(f"chip_smoke: trained: {e}")
+    with open(os.path.join(directory, "golden_val.json")) as f:
+        val = json.load(f)
+    with np.load(os.path.join(directory, "golden_chunked.npz")) as z:
+        chunked_golden = {k: z[k] for k in z.files}
+    pt = next(os.path.join(directory, n) for n in manifest["files"] if n.endswith(".pt"))
+    return manifest, val, chunked_golden, pt
+
+
+def run_config(raw, **changes):
+    """The port's TrainConfig of the run whose args.txt is ``raw`` (the train
+    CLI's flags, which are the JAX package's), float32 unless ``changes``
+    say otherwise."""
+    from spsg_tpu_torch.cli import train as train_cli
+
+    ns = goldens.replay_args(train_cli.build_parser(), raw)
+    return dataclasses.replace(train_cli.config_from_args(ns), compute_dtype=None, **changes)
+
+
+def compare_chunked_golden(out, g, what):
+    """A chunked scene (run_chunked_inference's outputs) against the JAX
+    package's golden (golden_chunked.npz), at the rule of
+    tests/test_torch_chunked.py::test_whole_slice_matches_jax_with_trained_weights:
+    overlap counts, occupancy and labels equal on >= 99.9 % of the voxels; where
+    the counts agree and a voxel has a prediction, the SDF within 1e-3 and the
+    colour within 1; IoU and mIoU within 0.005; the class weights equal."""
+    counts = g["counts"].astype(np.int64)
+    if out.counts.shape != counts.shape:
+        raise SystemExit(f"chip_smoke: {what}: scene {out.counts.shape}, golden {counts.shape}")
+    occ = np.unpackbits(g["occ"])[:counts.size].reshape(counts.shape).astype(bool)
+    idx = np.union1d(np.flatnonzero(counts > 0), g["sample_voxels"])  # sdf / colors' voxels
+    got_counts = out.counts.reshape(-1)[idx]
+    both = (got_counts == counts.reshape(-1)[idx]) & (got_counts > 0)
+    summary = chunked.summarize_iou(out.geo_intersection, out.geo_union, out.class_intersection,
+                                    out.class_union, out.class_weight)
+    rec = dict(
+        voxels=int(counts.size), predicted_voxels=int((out.counts > 0).sum()),
+        golden_predicted_voxels=int((counts > 0).sum()),
+        counts_agree=float((out.counts == counts).mean()),
+        occupancy_agree=float((out.occ.astype(bool) == occ).mean()),
+        labels_agree=float((out.sem_labels == g["sem_labels"]).mean()),
+        sdf_voxels_compared=int(both.sum()),
+        sdf_max_abs_diff=float(np.abs(out.sdf.reshape(-1)[idx][both] - g["sdf"][both]).max()),
+        colors_max_abs_diff=int(np.abs(out.colors.reshape(-1, 3)[idx][both].astype(int)
+                                       - g["colors"][both].astype(int)).max()),
+        geo_iou=summary["geo_iou"], golden_geo_iou=float(g["geo_iou"]),
+        mean_iou=summary["mean_iou"], golden_mean_iou=float(g["mean_iou"]),
+        class_weight_equal=bool(np.array_equal(out.class_weight, g["class_weight"])))
+    ok = (rec["counts_agree"] >= 0.999 and rec["occupancy_agree"] >= 0.999
+          and rec["labels_agree"] >= 0.999 and rec["sdf_voxels_compared"] > 0
+          and rec["sdf_max_abs_diff"] <= 1e-3 and rec["colors_max_abs_diff"] <= 1
+          and abs(rec["geo_iou"] - rec["golden_geo_iou"]) <= 0.005
+          and abs(rec["mean_iou"] - rec["golden_mean_iou"]) <= 0.005
+          and rec["class_weight_equal"])
+    if not ok:
+        raise SystemExit(f"chip_smoke: {what}: the chunked scene against the JAX golden: {rec}")
+    return rec
+
+
+def golden_validation_set(cfg, golden):
+    """golden_val.json's validation set as the golden took it: the train
+    CLI's SyntheticChunkDataset(n, cfg, True, seed=2) with its frames
+    rendered on the CPU (a step moves them to its trainer's device)."""
+    from spsg_tpu_torch.cli.train import SyntheticChunkDataset
+
+    ds = SyntheticChunkDataset(golden["validation_set"]["chunks"], cfg, True,
+                               seed=golden["validation_set"]["seed"], device="cpu")
+    return [ds[i] for i in range(len(ds))]
+
+
+def port_validation(trainer, golden, samples):
+    """The port's validation pass on ``samples`` (golden_validation_set), one
+    chunk a step as the golden took it. The step takes its input and target
+    marches and depth chain from precompute_views on the trainer's device,
+    with the values where the JAX package's differ from the port's (the
+    chunk's march_patches, found on the CPU by tools/export_torch_goldens.py:
+    the marches' rounding, ROADMAP Queue C; the depth chain's normals) set to
+    the JAX values, as the JAX step took them. K4 equals march_plain, so on
+    the card too the patched marches are the golden's, which their sha256
+    shows. A second step on the unpatched views gives the gap with each
+    package on its own marches. Returns per chunk both steps' metrics, the
+    values patched, and whether its frame's and its patched marches' sha256
+    are the golden's."""
+    from spsg_tpu_torch.training.loop import _prepare_batch
+
+    cfg, it = trainer.cfg, golden["iteration"]
+    flags = StepFlags(**golden["flags"])
+    out = []
+    for sample, gc in zip(samples, golden["chunks"]):
+        batch = _prepare_batch({k: v[None] for k, v in sample.items()
+                                if isinstance(v, np.ndarray)}, cfg, it)
+        own = trainer.precompute_views(batch)
+        views = dict(own)
+        for k, (idx, vals) in gc["march_patches"].items():
+            v = own[k].clone(memory_format=torch.contiguous_format)
+            v.view(-1)[torch.tensor(idx, dtype=torch.long, device=v.device)] = torch.tensor(
+                vals, dtype=torch.float64).to(v)
+            views[k] = v
+        m = trainer.step(batch, flags, precomp=views)
+        m_own = trainer.step(batch, flags, precomp=own)
+        out.append(dict(name=sample["name"],
+                        frame_is_golden=goldens.frame_digest(batch) == gc["frame_sha256"],
+                        pixels_patched={k: len(v[0]) for k, v in gc["march_patches"].items()},
+                        marches_are_golden=all(goldens.array_digest(views[k].cpu().numpy()) == h
+                                               for k, h in gc["march_sha256"].items()),
+                        metrics={k: float(v) for k, v in m.items()},
+                        unpatched_metrics={k: float(v) for k, v in m_own.items()}))
+    return out
+
+
+def compare_val_golden(chunks, golden, what):
+    """The port's validation metrics (:func:`port_validation`) against
+    golden_val.json's, per chunk and their mean, at train2d's metric rule: the
+    3D metrics within 1e-4 relative, the 2D and adversarial ones within 1e-3.
+    Each chunk's frame and patched marches must be the golden's. The gap on
+    the port's own marches is reported beside it, not held (ROADMAP Queue C)."""
+    def limit(k):
+        return 1e-4 if k in METRICS_3D else 1e-3
+
+    def rel(ma, mb, where):
+        if set(ma) != set(mb):
+            raise SystemExit(f"chip_smoke: {what}: {where}: metrics {sorted(ma)} vs {sorted(mb)}")
+        d = {k: rel_diff(ma[k], mb[k]) for k in ma}
+        bad = {k: v for k, v in d.items() if not v <= limit(k)}
+        if bad or not all(np.isfinite(v) for v in ma.values()):
+            raise SystemExit(f"chip_smoke: {what}: {where} against the JAX golden: off by {bad} "
+                             f"(port {ma}, golden {mb})")
+        return d
+
+    if [c["name"] for c in chunks] != [c["name"] for c in golden["chunks"]]:
+        raise SystemExit(f"chip_smoke: {what}: chunks {[c['name'] for c in chunks]}")
+    not_golden = [c["name"] for c in chunks
+                  if not (c["frame_is_golden"] and c["marches_are_golden"])]
+    if not_golden:
+        raise SystemExit(f"chip_smoke: {what}: the frames or the patched marches of "
+                         f"{not_golden} are not the golden's")
+    per_chunk = {c["name"]: rel(c["metrics"], gc["metrics"], c["name"])
+                 for c, gc in zip(chunks, golden["chunks"])}
+    mean = {k: float(np.mean([c["metrics"][k] for c in chunks])) for k in golden["mean"]}
+    unpatched = {c["name"]: {k: rel_diff(v, gc["metrics"][k])
+                             for k, v in c["unpatched_metrics"].items()}
+                 for c, gc in zip(chunks, golden["chunks"])}
+    return dict(per_chunk_rel_diff=per_chunk, mean_rel_diff=rel(mean, golden["mean"], "mean"),
+                mean=mean, worst_rel_diff=max(v for d in per_chunk.values() for v in d.values()),
+                pixels_patched=[c["pixels_patched"] for c in chunks],
+                unpatched_rel_diff=unpatched,
+                unpatched_over_limit={n: {k: v for k, v in d.items() if not v <= limit(k)}
+                                      for n, d in unpatched.items()
+                                      if any(not v <= limit(k) for k, v in d.items())})
+
+
+def trained_trainer(cfg, pt, device=DEV):
+    """A trainer of ``cfg`` holding the .pt's generator, discriminator and
+    spectral state."""
+    tr = Trainer(cfg, device, seed=0)
+    state.load_checkpoint(pt, tr)
+    return tr
+
+
+def style_run_argv(raw, parser):
+    """The train CLI's flags of the run whose args.txt is ``raw``: each flag
+    whose value differs from the parser's default, bar STYLE_SKIP."""
+    argv = []
+    for a in parser._actions:
+        if not a.option_strings or a.dest in STYLE_SKIP or a.dest not in raw:
+            continue
+        v, opt = raw[a.dest], a.option_strings[0]
+        if v == a.default:
+            continue
+        if isinstance(a, argparse.BooleanOptionalAction):
+            argv.append(opt if v else "--no-" + opt[2:])
+        elif isinstance(a, (argparse._StoreTrueAction, argparse._StoreFalseAction)):
+            argv.append(opt)  # its value is the one the flag sets, the default's other
+        else:
+            argv += [opt, str(v)]
+    return argv
+
+
+def trained_style_run(raw, pt, golden, save, mode):
+    """The JAX package's style run on the card: the train CLI in this process
+    with the flags of its args.txt (batch 8, bf16, style / content 0.01,
+    geometry-only 1, before-content 1, render cache 64), --retrain the .pt,
+    --start_epoch 60, cut to STYLE_EPOCHS epochs; ``mode`` "bfloat16" as the run, "float32", or "remat" (float32
+    with --remat). Seconds per iteration by kind (the loop's PhaseTimer),
+    peak memory, launches; every loss finite; the first validation's metrics
+    within the golden's range over its chunks."""
+    from spsg_tpu_torch.cli import train as train_cli
+    from spsg_tpu_torch.utils import logging as port_logging
+
+    start = int(raw["start_epoch"])
+    argv = style_run_argv(raw, train_cli.build_parser()) + [
+        "--retrain", pt, "--save", save, "--synthetic_chunks", str(raw["synthetic_chunks"]),
+        "--max_epoch", str(start + STYLE_EPOCHS)]
+    if mode != "bfloat16":
+        argv += ["--compute_dtype", ""] + (["--remat"] if mode == "remat" else [])
+    steps, lookups = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    with recording_loop(steps, lookups):
+        result = train_cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.time() - t
+    launches, peak = all_launch_counts(), torch.cuda.max_memory_allocated()
+    names = port_logging._HEADER_NAMES
+    header = port_logging.make_header(["train"])[:-1] + [f"val_{h}" for h in names] + ["time"]
+    lines = open(os.path.join(save, "log_val.csv")).read().splitlines()
+    rows = [dict(zip(header, map(float, line.split(",")))) for line in lines[1:]]
+    train_steps = [st for st in steps if st["train"]]
+    iterations, kinds = [], {}
+    for h, st in zip(result.timer.history, train_steps):
+        kind = "geometry_only" if not st["use_2d"] else "full"
+        iterations.append(dict(kind=kind, seconds=sum(h.values()),
+                               **{f"{k}_seconds": v for k, v in h.items()}))
+        kinds.setdefault(kind, []).append(sum(h.values()))
+    first_val = {k: rows[0][f"val_{n}"] for n, k in zip(names, port_logging.LOSS_KEYS)}
+    outside = {k: v for k, v in first_val.items() if k in golden["mean"] and not (
+        min(c["metrics"][k] for c in golden["chunks"]) <= v
+        <= max(c["metrics"][k] for c in golden["chunks"]))}
+    finite = all(np.isfinite(v) for r in rows for v in r.values()) and all(
+        torch.isfinite(p).all() for p in result.trainer.generator.parameters())
+    if header != lines[0].split(",") or len(rows) != STYLE_EPOCHS or not finite or outside:
+        raise SystemExit(f"chip_smoke: trained style run ({mode}): {len(rows)} rows of "
+                         f"log_val.csv, finite {finite}, first validation outside the golden's "
+                         f"range: {outside}")
+    if result.trainer.generator.dtype != (torch.bfloat16 if mode == "bfloat16" else torch.float32):
+        raise SystemExit(f"chip_smoke: trained style run ({mode}): the generator computes in "
+                         f"{result.trainer.generator.dtype}")
+    return dict(mode=mode, argv=argv, seconds=seconds, iterations=iterations,
+                seconds_per_iteration={k: dict(n=len(v), median=sorted(v)[len(v) // 2],
+                                               min=min(v), max=max(v)) for k, v in kinds.items()},
+                max_memory_allocated=peak, launches=launches,
+                steps=len(train_steps), style_steps=sum(1 for st in train_steps if st["use_2d"]),
+                first_validation=first_val,
+                last_row_losses={k: v for k, v in rows[-1].items() if k.startswith("train_")},
+                cache=dict(hits=result.render_cache.hits, misses=result.render_cache.misses)
+                if result.render_cache is not None else None), launches
+
+
+def tiled_batch(batch, n):
+    """The first ``n`` chunks of ``batch``, its chunks repeated as often as
+    ``n`` needs (a memory measurement: the shapes are what counts)."""
+    reps = -(-n // batch["input"].shape[0])
+    return {k: (np.concatenate([v] * reps)[:n] if isinstance(v, np.ndarray) and v.ndim > 0
+                else v) for k, v in batch.items()}
+
+
+def memory_step(cfg, pt, batch, n):
+    """One full step of a trainer with the .pt's weights on ``n`` chunks:
+    (seconds, peak bytes, launches)."""
+    tr = trained_trainer(cfg, pt)
+    b = tiled_batch(batch, n)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launch_counts()
+    t = time.time()
+    m = tr.step(b, StepFlags(**FULL_2D))
+    torch.cuda.synchronize()
+    rec = dict(batch=n, seconds=time.time() - t, max_memory_allocated=torch.cuda.max_memory_allocated(),
+               max_memory_reserved=torch.cuda.max_memory_reserved(), loss=float(m["loss"]))
+    launches = all_launch_counts()
+    del tr, b, m
+    torch.cuda.empty_cache()
+    if not np.isfinite(rec["loss"]):
+        raise SystemExit(f"chip_smoke: trained: the step on {n} chunks is not finite")
+    return rec, launches
+
+
+def trained_memory(pt):
+    """The full step's peak memory at MEMORY_BATCHES chunks, with and without
+    remat; a line fitted through each mode's peaks predicts the largest batch
+    whose peak stays under MEMORY_BUDGET of the card's memory, and that batch
+    runs once in each mode (an out-of-memory error there fails the phase)."""
+    from spsg_tpu_torch.data import synthetic
+
+    cfg = TrainConfig()
+    batch = synthetic.make_chunk_batch(max(MEMORY_BATCHES), cfg.input_dim,
+                                       (cfg.style_width, cfg.style_height), seed=7,
+                                       with_frames=True, device=DEV)
+    batch.pop("name")
+    batch["weight_occ"] = np.float32(cfg.weight_occ_loss)
+    total = torch.cuda.get_device_properties(0).total_memory
+    out, launches = dict(card_bytes=total, budget_share=MEMORY_BUDGET), {}
+    for remat in (False, True):
+        mode = "remat" if remat else "default"
+        c = dataclasses.replace(cfg, remat=remat)
+        runs = [memory_step(c, pt, batch, n)[0] for n in MEMORY_BATCHES]
+        slope, icpt = np.polyfit([r["batch"] for r in runs],
+                                 [r["max_memory_allocated"] for r in runs], 1)
+        predicted = int((MEMORY_BUDGET * total - icpt) // slope)
+        big, launches[mode] = memory_step(c, pt, batch, predicted)
+        big["predicted_peak"] = float(icpt + slope * predicted)
+        out[mode] = dict(batches=runs, bytes_per_chunk=float(slope), bytes_fixed=float(icpt),
+                         predicted_largest_batch=predicted, largest_batch_run=big)
+    return out, launches
+
+
+def dilated_trainer(src, plain=False, float64=False):
+    """:func:`clone_trainer` whose generator has GeneratorConfig.max_dilation
+    2 (geo_1d dilated: off the hand kernels), with a fresh Adam."""
+    from spsg_tpu_torch.models.generator import Generator
+
+    tr = clone_trainer(src, plain=plain)
+    g = Generator(dataclasses.replace(tr.generator.cfg, max_dilation=2),
+                  plain_convs=plain).to(src.device)
+    g.load_state_dict(src.generator.state_dict())
+    tr.generator, tr.optimizer = g, state.gen_optimizer(tr.cfg, g.parameters())
+    return float64_library_convs(tr) if float64 else tr
+
+
+def trained_dilation2():
+    """max_dilation 2 on seeded weights: one serving window batch against its
+    plain-conv twin (1e-3), and one full step (full_step_fixture(0)) against
+    its plain twin (metrics at train2d's rule, the generator's gradients by
+    the gradient rule); launches: geo_1d off K1 / K3 / K2."""
+    from spsg_tpu_torch.data import synthetic
+    from spsg_tpu_torch.models.generator import Generator
+
+    cfg = TrainConfig()
+    seeded = seeded_generator(cfg)
+    gens = []
+    for plain in (False, True):
+        g = Generator(dataclasses.replace(seeded.cfg, max_dilation=2), plain_convs=plain).to(DEV)
+        g.load_state_dict(seeded.state_dict())
+        gens.append(g.eval())
+    if [b.route for b in (gens[0].geo_1d, seeded.geo_1d)] != ["library", "hand"]:
+        raise SystemExit("chip_smoke: trained: geo_1d's route with max_dilation 2 is not library")
+    s = synthetic.make_chunk_batch(8, cfg.input_dim, seed=5)
+    x, m = torch.from_numpy(s["input"]).to(DEV), torch.from_numpy(s["mask"]).to(DEV)
+    reset_all_launch_counts()
+    seconds, diffs, _ = against_plain_twin(gens[0], gens[1], x, m, "max_dilation 2 window batch",
+                                           launches=27)
+    window_launches = all_launch_counts()
+    del gens, seeded, x, m
+
+    batch, base, _ = full_step_fixture(0)
+    flags = StepFlags(**FULL_2D)
+    tr, twin = dilated_trainer(base), dilated_trainer(base, plain=True)
+    yard = dilated_trainer(base, plain=True, float64=True)
+    reset_all_launch_counts()
+    metrics = tr.step(batch, flags)
+    torch.cuda.synchronize()
+    step_launches = all_launch_counts()
+    if step_launches != WANT_2D_DILATION2:
+        raise SystemExit(f"chip_smoke: trained: launches of the max_dilation 2 step "
+                         f"{step_launches}, expected {WANT_2D_DILATION2}")
+    with plain_raycast_inside():
+        twin_metrics = twin.step(batch, flags)
+    yard = yardstick_step(yard, batch, flags, True)
+    rec = dict(window_batch=dict(chunks=8, forward_seconds=seconds,
+                                 kernels_vs_plain_max_abs_diff=diffs, launches=window_launches),
+               step=dict(launches_per_step=step_launches,
+                         metrics_rel_diff=compare_metrics(metrics, twin_metrics,
+                                                          "max_dilation 2 step vs plain twin"),
+                         gradient_rule=grad_rule(tr, twin, yard,
+                                                 "max_dilation 2 step vs plain twin")))
+    del tr, twin, yard
+    torch.cuda.empty_cache()
+    return rec, window_launches, step_launches
+
+
+def phase_trained(tmp, smi, scene_rec):
+    """Phase trained: the JAX package's trained nf 20 model (its golden
+    files, tools/export_torch_goldens.py) served, validated and trained on
+    the card; the batch that fits; max_dilation 2. ``scene_rec``: the scene
+    phase's record (its seeded-weight figures stand beside the trained
+    scene's), or None."""
+    from spsg_tpu_torch.cli import test_scene as scene_cli
+    from spsg_tpu_torch.inference import whole_scene
+
+    t0 = time.time()
+    manifest, gval, gchunked, pt = load_goldens()
+    raw = gval["args"]
+    rec = dict(nvidia_smi=smi, checkpoint=manifest["checkpoint"], pt=os.path.relpath(pt, REPO),
+               golden_jax_seconds=manifest["jax_seconds"])
+    paths = {}
+
+    # (1) the chunked CLI with the trained .pt on the golden's scene, float32
+    seen = {}
+    chunk_dims = tuple(int(d) for d in gchunked["chunk_dims"])
+    argv = ["--synthetic_scenes", "1", "--model_path", pt, "--output",
+            os.path.join(tmp, "trained_chunked"), "--num_to_vis", "0",
+            "--stride", str(int(gchunked["stride"]))]
+    if chunk_dims != (128, 64, 64):
+        raise SystemExit(f"chip_smoke: trained: the golden's windows are {chunk_dims}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launch_counts()
+    with recording_chunked_run(seen) as real_run:
+        cli.main(argv)
+    paths["trained_chunked"] = all_launch_counts()
+    rec["chunked"] = dict(argv=argv, seconds_per_scene=seen["seconds"],
+                          max_memory_allocated=torch.cuda.max_memory_allocated(),
+                          launches=paths["trained_chunked"],
+                          against_jax_golden=compare_chunked_golden(seen["out"], gchunked,
+                                                                    "trained chunked scene"))
+    print(f"trained: chunked scene against the JAX golden: "
+          f"{json.dumps(rec['chunked']['against_jax_golden'])}", flush=True)
+    # the same in bf16, against the float32 scene (reported, as the scene phase's bf16)
+    cfg = run_config(raw)
+    g16 = state.make_generator(dataclasses.replace(cfg, compute_dtype="bfloat16"), DEV)
+    g16.load_state_dict(seen["generator"].state_dict())
+    out16 = real_run(g16, seen["scene_input"], seen["scene_mask"], *seen["args"], **seen["kwargs"])
+    out32 = seen["out"]
+    both = (out16.counts > 0) & (out32.counts > 0)
+    rec["chunked"]["bfloat16_vs_float32"] = dict(
+        counts_agree=float((out16.counts == out32.counts).mean()),
+        labels_agree=float((out16.sem_labels == out32.sem_labels).mean()),
+        sdf_max_abs_diff=float(np.abs(out16.sdf[both] - out32.sdf[both]).max()),
+        geo_iou=out16.geo_intersection / max(out16.geo_union, 1))
+    if not (both.any() and np.isfinite(out16.sdf[out16.counts > 0]).all()):
+        raise SystemExit("chip_smoke: trained: the bf16 chunked scene is empty or not finite")
+    del g16, out16, out32, seen
+    torch.cuda.empty_cache()
+
+    # (2) the whole-scene CLI with the trained .pt: seconds, device time, K4's work per ray
+    wseen, renders = {}, []
+    reset_all_launch_counts()
+    t = time.time()
+    with recording_scene_cli(wseen, renders) as real_whole:
+        scene_cli.main(["--synthetic_scenes", "1", "--model_path", pt, "--output",
+                        os.path.join(tmp, "trained_scene")])
+    cli_seconds = time.time() - t
+    paths["trained_scene"] = all_launch_counts()
+    want = {"conv3x3_act_stats": 23, "conv3x3": 5, "conv3x3_dw": 0, "raycast_march": 3,
+            "raycast_shade": 3, "raycast_scatter": 0, "raycast_occ": 0, "tsdf_integrate": 0}
+    if paths["trained_scene"] != want or len(renders) != 3 or not all(
+            np.isfinite(o).all() for o in wseen["out"]):
+        raise SystemExit(f"chip_smoke: trained whole scene: launches {paths['trained_scene']}, "
+                         f"renders {len(renders)}")
+    inp, msk, _ = whole_scene.pad_scene(wseen["scene_input"], wseen["scene_mask"], 3.0,
+                                        wseen["kwargs"]["max_height"])
+    x, m = torch.from_numpy(inp[None]).to(DEV), torch.from_numpy(msk[None]).to(DEV)
+    march_rec, shade_rec = scene_render_kernels(renders[2]["args"], renders[2]["args"][6])
+    for r in (march_rec, shade_rec):
+        r["grid"] = "trained_scene_prediction"
+    work = {k: march_rec[k] for k in ("samples_per_ray", "in_blocks_per_ray", "evaluated_per_ray")}
+    seeded = None
+    if scene_rec is not None:
+        pr = scene_rec["prediction_render"]["raycast_march"]
+        seeded = dict(seconds_per_scene=scene_rec["seconds_per_scene"],
+                      forward_device_time_ms=scene_rec["forward_device_time"]["total_ms"]
+                      if isinstance(scene_rec["forward_device_time"], dict) else None,
+                      render_hits=scene_rec["render_hits"], **{
+                          k: pr.get(k) for k in ("samples_per_ray", "in_blocks_per_ray",
+                                                 "evaluated_per_ray", "ms")})
+    rec["scene"] = dict(
+        seconds_per_scene=wseen["seconds"], cli_seconds=cli_seconds,
+        max_memory_allocated=wseen["forward_peak"], launches=paths["trained_scene"],
+        render_seconds={k: r["seconds"] for k, r in zip(("input", "target", "prediction"),
+                                                        renders)},
+        render_hits={k: r["hits"] for k, r in zip(("input", "target", "prediction"), renders)},
+        forward_device_time=profile_forward(wseen["generator"].eval(), x, m),
+        prediction_march_per_ray=work, prediction_march_ms=march_rec["ms"],
+        prediction_march_bound_ms=march_rec["bound_ms"], prediction_shade_ms=shade_rec["ms"],
+        seeded_weights_scene_phase=seeded)
+    # the whole scene in bf16 against float32, as the scene phase holds it
+    rec["scene"]["bfloat16"], _ = bf16_scene(cfg, wseen, want, real_whole)
+    del wseen, x, m
+    torch.cuda.empty_cache()
+
+    # (3) the validation pass on the golden's chunks, float32
+    trainer = trained_trainer(cfg, pt)
+    t = time.time()
+    samples = golden_validation_set(cfg, gval)
+    set_seconds = time.time() - t
+    reset_all_launch_counts()
+    t = time.time()
+    chunks = port_validation(trainer, gval, samples)
+    torch.cuda.synchronize()
+    paths["trained_validation"] = all_launch_counts()
+    rec["validation"] = dict(seconds=time.time() - t, set_on_cpu_seconds=set_seconds,
+                             chunks=len(chunks),
+                             launches=paths["trained_validation"],
+                             against_jax_golden=compare_val_golden(chunks, gval,
+                                                                   "trained validation"))
+    print(f"trained: validation against the JAX golden, worst "
+          f"{rec['validation']['against_jax_golden']['worst_rel_diff']:.3e} on the card's "
+          f"marches patched to the golden's; on its own marches (not held) over the limit: "
+          f"{rec['validation']['against_jax_golden']['unpatched_over_limit']}", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (4) the style run's configuration: bf16 as it ran, float32, float32 with remat
+    with open(STYLE_RUN_ARGS) as f:
+        raw_style = json.load(f)
+    rec["style_run"] = {}
+    for mode in ("bfloat16", "float32", "remat"):
+        rec["style_run"][mode], paths[f"trained_style_{mode}"] = trained_style_run(
+            raw_style, pt, gval, os.path.join(tmp, f"style_{mode}"), mode)
+        torch.cuda.empty_cache()
+    rec["style_run_cut"] = dict(epochs=[raw_style["max_epoch"] - raw_style["start_epoch"],
+                                        STYLE_EPOCHS])
+
+    # (5) the batch that fits, with and without remat
+    rec["memory"], mem_launches = trained_memory(pt)
+    paths["trained_largest_batch"] = mem_launches["default"]
+    paths["trained_largest_batch_remat"] = mem_launches["remat"]
+
+    # (6) max_dilation 2 on seeded weights
+    rec["max_dilation_2"], paths["dilation2_window"], paths["dilation2_step"] = trained_dilation2()
+    rec["seconds"] = time.time() - t0
+    rec["gradient_rule_seconds_so_far"] = RULE_SECONDS[0]
+    st = rec["style_run"]
+    print("trained: chunked scene against JAX: counts " + f"{rec['chunked']['against_jax_golden']['counts_agree']:.6f}"
+          f", sdf {rec['chunked']['against_jax_golden']['sdf_max_abs_diff']:.3e}; validation worst "
+          f"{rec['validation']['against_jax_golden']['worst_rel_diff']:.3e}; K4 per ray {work}"
+          f" (seeded: {seeded}); style run s/iteration " + ", ".join(
+              f"{k} {v['seconds_per_iteration'].get('full', {}).get('median')} peak "
+              f"{v['max_memory_allocated']}" for k, v in st.items())
+          + "; largest batch " + ", ".join(
+              f"{k} {rec['memory'][k]['predicted_largest_batch']} (peak "
+              f"{rec['memory'][k]['largest_batch_run']['max_memory_allocated']})"
+              for k in ("default", "remat")) + f"; {smi}; phase {rec['seconds']:.1f} s",
+          flush=True)
+    emit("trained", **rec)
+    return paths, (march_rec, shade_rec)
 
 
 # --------------------------------------------------------------------------- parallel
@@ -3970,20 +4815,24 @@ def parallel_rank(rank, port, cli_port, directory, backend):
     multihost.build_kernels(mesh)  # built by the parent: every rank only loads them
     rec, out = {"device": str(device), "backend": torch.distributed.get_backend()}, {}
 
-    d = torch.load(os.path.join(directory, "train.pt"), weights_only=False)
-    trainer = Trainer(TrainConfig(), device, seed=0, mesh=mesh)
-    trainer.generator.load_state_dict(d["generator"])
-    trainer.discriminator.load_state_dict(d["discriminator"])
-    trainer.sn_state = {k: {kk: vv.to(device) for kk, vv in v.items()}
-                        for k, v in d["sn_state"].items()}
-    batch = shard_batch(d["batch"], mesh)
-    metrics = rank_part(rec, "train", lambda: trainer.step(batch, StepFlags(**FULL_2D)))
-    out["metrics"] = {k: float(v) for k, v in metrics.items()}
-    out["grads"] = {n: p.grad.cpu() for n, p in trainer.generator.named_parameters()}
-    out["disc_grads"] = {n: p.grad.cpu() for n, p in trainer.discriminator.named_parameters()}
-    out["params"] = {k: v.cpu() for k, v in trainer.generator.state_dict().items()}
-    del trainer, batch, d
-    torch.cuda.empty_cache()
+    for seed in WITNESS_SEEDS:  # seed 0's step is the parallel_train path; 1, 2 for the rule
+        d = torch.load(os.path.join(directory, f"train{seed}.pt"), weights_only=False)
+        trainer = Trainer(TrainConfig(), device, seed=0, mesh=mesh)
+        trainer.generator.load_state_dict(d["generator"])
+        trainer.discriminator.load_state_dict(d["discriminator"])
+        trainer.sn_state = {k: {kk: vv.to(device) for kk, vv in v.items()}
+                            for k, v in d["sn_state"].items()}
+        batch = shard_batch(d["batch"], mesh)
+        metrics = rank_part(rec, "train" if seed == 0 else f"train_seed{seed}",
+                            lambda: trainer.step(batch, StepFlags(**FULL_2D)))
+        if seed == 0:
+            out["metrics"] = {k: float(v) for k, v in metrics.items()}
+            out["disc_grads"] = {n: p.grad.cpu()
+                                 for n, p in trainer.discriminator.named_parameters()}
+            out["params"] = {k: v.cpu() for k, v in trainer.generator.state_dict().items()}
+        out[f"grads{seed}"] = {n: p.grad.cpu() for n, p in trainer.generator.named_parameters()}
+        del trainer, batch, d
+        torch.cuda.empty_cache()
 
     d = torch.load(os.path.join(directory, "serve.pt"), weights_only=False)
     gen = state.make_generator(TrainConfig(), device)
@@ -4031,27 +4880,25 @@ def phase_parallel(par, smi):
     """Two ranks (parallel_rank) against this process's single-process runs:
     the full train step on the same global batch and card, the chunked scene
     against the path phase's, the whole scene against the scene phase's."""
-    from spsg_tpu_torch.data import synthetic
-
     backend = parallel_backend()
     print(f"parallel: {PAR_WORLD} ranks, backend {backend} "
           f"({'a card each' if backend == 'nccl' else 'both on one card'}); {smi}", flush=True)
     cfg = TrainConfig()
-    batch = synthetic.make_chunk_batch(cfg.batch_size, cfg.input_dim,
-                                       (cfg.style_width, cfg.style_height), seed=7,
-                                       with_frames=True, device=DEV)
-    batch.pop("name")
-    batch["weight_occ"] = np.float32(cfg.weight_occ_loss)
-    trainer = Trainer(cfg, DEV, seed=0)
-    scale_conv_weights(trainer.generator, 2.0)
-    centre_train_occupancy(trainer, batch)
-    torch.save(dict(batch=batch,
-                    generator={k: v.cpu() for k, v in trainer.generator.state_dict().items()},
-                    discriminator={k: v.cpu()
-                                   for k, v in trainer.discriminator.state_dict().items()},
-                    sn_state={k: {kk: vv.cpu() for kk, vv in v.items()}
-                              for k, v in trainer.sn_state.items()}),
-               os.path.join(par, "train.pt"))
+    for seed in WITNESS_SEEDS:
+        batch, base, _ = full_step_fixture(seed)
+        torch.save(dict(batch=batch,
+                        generator={k: v.cpu() for k, v in base.generator.state_dict().items()},
+                        discriminator={k: v.cpu()
+                                       for k, v in base.discriminator.state_dict().items()},
+                        sn_state={k: {kk: vv.cpu() for kk, vv in v.items()}
+                                  for k, v in base.sn_state.items()}),
+                   os.path.join(par, f"train{seed}.pt"))
+    # the rule's references and yardsticks on the three seeds, before the ranks
+    # take the card (cached if the witness of conv_forms ran)
+    refs = {seed: (full_step_grads("default", seed), full_step_grads("yard_default", seed))
+            for seed in WITNESS_SEEDS}
+    batch, base, _ = full_step_fixture(0)
+    trainer = clone_trainer(base)
     single = {}
     metrics = rank_part(single, "train", lambda: trainer.step(batch, StepFlags(**FULL_2D)))
     metrics = {k: float(v) for k, v in metrics.items()}
@@ -4102,13 +4949,17 @@ def phase_parallel(par, smi):
     # (1) the step: both ranks alike, and against this process's step on the batch
     if r0["metrics"] != r1["metrics"]:
         raise SystemExit("chip_smoke: parallel: the ranks' metrics differ")
-    for k in ("grads", "disc_grads", "params"):
+    for k in ("disc_grads", "params") + tuple(f"grads{seed}" for seed in WITNESS_SEEDS):
         if not all(torch.equal(v, r1[k][n]) for n, v in r0[k].items()):
             raise SystemExit(f"chip_smoke: parallel: the ranks' {k} differ")
-    two = on_cpu({"generator": r0["grads"], "discriminator": r0["disc_grads"]})
+    two = on_cpu({"generator": r0["grads0"], "discriminator": r0["disc_grads"]})
     train_rec = dict(metrics_rel_diff=compare_metrics(r0["metrics"], metrics,
                                                       "parallel train step"))
-    train_rec.update(compare_grads(two, one, 1e-2, "parallel train step"))
+    # the generator's gradients by the gradient rule on the three seeds: this
+    # process's default step the reference (seed 0: the step above)
+    train_rec["gradient_rule"] = {
+        seed: grad_rule(r0[f"grads{seed}"], one if seed == 0 else refs[seed][0], refs[seed][1],
+                        f"parallel train step, seed {seed}") for seed in WITNESS_SEEDS}
     train_rec["discriminator"] = compare_grads(two, one, 1e-4, "parallel train step",
                                                "discriminator")
 
@@ -4179,6 +5030,10 @@ def main(argv=None):
     ap.add_argument("--baseline-tsdf-source", default=None,
                     help="another version of csrc/tsdf.cu (spsg_tsdf_integrate, the whole "
                          "grid) to time beside this one")
+    ap.add_argument("--phases", type=lambda v: v.split(","), default=None,
+                    help="comma-separated phases to run (default: every phase); device and "
+                         "build always run, and a phase takes along the phases whose outputs "
+                         "it reads: " + ", ".join(PHASES))
     ap.add_argument("--parallel-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--parallel-ports", type=int, nargs=2, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--parallel-dir", default=None, help=argparse.SUPPRESS)
@@ -4197,7 +5052,28 @@ def main(argv=None):
         shutil.rmtree(par, ignore_errors=True)
 
 
+# the phases --phases selects from, in the order they run (device and build always
+# run); a phase that reads another's outputs takes it along (NEEDS)
+PHASES = ("compare", "compare_raycast", "path", "scene", "metrics", "train", "train2d",
+          "train2d_style", "train2d_bf16", "conv_forms", "train_cli", "datagen", "parallel",
+          "trained")
+NEEDS = {"metrics": ("scene",), "conv_forms": ("scene",), "parallel": ("path", "scene")}
+
+
+def selected_phases(names):
+    """The phases to run for --phases ``names`` (all by default), with what
+    they need, in PHASES' order."""
+    want = set(PHASES if names is None else names)
+    unknown = want - set(PHASES)
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {sorted(unknown)}; the phases: {PHASES}")
+    for name in list(want):
+        want.update(NEEDS.get(name, ()))
+    return [p for p in PHASES if p in want]
+
+
 def run_phases(args, par):
+    run = selected_phases(args.phases)
     smi = phase_device()
     phase_build()
     for key, src in (("conv3x3", args.baseline_source),
@@ -4206,63 +5082,88 @@ def run_phases(args, par):
                      ("tsdf", args.baseline_tsdf_source)):
         if src:
             BASELINE[key] = load_baseline(src, key)
-    results = phase_compare()
-    rc_results = phase_compare_raycast()
+    results = phase_compare() if "compare" in run else None
+    rc_results = phase_compare_raycast() if "compare_raycast" in run else None
+    # launches by path, each counter set to 0 just before the path's run
+    by_path, scene_rec, tsdf_rec = {}, None, None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as tmp:
-        serve = phase_path(tmp, par)
-        scene = phase_scene(tmp, rc_results, par)
-        phase_metrics(tmp, os.path.join(tmp, "scene"))
-    train = phase_train()
-    train2d, train2d_mc, train2d_device = phase_train2d()
-    train2d_style = phase_train2d_style()
-    train2d_bf16 = phase_train2d_bf16(train2d_device)
-    forms = phase_conv_forms(par)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as tmp:
-        train_cli = phase_train_cli(tmp, smi)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as tmp:
-        datagen, tsdf_rec = phase_datagen(tmp)
-    parallel = phase_parallel(par, smi)
+        if "path" in run:
+            by_path["serve"] = phase_path(tmp, par)
+        if "scene" in run:
+            by_path["scene"], scene_rec = phase_scene(tmp, rc_results, par)
+        if "metrics" in run:
+            phase_metrics(tmp, os.path.join(tmp, "scene"))
+    if "train" in run:
+        by_path["train"] = phase_train()
+    train2d_device = "not measured in this run (phase train2d did not run)"
+    if "train2d" in run:
+        by_path["train2d"], by_path["train2d_missing_colour"], train2d_device = phase_train2d()
+    if "train2d_style" in run:
+        by_path["train2d_style"] = phase_train2d_style()
+    if "train2d_bf16" in run:
+        by_path["train2d_bf16"] = phase_train2d_bf16(train2d_device)
+    if "conv_forms" in run:
+        by_path.update(phase_conv_forms(par))
+    if "train_cli" in run:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as tmp:
+            by_path["train_cli"] = phase_train_cli(tmp, smi)
+    if "datagen" in run:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as tmp:
+            by_path["datagen"], tsdf_rec = phase_datagen(tmp)
+    if "parallel" in run:
+        by_path.update(phase_parallel(par, smi))
+    if "trained" in run:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as tmp:
+            trained_paths, trained_renders = phase_trained(tmp, smi, scene_rec)
+        by_path.update(trained_paths)
+        if rc_results is not None:
+            rc_results["raycast_march"].append(trained_renders[0])
+            rc_results["raycast_shade"].append(trained_renders[1])
+    print(f"gradient rule: its yardstick steps took {RULE_SECONDS[0]:.1f} s", flush=True)
 
     # the kernels of each path: serving runs the two forward kernels, the 3D
     # training step all three conv kernels, the full step (with style / content
     # too) all but the occupancy march, which only the missing-colour weights
-    # run; the train CLI as the full step (bf16 too); datagen the TSDF integrate
+    # run; the train CLI as the full step (bf16 too); datagen the TSDF integrate;
+    # the trained model's validation pass the forward kernels and the renders
     training = tuple(k for k in KERNELS if k != "tsdf_integrate")
     full_step = tuple(k for k in training if k != "raycast_occ")
-    on_path = {"serve": ("conv3x3", "conv3x3_act_stats"),
-               "scene": ("conv3x3", "conv3x3_act_stats", "raycast_march", "raycast_shade"),
-               "train": CONV_KERNELS,
+    forward = ("conv3x3", "conv3x3_act_stats")
+    rendered = forward + ("raycast_march", "raycast_shade")
+    on_path = {"serve": forward, "scene": rendered, "train": CONV_KERNELS,
                "train2d": full_step, "train2d_missing_colour": training,
                "train2d_style": full_step, "train2d_bf16": full_step, "train_cli": full_step,
                "datagen": ("tsdf_integrate",), **PAR_PATHS,
-               **{path: (full_step if path.startswith("train2d") else
-                         ("conv3x3", "conv3x3_act_stats")) for path in forms}}
+               "trained_chunked": forward, "trained_scene": rendered,
+               "trained_validation": rendered, "dilation2_window": forward,
+               "dilation2_step": full_step}
+    for path in by_path:
+        if path.startswith(("train2d_zslab", "train2d_folded", "train2d_remat",
+                            "trained_style_", "trained_largest_batch")):
+            on_path[path] = full_step
+        elif path.startswith("scene_"):
+            on_path[path] = forward
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        by_path = {"serve": serve[name], "scene": scene[name], "train": train[name],
-                   "train2d": train2d[name],
-                   "train2d_missing_colour": train2d_mc[name],
-                   "train2d_style": train2d_style[name], "train2d_bf16": train2d_bf16[name],
-                   "train_cli": train_cli[name], "datagen": datagen[name],
-                   **{path: counts[name] for path, counts in parallel.items()},
-                   **{path: counts[name] for path, counts in forms.items()}}
-        for path, names in on_path.items():
-            if name in names and by_path[path] < 1:
+        launches = {path: counts[name] for path, counts in by_path.items()}
+        for path, counts in by_path.items():
+            if name in on_path[path] and counts[name] < 1:
                 raise SystemExit(f"chip_smoke: {name} was not launched on the {path} path")
-        if name in CONV_KERNELS:
+        head, measured_at, detail, recs = None, None, {}, None
+        if name in CONV_KERNELS and results is not None:
             recs = results[name]["float32"]
             head = next(r for r in recs if (r["shape"], r["cin"], r["cout"])
                         == (list(HEAVIEST[:4]), HEAVIEST[4], HEAVIEST[5]))
             measured_at = dict(shape=head["shape"], cin=head["cin"], cout=head["cout"],
                                dtype="float32")
             detail = dict(dtypes=results[name])
-        elif name == "tsdf_integrate":
+        elif name == "tsdf_integrate" and tsdf_rec is not None:
             recs = [tsdf_rec]
             head = tsdf_rec
             measured_at = dict(grid=head["grid"], image=head["image"], dtype="float32",
                                frames=len(head["frames"]))
             detail = dict(frames=head["frames"])
-        else:
+        elif name in RAYCAST_KERNELS and rc_results is not None:
             recs = rc_results[name]
             # at the path's size, the grid with the most work: the prediction's, and
             # for the occupancy march the mask with the most samples
@@ -4273,13 +5174,16 @@ def run_phases(args, par):
             measured_at = dict(grid=head["grid"], dims=head["dims"], image=head["image"],
                                dtype="float32")
             detail = dict(cases=recs)
+        numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=sum(by_path.values()), launches_by_path=by_path,
-            max_abs_err=max(r["max_abs_err"] for r in recs),
-            ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-            bound_by=head["bound_by"], library_ms=head["library_ms"],
-            measured_at=measured_at, **detail))
+            launches=sum(launches.values()), launches_by_path=launches,
+            **({k: None for k in numbers} if head is None else dict(
+                max_abs_err=max(r["max_abs_err"] for r in recs), ms=head["ms"],
+                plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=head["library_ms"])),
+            measured_at=measured_at or "not measured in this run (its compare phase did not run)",
+            **detail))
     print(smi, flush=True)  # again, so that it stands near the result whatever was printed above
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
