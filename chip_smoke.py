@@ -37,6 +37,13 @@ CUDA device or if any phase fails. Phases, each printing one JSON line:
            Functions with the kernels against the same Functions with the
            plain versions inside, at the heaviest layer
   compare_raycast
+           first the arithmetic of ops/xla_arith.py (XLA's float32 forms, in
+           plain tensor ops) on the card against the CPU, to the bit: fma32 on
+           2^20 seeded triples and on triples made to lie just off a float32
+           halfway point (where a float64 sum then a cast rounds wrong), exp32,
+           sqrt32, div_const, block_sum; the ray set-up and the depth chain at
+           the path's shape; their device times (with --baseline-port-source
+           beside the older modules'). Then
            the raycaster's four kernels against their plain versions, on the
            input, target and a noisy prediction grid of a make_chunk_batch with
            frames, at a toy size (16^3, 48x32) and at the training path's
@@ -294,8 +301,11 @@ CUDA device or if any phase fails. Phases, each printing one JSON line:
            against their plain versions on it), a bf16 scene against float32
            (as the scene phase); the validation pass of golden_val.json's 8
            chunks (their frames rendered on the CPU, each frame's sha256 against
-           the golden's, reported) against the JAX package's metrics per chunk
-           and mean (3D 1e-4 relative, 2D and adversarial 1e-3); the JAX
+           the golden's, reported) on the card's own views, whose marches hash
+           to the golden's and which hold the JAX value at each index of the
+           golden's march_patches (nothing patched in), against the JAX
+           package's metrics per chunk and mean (3D 1e-4 relative, 2D and
+           adversarial 1e-3); the JAX
            package's style run (bench_r5's args.txt: batch 8, bf16, style /
            content 0.01, geometry-only 1, before-content 1, from the .pt at
            epoch 60) through the train CLI in this process, its 64 synthetic
@@ -340,9 +350,14 @@ Options (none when the script is run as the check of a checkout):
   --baseline-dw-source PATH  the same for csrc/conv3x3_dw.cu and K2
   --baseline-raycast-source PATH  the same for csrc/raycast.cu, K4, K5, K6 and
            K7 (a version with the C interface ops/raycast.py::_bind declares,
-           K4-K6 run through the same wrappers; an older K7, which walks every
-           sample, through its own entry spsg_raycast_occ, where the version
-           has it), at the path's shape; "baseline_ms" per record
+           K4-K6 and a hopping K7 (spsg_raycast_occ_hop) run through the same
+           wrappers; an older K7, which walks every sample, through its own
+           entry spsg_raycast_occ), at the path's shape; "baseline_ms" per
+           record
+  --baseline-port-source DIR  another version's spsg_tpu_torch/ops directory
+           (its raycast.py and depth.py, e.g. the parent commit's): its ray
+           set-up and depth chain timed in turns with this one's at the path's
+           shape (compare_raycast's "xla_arith" record, "baseline_ms")
   --baseline-tsdf-source PATH  the same for csrc/tsdf.cu and K8 (a version
            with the whole-grid entry spsg_tsdf_integrate, from before the cull),
            on the room scan's frames; "baseline_ms" per frame
@@ -1202,7 +1217,12 @@ def compare_occ(occ, setup, cfg, tag, on_path, camera=None):
     fn = (lambda: rc_ops.occ_march(occ, setup, cfg))
     lib = BASELINE.get("raycast")
     baseline = None
-    if lib is not None and hasattr(lib, "spsg_raycast_occ"):
+    if lib is not None and hasattr(lib, "spsg_raycast_occ_hop"):
+        # a hopping K7 (PR 13 on): through the package's wrapper, as K4-K6
+        rec["baseline_pixels_differing"] = int((on_raycast_library(fn, lib)() != ref).sum())
+        if on_path:
+            baseline = on_raycast_library(fn, lib)
+    elif lib is not None and hasattr(lib, "spsg_raycast_occ"):
         old_samples = torch.empty_like(samples)
         old = baseline_occ_march(lib, occ, setup, cfg, old_samples)
         rec["baseline_pixels_differing"] = int((old != ref).sum())
@@ -1319,7 +1339,133 @@ def rounding_rays():
     return to_dev(occ), setup, cfg
 
 
+def halfway_triples():
+    """float32 triples whose a * b + c lies just off a float32 halfway point,
+    so close that the float64 sum rounds onto it: a float64 sum then a cast
+    rounds them the wrong way (ties to even), an FMA does not. Scaled by
+    powers of two and of either sign."""
+    a, b, c = 1 + 2.0 ** -18, (1 - 2.0 ** -18) * 2.0 ** -24, 1 + 2.0 ** -23
+    rows = [(a * sg * 2.0 ** k, b, c * sg * 2.0 ** k) for k in (-20, -3, 0, 5, 30)
+            for sg in (1.0, -1.0)]
+    return torch.tensor(rows, dtype=torch.float32).T.contiguous()
+
+
+def profiled_device_ms(fn):
+    """Device time of one call of ``fn`` from the profiler's kernel records
+    (for a function that reads flags back to the host, which device_ms cannot
+    queue behind a spin), after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(device_time_by_kind(prof, {})[0].values()) / 1e3
+
+
+def load_baseline_port(src):
+    """ops/raycast.py and ops/depth.py of another version of the package
+    (``src``: its spsg_tpu_torch/ops directory, e.g. the parent commit's
+    unpacked with git archive), imported as the package ``baseline_ops``."""
+    import importlib.util
+    import types
+
+    pkg = types.ModuleType("baseline_ops")
+    pkg.__path__ = [os.path.abspath(src)]
+    sys.modules["baseline_ops"] = pkg
+    mods = {}
+    for name in ("raycast", "depth"):
+        spec = importlib.util.spec_from_file_location(f"baseline_ops.{name}",
+                                                      os.path.join(src, f"{name}.py"))
+        mods[name] = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mods[name]
+        spec.loader.exec_module(mods[name])
+    emit("baseline", module="ops/raycast.py, ops/depth.py", source=src)
+    return mods
+
+
+def compare_xla_arith():
+    """ops/xla_arith.py on the card against the CPU, to the bit: fma32 on 2^20
+    seeded float32 triples (12 decades of exponents, a third of the sums
+    cancelling) and on the triples of :func:`halfway_triples`, exp32 over its
+    range and the clamps, sqrt32, block_sum of 81 and 121 terms; and what is
+    built of them, at the training path's shape ((128,64,64), 320x256, batch
+    2): the ray set-up (march_setup, on the input grid) and the depth chain
+    (depth_to_normals on the frames, their holes filled). Device times of
+    the set-up (a call; the step makes 3) and of the depth chain (the
+    profiler's kernel time of a call), and with --baseline-port-source those
+    of the older modules in turns (baseline, this, this, baseline)."""
+    from spsg_tpu_torch.data import synthetic
+    from spsg_tpu_torch.ops import xla_arith
+
+    g = torch.Generator().manual_seed(17)
+    n = 1 << 20
+    a, b, c = (torch.randn(n, generator=g) * 10.0 ** torch.randint(-6, 7, (n,), generator=g)
+               for _ in range(3))
+    c[::3] = -(a[::3].double() * b[::3]).float() * (1 + 1e-6 * torch.randn(c[::3].shape,
+                                                                             generator=g))
+    half = halfway_triples()
+    a, b, c = (torch.cat([v, h]) for v, h in zip((a, b, c), half))
+    bits = (lambda t: t.float().contiguous().cpu().view(torch.int32))
+    cases = {
+        "fma32": lambda d: xla_arith.fma32(a.to(d), b.to(d), c.to(d)),
+        "exp32": lambda d: xla_arith.exp32(torch.linspace(-100.0, 100.0, n).to(d)),
+        "sqrt32": lambda d: xla_arith.sqrt32(a.abs().to(d)),
+        "div_const": lambda d: xla_arith.div_const(a.to(d), 0.9),
+        "block_sum_81": lambda d: xla_arith.block_sum(list(a[:81 * 4096].reshape(81, 4096).to(d))),
+        "block_sum_121": lambda d: xla_arith.block_sum(
+            list(a[:121 * 4096].reshape(121, 4096).to(d))),
+    }
+    rec = {k: int((bits(f(DEV)) != bits(f("cpu"))).sum()) for k, f in cases.items()}
+    naive = (half[0].double() * half[1] + half[2]).float()
+    rec["halfway_fma32_not_naive"] = int(
+        (bits(xla_arith.fma32(*half.to(DEV))) != bits(naive)).sum())
+    if rec["halfway_fma32_not_naive"] != half.shape[1]:
+        raise SystemExit(f"chip_smoke: xla_arith: fma32 rounds the halfway triples as a float64 "
+                         f"sum does: {rec}")
+
+    dims, image = RC_SHAPES[1][:2]
+    bt = synthetic.make_chunk_batch(2, dims, image, seed=11, with_frames=True, device=DEV)
+    valid = to_dev(np.abs(bt["input"][..., 0]) < 3.0)
+    view, intr = to_dev(bt["images_view"]), to_dev(bt["images_intrinsic"])
+    depth = to_dev(bt["images_depth"])
+    cfg = rc_ops.RaycastConfig(width=image[0], height=image[1])
+    setup_dev = rc_ops.march_setup(valid, view, intr, cfg)
+    setup_cpu = rc_ops.march_setup(valid.cpu(), view.cpu(), intr.cpu(), cfg)
+    rec["march_setup"] = sum(int((bits(x) != bits(y)).sum()) for x, y in zip(setup_dev, setup_cpu))
+    chain_dev = depth_ops.depth_to_normals(depth, intr, 40)
+    chain_cpu = depth_ops.depth_to_normals(depth.cpu(), intr.cpu(), 40)
+    rec["depth_to_normals"] = sum(int((bits(x) != bits(y)).sum())
+                                  for x, y in zip(chain_dev, chain_cpu))
+    rec["frame_holes"] = int((depth == 0).sum())
+    if (any(rec[k] for k in list(cases) + ["march_setup", "depth_to_normals"])
+            or not rec["frame_holes"]):
+        raise SystemExit(f"chip_smoke: xla_arith: the card's bits are not the CPU's: {rec}")
+
+    setup_fn = (lambda: rc_ops.march_setup(valid, view, intr, cfg))
+    chain_fn = (lambda: depth_ops.depth_to_normals(depth, intr, 40))
+    times = dict(setup={}, depth_chain={})
+    if "port" in BASELINE:
+        old = BASELINE["port"]
+        old_cfg = old["raycast"].RaycastConfig(width=image[0], height=image[1])
+        time_in_turns(setup_fn, lambda: old["raycast"].march_setup(valid, view, intr, old_cfg),
+                      20, times["setup"])
+        turns = [profiled_device_ms(lambda: old["depth"].depth_to_normals(depth, intr, 40)),
+                 profiled_device_ms(chain_fn), profiled_device_ms(chain_fn),
+                 profiled_device_ms(lambda: old["depth"].depth_to_normals(depth, intr, 40))]
+        times["depth_chain"].update(ms=(turns[1] + turns[2]) / 2,
+                                    baseline_ms=(turns[0] + turns[3]) / 2, ms_turns=turns)
+    else:
+        time_in_turns(setup_fn, None, 20, times["setup"])
+        times["depth_chain"]["ms"] = profiled_device_ms(chain_fn)
+    rec["device_ms"] = times
+    return rec
+
+
 def phase_compare_raycast():
+    xla_rec = compare_xla_arith()
+    print(f"compare_raycast: xla_arith card vs CPU bits differing {xla_rec}", flush=True)
     gen = torch.Generator().manual_seed(5)
     results = {k: [] for k in RAYCAST_KERNELS}
     tc = TrainConfig()
@@ -1380,6 +1526,7 @@ def phase_compare_raycast():
                                    "grids"},
          summary={k: [{kk: r[kk] for kk in r if kk in keys or kk.endswith("_ms")} for r in v]
                   for k, v in results.items()},
+         xla_arith=xla_rec,
          march_pixels_differing=sum(sum(r[k] for k in ("hit_diff", "hit_idx_diff",
                                                         "alpha_bits_diff", "depth_bits_diff"))
                                     for r in results["raycast_march"]))
@@ -4299,54 +4446,87 @@ def compare_chunked_golden(out, g, what):
     return rec
 
 
-def golden_validation_set(cfg, golden):
-    """golden_val.json's validation set as the golden took it: the train
-    CLI's SyntheticChunkDataset(n, cfg, True, seed=2) with its frames
-    rendered on the CPU (a step moves them to its trainer's device)."""
-    from spsg_tpu_torch.cli.train import SyntheticChunkDataset
+@contextlib.contextmanager
+def pr16_render_arithmetic():
+    """The arithmetic in which the port rendered the frames of the nf-20
+    golden_val.json (PR 16, on the CPU), before its ray set-up and march took
+    XLA's forms: every a * b + c rounded twice, PyTorch's own float32 square
+    root, the division by the step a division. Swapped into ops/raycast.py's
+    helpers while frames are rendered, so that those frames are made again
+    to the bit (the golden keeps their sha256, not the frames)."""
+    saved = {n: getattr(rc_ops, n) for n in ("fma32", "sqrt32", "div_const")}
+    rc_ops.fma32 = lambda a, b, c: a * b + c
+    rc_ops.sqrt32 = torch.sqrt
+    rc_ops.div_const = rc_ops._div
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(rc_ops, n, f)
 
-    ds = SyntheticChunkDataset(golden["validation_set"]["chunks"], cfg, True,
-                               seed=golden["validation_set"]["seed"], device="cpu")
-    return [ds[i] for i in range(len(ds))]
+
+def golden_validation_set(cfg, golden, chunks=None):
+    """golden_val.json's validation set as the golden took it (the chunks of
+    index ``chunks``, default all): the train CLI's SyntheticChunkDataset(n,
+    cfg, True, seed=2), its frames rendered on the CPU (a step moves them to
+    its trainer's device) in the arithmetic of the port that wrote the golden
+    (:func:`pr16_render_arithmetic`) where that gives the golden's frame,
+    else by the port as it is (goldens written since, as the tests' nf-4
+    ones)."""
+    from spsg_tpu_torch.data import synthetic
+
+    def render(i):
+        b = synthetic.make_chunk_batch(
+            1, cfg.input_dim, (cfg.style_width, cfg.style_height),
+            seed=golden["validation_set"]["seed"] * 100000 + i, with_frames=True,
+            truncation=cfg.truncation, device="cpu")
+        sample = {k: (v[0] if isinstance(v, np.ndarray) else v) for k, v in b.items()}
+        sample["name"] = f"synthetic_{i}"
+        return sample
+
+    out = []
+    for i in range(golden["validation_set"]["chunks"]) if chunks is None else chunks:
+        with pr16_render_arithmetic():
+            sample = render(i)
+        if goldens.frame_digest(sample) != golden["chunks"][i]["frame_sha256"]:
+            sample = render(i)
+        out.append(sample)
+    return out
 
 
 def port_validation(trainer, golden, samples):
     """The port's validation pass on ``samples`` (golden_validation_set), one
-    chunk a step as the golden took it. The step takes its input and target
-    marches and depth chain from precompute_views on the trainer's device,
-    with the values where the JAX package's differ from the port's (the
-    chunk's march_patches, found on the CPU by tools/export_torch_goldens.py:
-    the marches' rounding, ROADMAP Queue C; the depth chain's normals) set to
-    the JAX values, as the JAX step took them. K4 equals march_plain, so on
-    the card too the patched marches are the golden's, which their sha256
-    shows. A second step on the unpatched views gives the gap with each
-    package on its own marches. Returns per chunk both steps' metrics, the
-    values patched, and whether its frame's and its patched marches' sha256
-    are the golden's."""
+    chunk a step as the golden took it, on the views that precompute_views
+    gives on the trainer's device as they are. The port's march and depth
+    chain compute what XLA computes for the JAX package (ROADMAP.md Queue C,
+    agreed arithmetic), so its own views are the golden's: each chunk's
+    march_patches (where the JAX package's views differed from the port's
+    when the golden was written) are checked against the patch values, not
+    written in, and the own views' marches are hashed. Returns per chunk the
+    metrics, the patched indices checked and those not holding the JAX
+    value, and whether its frame's and its marches' sha256 are the golden's."""
     from spsg_tpu_torch.training.loop import _prepare_batch
 
     cfg, it = trainer.cfg, golden["iteration"]
     flags = StepFlags(**golden["flags"])
     out = []
-    for sample, gc in zip(samples, golden["chunks"]):
+    by_name = {gc["name"]: gc for gc in golden["chunks"]}
+    for sample in samples:
+        gc = by_name[sample["name"]]
         batch = _prepare_batch({k: v[None] for k, v in sample.items()
                                 if isinstance(v, np.ndarray)}, cfg, it)
-        own = trainer.precompute_views(batch)
-        views = dict(own)
-        for k, (idx, vals) in gc["march_patches"].items():
-            v = own[k].clone(memory_format=torch.contiguous_format)
-            v.view(-1)[torch.tensor(idx, dtype=torch.long, device=v.device)] = torch.tensor(
-                vals, dtype=torch.float64).to(v)
-            views[k] = v
+        views = trainer.precompute_views(batch)
+        host = {k: v.cpu().numpy() for k, v in views.items()}
         m = trainer.step(batch, flags, precomp=views)
-        m_own = trainer.step(batch, flags, precomp=own)
         out.append(dict(name=sample["name"],
                         frame_is_golden=goldens.frame_digest(batch) == gc["frame_sha256"],
-                        pixels_patched={k: len(v[0]) for k, v in gc["march_patches"].items()},
-                        marches_are_golden=all(goldens.array_digest(views[k].cpu().numpy()) == h
+                        patch_indices_checked={k: len(v[0])
+                                               for k, v in gc["march_patches"].items()},
+                        patch_indices_not_held=goldens.patches_not_held(host,
+                                                                        gc["march_patches"]),
+                        marches_are_golden=all(goldens.array_digest(host[k]) == h
                                                for k, h in gc["march_sha256"].items()),
-                        metrics={k: float(v) for k, v in m.items()},
-                        unpatched_metrics={k: float(v) for k, v in m_own.items()}))
+                        metrics={k: float(v) for k, v in m.items()}))
     return out
 
 
@@ -4354,8 +4534,8 @@ def compare_val_golden(chunks, golden, what):
     """The port's validation metrics (:func:`port_validation`) against
     golden_val.json's, per chunk and their mean, at train2d's metric rule: the
     3D metrics within 1e-4 relative, the 2D and adversarial ones within 1e-3.
-    Each chunk's frame and patched marches must be the golden's. The gap on
-    the port's own marches is reported beside it, not held (ROADMAP Queue C)."""
+    Each chunk's frame and its own marches must be the golden's, and its own
+    views must hold the JAX value at every index of its march_patches."""
     def limit(k):
         return 1e-4 if k in METRICS_3D else 1e-3
 
@@ -4374,21 +4554,19 @@ def compare_val_golden(chunks, golden, what):
     not_golden = [c["name"] for c in chunks
                   if not (c["frame_is_golden"] and c["marches_are_golden"])]
     if not_golden:
-        raise SystemExit(f"chip_smoke: {what}: the frames or the patched marches of "
+        raise SystemExit(f"chip_smoke: {what}: the frames or the own marches of "
                          f"{not_golden} are not the golden's")
+    not_held = {c["name"]: c["patch_indices_not_held"] for c in chunks
+                if any(c["patch_indices_not_held"].values())}
+    if not_held:
+        raise SystemExit(f"chip_smoke: {what}: views that do not hold the JAX value at the "
+                         f"golden's patch indices: {not_held}")
     per_chunk = {c["name"]: rel(c["metrics"], gc["metrics"], c["name"])
                  for c, gc in zip(chunks, golden["chunks"])}
     mean = {k: float(np.mean([c["metrics"][k] for c in chunks])) for k in golden["mean"]}
-    unpatched = {c["name"]: {k: rel_diff(v, gc["metrics"][k])
-                             for k, v in c["unpatched_metrics"].items()}
-                 for c, gc in zip(chunks, golden["chunks"])}
     return dict(per_chunk_rel_diff=per_chunk, mean_rel_diff=rel(mean, golden["mean"], "mean"),
                 mean=mean, worst_rel_diff=max(v for d in per_chunk.values() for v in d.values()),
-                pixels_patched=[c["pixels_patched"] for c in chunks],
-                unpatched_rel_diff=unpatched,
-                unpatched_over_limit={n: {k: v for k, v in d.items() if not v <= limit(k)}
-                                      for n, d in unpatched.items()
-                                      if any(not v <= limit(k) for k, v in d.items())})
+                patch_indices_checked=[c["patch_indices_checked"] for c in chunks])
 
 
 def trained_trainer(cfg, pt, device=DEV):
@@ -4716,10 +4894,11 @@ def phase_trained(tmp, smi, scene_rec):
                              launches=paths["trained_validation"],
                              against_jax_golden=compare_val_golden(chunks, gval,
                                                                    "trained validation"))
-    print(f"trained: validation against the JAX golden, worst "
-          f"{rec['validation']['against_jax_golden']['worst_rel_diff']:.3e} on the card's "
-          f"marches patched to the golden's; on its own marches (not held) over the limit: "
-          f"{rec['validation']['against_jax_golden']['unpatched_over_limit']}", flush=True)
+    val = rec["validation"]["against_jax_golden"]
+    print(f"trained: validation against the JAX golden on the card's own views, worst "
+          f"{val['worst_rel_diff']:.3e}; every chunk's marches hash to the golden's, "
+          f"{sum(sum(c.values()) for c in val['patch_indices_checked'])} patch indices "
+          f"checked against the patch values", flush=True)
     del trainer
     torch.cuda.empty_cache()
 
@@ -5030,6 +5209,9 @@ def main(argv=None):
     ap.add_argument("--baseline-tsdf-source", default=None,
                     help="another version of csrc/tsdf.cu (spsg_tsdf_integrate, the whole "
                          "grid) to time beside this one")
+    ap.add_argument("--baseline-port-source", default=None,
+                    help="another version's spsg_tpu_torch/ops directory: its march_setup and "
+                         "depth_to_normals timed beside this one's")
     ap.add_argument("--phases", type=lambda v: v.split(","), default=None,
                     help="comma-separated phases to run (default: every phase); device and "
                          "build always run, and a phase takes along the phases whose outputs "
@@ -5082,6 +5264,8 @@ def run_phases(args, par):
                      ("tsdf", args.baseline_tsdf_source)):
         if src:
             BASELINE[key] = load_baseline(src, key)
+    if args.baseline_port_source:
+        BASELINE["port"] = load_baseline_port(args.baseline_port_source)
     results = phase_compare() if "compare" in run else None
     rc_results = phase_compare_raycast() if "compare_raycast" in run else None
     # launches by path, each counter set to 0 just before the path's run

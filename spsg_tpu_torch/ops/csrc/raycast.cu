@@ -11,10 +11,13 @@
 // marching" back to the host at every round, and the scatter has no fused
 // ATen form. The CUDA shape is the original reference's: one thread per ray.
 //
-// Compiled with -fmad=false (ops/_build.py): a * b + c is rounded twice, as in
-// the plain version (separate PyTorch ops). Sample positions, the trilinear
-// sum and the bisection then round as they do there, and hit / hit_idx come
-// out identical to the plain version.
+// Compiled with -fmad=false (ops/_build.py): no a * b + c is fused but where
+// the source says __fmaf_rn, which is exactly where XLA fuses the JAX
+// package's arithmetic on the CPU and the plain version calls
+// ops/xla_arith.py's fma32 (the lattice t0 + k * step, the positions o + t * d,
+// the trilinear sum, the bisection's a + r * (b - a)). Every sample then
+// rounds as it does there, and hit / hit_idx / alpha / depth come out
+// identical to the plain version's and to the JAX package's.
 //
 // K4, two launches.
 //   raycast_march_map_kernel, one block of 512 threads per 8^3 coarse block:
@@ -98,8 +101,8 @@
 // and k < k_max, each the nearest voxel v = floor(p + 0.5) of p = o + t_k * d,
 // looked up in the occupancy bytes (a bool tensor as it is) where it lies in
 // the grid; the first occupied one ends the ray with a 1. Rounding as in the
-// plain version (-fmad=false: k * step, t0 + ., t * d, o + ., + 0.5 each
-// rounded once), so every sample is the voxel occ_march_plain reads.
+// plain version (the lattice and o + t * d each one FMA, + 0.5 rounded once),
+// so every sample is the voxel occ_march_plain reads.
 //   raycast_occ_map_kernel, one block per (batch row, coarse z, coarse y) of
 //   a map of 8^3 coarse blocks with a ring of one block around the grid
 //   (block c in [-1, nb] on each axis): its flag is set when an occupied voxel
@@ -193,7 +196,9 @@ long long tiles_for(int P, int W) {
 
 // Trilinear SDF of the fully valid cell at base (ix, iy, iz) with weights
 // (wx, wy, wz). The 8 loads are issued before any test. The weights and their
-// sum in the JAX package's order (_cell_trilerp :214-231).
+// sum in the JAX package's order (_cell_trilerp :214-231), the sum as XLA fuses
+// it on the CPU: fma(w000, c000, w001 * c001), then each product added by an
+// FMA (the source is built with -fmad=false: no other product is fused).
 __device__ __forceinline__ float cell_trilerp(const float* __restrict__ g, int Y, int X,
                                               int ix, int iy, int iz, float wx, float wy,
                                               float wz) {
@@ -207,8 +212,13 @@ __device__ __forceinline__ float cell_trilerp(const float* __restrict__ g, int Y
   const float ux = 1.f - wx, uy = 1.f - wy, uz = 1.f - wz;
   const float w000 = ux * uy * uz, w001 = wx * uy * uz, w010 = ux * wy * uz, w011 = wx * wy * uz;
   const float w100 = ux * uy * wz, w101 = wx * uy * wz, w110 = ux * wy * wz, w111 = wx * wy * wz;
-  const float val = w000 * c000 + w001 * c001 + w010 * c010 + w011 * c011 + w100 * c100 +
-                    w101 * c101 + w110 * c110 + w111 * c111;
+  float val = __fmaf_rn(w000, c000, w001 * c001);
+  val = __fmaf_rn(w010, c010, val);
+  val = __fmaf_rn(w011, c011, val);
+  val = __fmaf_rn(w100, c100, val);
+  val = __fmaf_rn(w101, c101, val);
+  val = __fmaf_rn(w110, c110, val);
+  val = __fmaf_rn(w111, c111, val);
   return isfinite(val) ? val : NAN;
 }
 
@@ -340,16 +350,17 @@ __global__ void raycast_march_kernel(
 
   int last_blk = -1, evaluated = 0;
   bool last_occ = false;
-  float prev =
-      march_sample(g, ox + t0 * dx, oy + t0 * dy, oz + t0 * dz, last_blk, last_occ, evaluated);
+  // positions o + t d and the lattice t0 + k step each one FMA, as XLA forms them
+  float prev = march_sample(g, __fmaf_rn(t0, dx, ox), __fmaf_rn(t0, dy, oy),
+                            __fmaf_rn(t0, dz, oz), last_blk, last_occ, evaluated);
   bool found = false;
   float t_lo = 0.f, d_lo = 0.f, t_hi = 0.f, d_hi = 0.f;
   int k = 1;
   for (; k <= k_max; ++k) {
-    const float t = t0 + (float)k * step;
+    const float t = __fmaf_rn((float)k, step, t0);
     if (!(t <= t_stop)) break;
-    const float v =
-        march_sample(g, ox + t * dx, oy + t * dy, oz + t * dz, last_blk, last_occ, evaluated);
+    const float v = march_sample(g, __fmaf_rn(t, dx, ox), __fmaf_rn(t, dy, oy),
+                                 __fmaf_rn(t, dz, oz), last_blk, last_occ, evaluated);
     if (prev * v < 0.f && fabsf(prev - v) < thresh && fabsf(v) < thresh) {
       found = true;
       t_lo = t - step;
@@ -374,8 +385,9 @@ __global__ void raycast_march_kernel(
   for (int i = 0; i < bisections; ++i) {
     const float diff = da - db;
     const float denom = fabsf(diff) > 1e-12f ? diff : 1e-12f;
-    cmid = a + (da / denom) * (bb - a);
-    float dmid = trilerp(g, ox + cmid * dx, oy + cmid * dy, oz + cmid * dz);
+    cmid = __fmaf_rn(da / denom, bb - a, a);
+    float dmid = trilerp(g, __fmaf_rn(cmid, dx, ox), __fmaf_rn(cmid, dy, oy),
+                         __fmaf_rn(cmid, dz, oz));
     const bool okm = !isnan(dmid);
     ok = ok && okm;
     if (!okm) dmid = 0.f;
@@ -388,9 +400,9 @@ __global__ void raycast_march_kernel(
     }
   }
   const float alpha = cmid;
-  const int ix = (int)floorf(ox + alpha * dx + 0.5f);
-  const int iy = (int)floorf(oy + alpha * dy + 0.5f);
-  const int iz = (int)floorf(oz + alpha * dz + 0.5f);
+  const int ix = (int)floorf(__fmaf_rn(alpha, dx, ox) + 0.5f);
+  const int iy = (int)floorf(__fmaf_rn(alpha, dy, oy) + 0.5f);
+  const int iz = (int)floorf(__fmaf_rn(alpha, dz, oz) + 0.5f);
   const bool inb = ix >= 0 && iy >= 0 && iz >= 0 && ix < X && iy < Y && iz < Z;
   const int cx = min(max(ix, 0), X - 1), cy = min(max(iy, 0), Y - 1), cz = min(max(iz, 0), Z - 1);
   const int idx = (cz * Y + cy) * X + cx;
@@ -683,11 +695,12 @@ __global__ void raycast_occ_kernel(
   uint8_t hit = 0;
   int k = 0, evaluated = 0;
   while (k < k_max) {
-    const float t = t0 + (float)k * step;
+    // the lattice and the positions each one FMA, as XLA forms them
+    const float t = __fmaf_rn((float)k, step, t0);
     if (!(t <= t_stop)) break;
-    float cx = floorf(floorf(ox + t * dx + 0.5f) * 0.125f);
-    float cy = floorf(floorf(oy + t * dy + 0.5f) * 0.125f);
-    float cz = floorf(floorf(oz + t * dz + 0.5f) * 0.125f);
+    float cx = floorf(floorf(__fmaf_rn(t, dx, ox) + 0.5f) * 0.125f);
+    float cy = floorf(floorf(__fmaf_rn(t, dy, oy) + 0.5f) * 0.125f);
+    float cz = floorf(floorf(__fmaf_rn(t, dz, oz) + 0.5f) * 0.125f);
     if (!occ_flag(map, cx, cy, cz, nbx, nby, nbz) && o_ok && t < kHopLimit) {
       // a hop: past c's box, then past each next block along the ray (the
       // axis of the nearest face; x, then y, on a tie) while its flag is 0.
@@ -716,7 +729,7 @@ __global__ void raycast_occ_kernel(
       }
       const float kf = fmaxf(floorf((fminf(t_exit, t_stop) - t0) / step) + 1.f, (float)(k + 1));
       int kn = kf < (float)k_max ? (int)kf : k_max;
-      while (kn - 1 > k && !(t0 + (float)(kn - 1) * step <= t_stop)) --kn;
+      while (kn - 1 > k && !(__fmaf_rn((float)(kn - 1), step, t0) <= t_stop)) --kn;
       k = kn;
       continue;
     }
@@ -725,11 +738,11 @@ __global__ void raycast_occ_kernel(
     int taken = 0;
 #pragma unroll
     for (int j = 0; j < kGroup; ++j) {
-      const float tj = t0 + (float)(k + j) * step;
+      const float tj = __fmaf_rn((float)(k + j), step, t0);
       const bool take = k + j < k_max && tj <= t_stop;
-      const float fx = floorf(ox + tj * dx + 0.5f);
-      const float fy = floorf(oy + tj * dy + 0.5f);
-      const float fz = floorf(oz + tj * dz + 0.5f);
+      const float fx = floorf(__fmaf_rn(tj, dx, ox) + 0.5f);
+      const float fy = floorf(__fmaf_rn(tj, dy, oy) + 0.5f);
+      const float fz = floorf(__fmaf_rn(tj, dz, oz) + 0.5f);
       const bool load = take && fx >= 0.f && fy >= 0.f && fz >= 0.f && fx < (float)X &&
                         fy < (float)Y && fz < (float)Z;
       got[j] = load ? __ldg(occ + ((long long)(int)fz * Y + (int)fy) * X + (int)fx) : 0;

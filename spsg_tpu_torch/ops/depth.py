@@ -1,8 +1,12 @@
 """Depth-image preprocessing (PyTorch counterpart of ``spsg_tpu/ops/depth.py``;
 reference CUDA extension torch/utils/depth_utils/depth_utils_cuda_kernel.cu).
 
-Pixel-parallel stencils written as shifted-window reductions in plain PyTorch.
-The iterated median hole-fill keeps the reference's early exit
+Pixel-parallel stencils written as shifted-window reductions in plain PyTorch,
+in the arithmetic that XLA compiles the JAX package's versions to on the CPU
+(:mod:`.xla_arith`: its ``exp``, its order of the window sums, its fused
+multiply-adds, correctly rounded roots), so that the filled depth is the JAX
+package's to the bit on either device. The iterated median hole-fill keeps the
+reference's early exit
 (depth_utils.py:84-94): on a CUDA tensor each test of "any hole left" reads a
 flag back to the host, once before the fill and once per iteration, at most
 ``max_iters + 1`` times a call. :data:`host_syncs` counts those reads.
@@ -14,6 +18,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from .xla_arith import block_sum, div_const, exp32, fma32, sqrt32
 
 # host reads of the fill loop's early-exit flag since the last reset
 host_syncs = {"fill_depth_holes": 0}
@@ -43,19 +49,26 @@ def bilateral_filter(depth: torch.Tensor, sigma_d: float = 2.0,
                      sigma_r: float = 0.1) -> torch.Tensor:
     """Bilateral depth filter (reference bilateral_filter_floatmap_kernel,
     cu:41-86). depth (B, H, W), 0 = hole. Holes stay 0; valid pixels get the
-    range-weighted Gaussian average of their valid neighbours."""
+    range-weighted Gaussian average of their valid neighbours. As XLA computes
+    it: both Gaussians through its ``exp`` with the divisions by constants as
+    products, each tap's weight ``w_spatial * w_range`` where the neighbour is
+    valid, and the weights and the rounded products ``w * neighbour`` summed
+    over the window in its blocks of 32 taps (:func:`.xla_arith.block_sum`)."""
     radius = int(math.ceil(2.0 * sigma_d))
+    k = 2 * radius + 1
     offs = torch.arange(-radius, radius + 1, dtype=torch.float32, device=depth.device)
     oy, ox = torch.meshgrid(offs, offs, indexing="ij")
-    w_spatial = torch.exp(-(ox ** 2 + oy ** 2) / (2.0 * sigma_d ** 2)).reshape(-1)
+    w_spatial = exp32(div_const(-(ox * ox + oy * oy), 2.0 * sigma_d ** 2)).reshape(-1)
 
-    win = _window_stack(depth, radius, 0.0)
-    valid_win = win != 0.0
-    center = depth[..., None]
-    w_range = torch.exp(-((win - center) ** 2) / (2.0 * sigma_r ** 2))
-    w = w_spatial * w_range * valid_win
-    wsum = w.sum(dim=-1)
-    num = (w * win).sum(dim=-1)
+    padded = F.pad(depth, (radius, radius, radius, radius), value=0.0)
+    H, W = depth.shape[1], depth.shape[2]
+    # taps first: (k*k, B, H, W) in row-major window order
+    win = torch.stack([padded[:, i:i + H, j:j + W] for i in range(k) for j in range(k)])
+    d = win - depth
+    w_range = exp32(div_const(d * -d, 2.0 * sigma_r ** 2))
+    w = torch.where(win != 0.0, w_spatial[:, None, None, None] * w_range, 0.0)
+    wsum = block_sum(list(w))
+    num = block_sum(list(w * win))
     out = torch.where(wsum > 0.0, num / torch.clamp(wsum, min=1e-12), 0.0)
     return torch.where(depth != 0.0, out, 0.0)
 
@@ -66,8 +79,10 @@ def median_fill(depth: torch.Tensor, structure_radius: int = 5) -> torch.Tensor:
     millimetres (median_fill_depthmap_kernel, cu:89-140): sorted ascending,
     the element ``min((n+1)//2, n-1)`` of the n valid ones (the upper median)."""
     win = _window_stack(depth, structure_radius, 0.0)
-    q = torch.where(win != 0.0, torch.floor(1000.0 * win + 0.5), torch.inf)
-    s = torch.sort(q, dim=-1).values
+    # millimetres, 1000 * depth + 0.5 as one fused multiply-add as XLA forms
+    # it: a function of each pixel, so taken once a pixel and then stacked
+    mm = torch.where(depth != 0.0, torch.floor(fma32(depth, 1000.0, 0.5)), torch.inf)
+    s = torch.sort(_window_stack(mm, structure_radius, torch.inf), dim=-1).values
     num_valid = (win != 0.0).sum(dim=-1)
     pick = torch.minimum((num_valid + 1) // 2, torch.clamp(num_valid - 1, min=0))
     val = torch.gather(s, -1, pick[..., None])[..., 0]
@@ -126,11 +141,14 @@ def camera_space_normals(pts: torch.Tensor) -> torch.Tensor:
     cp = torch.roll(pts, -1, dims=2)  # x+1
     cm = torch.roll(pts, 1, dims=2)  # x-1
     a, b = pc - mc, cp - cm
-    n = torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
-                     a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
-                     a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
-    l2 = (n * n).sum(dim=-1, keepdim=True)
-    ln = torch.sqrt(torch.clamp(l2, min=1e-24))
+    # as XLA fuses the cross product: the first product of each difference
+    # fused with the subtraction of the rounded second; the squared norm
+    # summed by fused multiply-adds, its root correctly rounded
+    n = torch.stack([fma32(a[..., 1], b[..., 2], -(a[..., 2] * b[..., 1])),
+                     fma32(a[..., 2], b[..., 0], -(a[..., 0] * b[..., 2])),
+                     fma32(a[..., 0], b[..., 1], -(a[..., 1] * b[..., 0]))], dim=-1)
+    l2 = fma32(n[..., 2], n[..., 2], fma32(n[..., 1], n[..., 1], n[..., 0] * n[..., 0]))[..., None]
+    ln = sqrt32(torch.clamp(l2, min=1e-24))
     some_valid = ((pts[..., 0] != 0) | (pc[..., 0] != 0) | (cp[..., 0] != 0)
                   | (mc[..., 0] != 0) | (cm[..., 0] != 0))
     out = torch.where((l2 > 0.0) & some_valid[..., None], n / -ln, 0.0)

@@ -52,12 +52,16 @@ Each has its plain PyTorch version beside it (``*_plain``). Dispatch is by
 where the tensors live and by nothing else: a CUDA tensor launches the kernel
 or raises, a CPU tensor takes the plain version. The ray set-up (camera rays,
 the box of valid voxels, ``t0``, ``t_stop``) is shared PyTorch code that both
-consume. Of the JAX package's march schedules, K4 has the coarse skip (with
-the block edge fixed at the JAX package's default of 8) and the plain march
-has none; straggler and cross-batch compaction and batch groups are not
-here. The JAX package's tests hold each of them bit-identical to its plain
-march, and the fields that steer them have no counterpart in
-:class:`RaycastConfig`.
+consume. The set-up and the plain versions compute what XLA computes for the
+JAX package on the CPU, site by site (:mod:`.xla_arith`: a fused multiply-add
+wherever XLA fuses one, a division by a constant as a product with its
+reciprocal, correctly rounded roots), and the kernels use ``__fmaf_rn`` at the
+same sites: their outputs are the JAX package's to the bit. Of the JAX
+package's march schedules, K4 has the coarse skip (with the block edge fixed
+at the JAX package's default of 8) and the plain march has none; straggler
+and cross-batch compaction and batch groups are not here. The JAX package's
+tests hold each of them bit-identical to its plain march, and the fields that
+steer them have no counterpart in :class:`RaycastConfig`.
 """
 
 from __future__ import annotations
@@ -70,6 +74,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _build
+from .xla_arith import div_const, fma32, sqrt32
 
 NEG_INF = -float("inf")
 NUM_CLASSES = 14
@@ -148,8 +153,10 @@ def _rdiv(s: float, a: torch.Tensor) -> torch.Tensor:
 
 
 def _norm3(v: torch.Tensor) -> torch.Tensor:
-    """Euclidean norm over the last axis of size 3, summed left to right."""
-    return torch.sqrt((v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]) + v[..., 2] * v[..., 2])
+    """Euclidean norm over the last axis of size 3, as XLA's reduction forms
+    it: each square added into the running sum by a fused multiply-add, the
+    root correctly rounded."""
+    return sqrt32(fma32(v[..., 2], v[..., 2], fma32(v[..., 1], v[..., 1], v[..., 0] * v[..., 0])))
 
 
 def _camera_rays(view, intrinsics, width, height):
@@ -170,10 +177,11 @@ def _camera_rays(view, intrinsics, width, height):
     cam_z = cam_dir[..., 2]
     rot = view[:, :3, :3]
     origin = view[:, :3, 3]
-    # the 3-term products summed left to right
-    world_dir = torch.stack([
-        (rot[:, i, 0, None] * cam_dir[..., 0] + rot[:, i, 1, None] * cam_dir[..., 1])
-        + rot[:, i, 2, None] * cam_dir[..., 2] for i in range(3)], dim=-1)
+    # XLA's dot: the 3-term products added into the running sum by fused
+    # multiply-adds, left to right (the three rows at once)
+    r = rot[:, None]  # (B, 1, 3, 3)
+    c = cam_dir[..., None, :]  # (B, P, 1, 3)
+    world_dir = fma32(r[..., 2], c[..., 2], fma32(r[..., 1], c[..., 1], r[..., 0] * c[..., 0]))
     world_dir = world_dir / _norm3(world_dir)[..., None]
     return origin, world_dir, cam_z
 
@@ -219,14 +227,16 @@ class MarchSetup(NamedTuple):
 def march_setup(valid, view, intrinsics, cfg: RaycastConfig) -> MarchSetup:
     """Rays, and the stretch of each that the march walks: from the box of
     valid voxels (snapped down to the lattice of ``depth_min / cam_z + k *
-    ray_increment``) to its exit plus one step, within [depth_min, depth_max]."""
+    ray_increment``) to its exit plus one step, within [depth_min, depth_max].
+    In XLA's arithmetic: the division by the step a product with its
+    reciprocal, ``t_start + skip * step`` one fused multiply-add."""
     origin, direction, cam_z = _camera_rays(view, intrinsics, cfg.width, cfg.height)
     t_start = _rdiv(cfg.depth_min, cam_z)
     t_end = _rdiv(cfg.depth_max, cam_z)
     lo, hi = _valid_bounds(valid)
     t_enter, t_exit = _ray_aabb(origin, direction, lo, hi)
-    skip = torch.clamp(torch.floor(_div(t_enter - t_start, cfg.ray_increment)), min=0.0)
-    t0 = t_start + skip * cfg.ray_increment
+    skip = torch.clamp(torch.floor(div_const(t_enter - t_start, cfg.ray_increment)), min=0.0)
+    t0 = fma32(skip, cfg.ray_increment, t_start)
     t_stop = torch.minimum(t_end, t_exit + cfg.ray_increment)
     return MarchSetup(origin.contiguous(), direction.contiguous(), cam_z.contiguous(),
                       t0.contiguous(), t_stop.contiguous())
@@ -385,7 +395,9 @@ def _flat_index(ix, iy, iz, dims):
 def _trilerp(sdf_flat, valid_flat, px, py, pz, dims):
     """Trilinear SDF at (B, ...) positions, NaN where any of the 8 corners is
     invalid (or not finite) or the cell leaves the grid; corner weights and
-    their sum in the JAX package's order (w000*c0 + ... + w111*c7)."""
+    their sum in the JAX package's order (w000*c0 + ... + w111*c7), the sum as
+    XLA fuses it: fma(w000, c0, w001*c1), then each next product added by a
+    fused multiply-add."""
     Z, Y, X = dims
     B = px.shape[0]
     bx, by, bz = torch.floor(px), torch.floor(py), torch.floor(pz)
@@ -406,17 +418,27 @@ def _trilerp(sdf_flat, valid_flat, px, py, pz, dims):
          (1 - wx) * wy * (1 - wz), wx * wy * (1 - wz),
          (1 - wx) * (1 - wy) * wz, wx * (1 - wy) * wz,
          (1 - wx) * wy * wz, wx * wy * wz]
-    val = w[0] * corners[0]
-    for wk, ck in zip(w[1:], corners[1:]):
-        val = val + wk * ck
+    val = fma32(w[0], corners[0], w[1] * corners[1])
+    for wk, ck in zip(w[2:], corners[2:]):
+        val = fma32(wk, ck, val)
     ok = ok.reshape(px.shape) & torch.isfinite(val)
     return torch.where(ok, val, torch.nan), ok
+
+
+def _positions(o, d, t):
+    """``o + t d`` on each axis, one fused multiply-add each (as XLA forms
+    it); t (B, ...) broadcasts against the rays' (B, P) leading axes."""
+    extra = (None,) * (t.dim() - 2)
+    return [fma32(t, di[(...,) + extra], oi[(...,) + extra]) for oi, di in zip(o, d)]
 
 
 def march_plain(sdf, valid, setup: MarchSetup, cfg: RaycastConfig):
     """Plain PyTorch version of :func:`march` (any device): the JAX package's
     plain march, all rays in lockstep, ``march_block`` lattice samples a
-    round; it stops when no ray is left (a host read per round on a card)."""
+    round; it stops when no ray is left (a host read per round on a card). In
+    XLA's arithmetic (:mod:`.xla_arith`): the lattice ``t0 + k * step``, the
+    positions ``o + t d``, the trilinear sum and the bisection's ``a + r (b -
+    a)`` each a fused multiply-add."""
     _check_grid(sdf, valid)
     B, Z, Y, X = sdf.shape
     dims = (Z, Y, X)
@@ -424,18 +446,12 @@ def march_plain(sdf, valid, setup: MarchSetup, cfg: RaycastConfig):
     valid_flat = valid.reshape(B, -1)
     origin, direction, cam_z, t0, t_stop = setup
     P = t0.shape[1]
-    ox, oy, oz = (origin[:, None, i] for i in range(3))
-    dx, dy, dz = (direction[..., i] for i in range(3))
+    o = [origin[:, None, i].expand(B, P) for i in range(3)]
+    d = [direction[..., i] for i in range(3)]
     step = cfg.ray_increment
 
     def sample(t):
-        if t.dim() == 3:
-            px = ox[..., None] + t * dx[..., None]
-            py = oy[..., None] + t * dy[..., None]
-            pz = oz[..., None] + t * dz[..., None]
-        else:
-            px, py, pz = ox + t * dx, oy + t * dy, oz + t * dz
-        return _trilerp(sdf_flat, valid_flat, px, py, pz, dims)
+        return _trilerp(sdf_flat, valid_flat, *_positions(o, d, t), dims)
 
     F_ = cfg.march_block
     offs = torch.arange(F_, dtype=torch.float32, device=sdf.device)
@@ -444,13 +460,14 @@ def march_plain(sdf, valid, setup: MarchSetup, cfg: RaycastConfig):
     t_lo, d_lo, t_hi, d_hi = (torch.zeros((B, P), device=sdf.device) for _ in range(4))
     k = torch.ones((B, P), device=sdf.device)  # sample 0 is prev
     for _ in range(cfg.max_samples // F_):
-        alive = ~found & (t0 + k * step <= t_stop)
+        t_base = fma32(k, step, t0)
+        alive = ~found & (t_base <= t_stop)
         if not bool(alive.any()):
             break
         # t from the exact integer sample index: the same float t as the kernel's
-        treal = t0[..., None] + (k[..., None] + offs) * step
+        treal = fma32(k[..., None] + offs, step, t0[..., None])
         in_range = treal <= t_stop[..., None]
-        dead = found | (t0 + k * step > t_stop)
+        dead = found | (t_base > t_stop)
         t = torch.where(dead[..., None], t0[..., None], treal)
         v = sample(t)[0]
         prev_v = torch.cat([prev[..., None], v[..., :-1]], dim=-1)
@@ -477,7 +494,7 @@ def march_plain(sdf, valid, setup: MarchSetup, cfg: RaycastConfig):
     for _ in range(cfg.bisection_iters):
         diff = da - db
         denom = torch.where(diff.abs() > 1e-12, diff, 1e-12)
-        cmid = a + (da / denom) * (b - a)
+        cmid = fma32(da / denom, b - a, a)
         dmid, okm = sample(cmid)
         ok_bis = ok_bis & okm
         dmid = torch.where(okm, dmid, 0.0)
@@ -489,9 +506,7 @@ def march_plain(sdf, valid, setup: MarchSetup, cfg: RaycastConfig):
     alpha = cmid
 
     # nearest voxel of the refined position
-    ix = torch.floor(ox + alpha * dx + 0.5).to(torch.int64)
-    iy = torch.floor(oy + alpha * dy + 0.5).to(torch.int64)
-    iz = torch.floor(oz + alpha * dz + 0.5).to(torch.int64)
+    ix, iy, iz = (torch.floor(p + 0.5).to(torch.int64) for p in _positions(o, d, alpha))
     inb = (ix >= 0) & (iy >= 0) & (iz >= 0) & (ix < X) & (iy < Y) & (iz < Z)
     idx = _flat_index(ix.clamp(0, X - 1), iy.clamp(0, Y - 1), iz.clamp(0, Z - 1), dims)
     hit = found & ok_bis & inb & torch.gather(valid_flat, 1, idx)
@@ -519,8 +534,8 @@ def march_work_plain(sdf, valid, setup: MarchSetup, cfg: RaycastConfig):
     nbz, nby, nbx = _coarse_dims(Z, Y, X)
     origin, direction, _, t0, t_stop = setup
     P = t0.shape[1]
-    ox, oy, oz = (origin[:, None, i, None] for i in range(3))
-    dx, dy, dz = (direction[..., i, None] for i in range(3))
+    o = [origin[:, None, i].expand(B, P) for i in range(3)]
+    d = [direction[..., i] for i in range(3)]
     step = cfg.ray_increment
     F_ = cfg.march_block
     rows = torch.arange(B, device=dev)[:, None, None]
@@ -532,8 +547,8 @@ def march_work_plain(sdf, valid, setup: MarchSetup, cfg: RaycastConfig):
     k0 = 0
     while not bool(done.all()):
         ks = torch.arange(k0, k0 + F_, device=dev)
-        t = t0[..., None] + ks.to(torch.float32) * step
-        px, py, pz = ox + t * dx, oy + t * dy, oz + t * dz
+        t = fma32(ks.to(torch.float32), step, t0[..., None])
+        px, py, pz = _positions(o, d, t)
         v = _trilerp(sdf_flat, valid_flat, px, py, pz, dims)[0]
         ix, iy, iz = (torch.floor(q).to(torch.int64) for q in (px, py, pz))
         inb = (ix >= 0) & (iy >= 0) & (iz >= 0) & (ix < X - 1) & (iy < Y - 1) & (iz < Z - 1)
@@ -768,8 +783,9 @@ def occ_skip_map_plain(occ):
 
 
 def _occ_voxels(o, d, t):
-    """The nearest voxel floor(o + t d + 0.5) on each axis, rounded as K7 does."""
-    return [torch.floor(oi + t * di + 0.5) for oi, di in zip(o, d)]
+    """The nearest voxel floor(o + t d + 0.5) on each axis, o + t d one fused
+    multiply-add (XLA's form, and K7's)."""
+    return [torch.floor(fma32(t, di, oi) + 0.5) for oi, di in zip(o, d)]
 
 
 def occ_march_work_plain(occ, setup: MarchSetup, cfg: RaycastConfig):
@@ -804,7 +820,7 @@ def occ_march_work_plain(occ, setup: MarchSetup, cfg: RaycastConfig):
     inf = torch.full((), float("inf"), device=dev)
 
     def lattice(kk):
-        return t0 + kk.to(torch.float32) * step
+        return fma32(kk.to(torch.float32), step, t0)
 
     def face_t(c, oi, di, ii):
         hi = ((c * 8.0 + 7.5) - oi) * ii
@@ -856,7 +872,7 @@ def occ_march_work_plain(occ, setup: MarchSetup, cfg: RaycastConfig):
         # a group of G samples
         group = alive & ~hop
         kj = k[..., None] + torch.arange(G, device=dev)
-        tj = t0[..., None] + kj.to(torch.float32) * step
+        tj = fma32(kj.to(torch.float32), step, t0[..., None])
         take = (kj < k_max) & (tj <= t_stop[..., None])
         fx, fy, fz = _occ_voxels([oi[..., None] for oi in o], [di[..., None] for di in d], tj)
         load = take & (fx >= 0) & (fy >= 0) & (fz >= 0) & (fx < X) & (fy < Y) & (fz < Z)
@@ -876,7 +892,7 @@ def occ_march_work_plain(occ, setup: MarchSetup, cfg: RaycastConfig):
     in_blocks = torch.zeros_like(k)
     for k0 in range(0, int(k.max()), cfg.march_block):
         ks = torch.arange(k0, k0 + cfg.march_block, device=dev)
-        t = t0[..., None] + ks.to(torch.float32) * step
+        t = fma32(ks.to(torch.float32), step, t0[..., None])
         vx, vy, vz = _occ_voxels([oi[..., None] for oi in o], [di[..., None] for di in d], t)
         inb = (vx >= 0) & (vy >= 0) & (vz >= 0) & (vx < X) & (vy < Y) & (vz < Z)
         b = [torch.where(inb, q, 0).to(torch.int64) // COARSE_BLOCK for q in (vx, vy, vz)]
@@ -899,21 +915,20 @@ def occ_march_plain(occ, setup: MarchSetup, cfg: RaycastConfig, return_samples: 
     flat = occ.reshape(B, -1)
     origin, direction, _, t0, t_stop = setup
     P = t0.shape[1]
-    ox, oy, oz = (origin[:, None, i, None] for i in range(3))
-    dx, dy, dz = (direction[..., i, None] for i in range(3))
+    o = [origin[:, None, i, None].expand(B, P, 1) for i in range(3)]
+    d = [direction[..., i, None] for i in range(3)]
     F_ = cfg.march_block
     hit = torch.zeros((B, P), dtype=torch.bool, device=dev)
     samples = torch.zeros((B, P), dtype=torch.int64, device=dev)
     for k0 in range(0, cfg.max_samples, F_):
         # the same float t as the kernel's: the sample index is exact
         ks = torch.arange(k0, k0 + F_, dtype=torch.float32, device=dev)
-        t = t0[..., None] + ks * cfg.ray_increment
+        t = fma32(ks, cfg.ray_increment, t0[..., None])
         alive = ~hit & (t[..., 0] <= t_stop)
         if not bool(alive.any()):
             break
         in_range = t <= t_stop[..., None]
-        ix, iy, iz = (torch.floor(o + t * d + 0.5).to(torch.int64)
-                      for o, d in ((ox, dx), (oy, dy), (oz, dz)))
+        ix, iy, iz = (v.to(torch.int64) for v in _occ_voxels(o, d, t))
         inb = (ix >= 0) & (iy >= 0) & (iz >= 0) & (ix < X) & (iy < Y) & (iz < Z)
         idx = _flat_index(ix.clamp(0, X - 1), iy.clamp(0, Y - 1), iz.clamp(0, Z - 1), dims)
         got = torch.gather(flat, 1, idx.reshape(B, -1)).reshape(idx.shape) & inb & in_range

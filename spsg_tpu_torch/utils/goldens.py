@@ -21,6 +21,33 @@ MARCH_KEYS = ("in_hit", "in_hit_idx", "in_depth", "tgt_hit", "tgt_hit_idx", "tgt
 MARCH_DIGEST_KEYS = tuple(k for k in MARCH_KEYS if "depth" not in k)
 
 
+# how far a view may lie from the JAX value at an index of a chunk's
+# march_patches, relative to max(1, |value|): tools/export_torch_goldens.py's
+# PATCH_TOL, the tolerance that decided which indices the golden records (a
+# hit or its voxel must be equal)
+PATCH_TOL = {"in_depth": 1e-6, "tgt_depth": 1e-6, "images_normals": 1e-4}
+
+
+def patches_not_held(views: dict, patches: dict) -> dict:
+    """Per key of a chunk's ``march_patches`` (golden_val.json: flat indices
+    and the JAX package's values there), the number of those indices at which
+    ``views`` (numpy arrays, the port's precompute_views) does not hold the
+    JAX value: a hit or voxel not equal, a depth or normal beyond PATCH_TOL,
+    or NaN on one side only."""
+    out = {}
+    for k, (idx, vals) in patches.items():
+        got = np.asarray(views[k]).reshape(-1)[np.asarray(idx, dtype=np.int64)]
+        want = np.asarray(vals, dtype=np.float64)
+        if got.dtype.kind == "f":
+            got = got.astype(np.float64)
+            off = (np.abs(got - want) > PATCH_TOL[k] * np.maximum(1.0, np.abs(want))) | (
+                np.isnan(got) != np.isnan(want))
+        else:
+            off = got.astype(np.float64) != want
+        out[k] = int(off.sum())
+    return out
+
+
 def sha256_file(path: str) -> str:
     h = hashlib.sha256()
     with open(path, "rb") as f:

@@ -187,6 +187,36 @@ def test_raycast_matches_jax_default_config(scene, grid):
         assert err <= 1e-5, err
 
 
+@pytest.mark.parametrize("dims,image", [((32, 32, 32), (96, 64)), ((64, 32, 32), (160, 128))])
+@pytest.mark.parametrize("grid", ["input", "target", "prediction"])
+def test_march_matches_jax_to_the_bit_at_larger_sizes(dims, image, grid):
+    """find_surface_crossings against JAX's default march on the grids of a
+    make_chunk_batch(2, dims, image, seed=1) (the prediction: the target plus
+    N(0, 0.5) noise): hit and hit_idx identical, alpha and depth to the bit.
+    The port's set-up, lattice, positions, trilinear sum and bisection take
+    XLA's forms (ops/xla_arith.py); JAX gets the arrays as arguments, as its
+    step passes them (closed-over arrays would be folded into constants,
+    which changes XLA's arithmetic)."""
+    b = jax_synthetic.make_chunk_batch(2, dims, image_dims=image, seed=1, with_frames=True)
+    tgt = np.clip(b["target_sdf"], -3.0, 3.0)
+    noise = np.random.default_rng(0).normal(0, 0.5, tgt.shape).astype(np.float32)
+    sdf = {"input": b["input"][..., 0], "target": tgt, "prediction": tgt + noise}[grid]
+    valid = np.abs(sdf) < 3.0
+    kw = dict(width=image[0], height=image[1], depth_min=0.1 / 0.02, depth_max=6.0 / 0.02,
+              ray_increment=0.9, thresh_sample_dist=50.5 * 0.9)
+    jcfg = jr.RaycastConfig(**kw)
+    ref = jax.jit(lambda s, v, vw, it: jr.find_surface_crossings(s, v, vw, it, jcfg))(
+        sdf, valid, b["images_view"], b["images_intrinsic"])
+    got = R.find_surface_crossings(H.t(sdf), H.t(valid), H.t(b["images_view"]),
+                                   H.t(b["images_intrinsic"]), R.RaycastConfig(**kw))
+    assert np.asarray(ref["hit"]).sum() > 1000
+    np.testing.assert_array_equal(got["hit"].numpy(), np.asarray(ref["hit"]))
+    np.testing.assert_array_equal(got["hit_idx"].numpy(), np.asarray(ref["hit_idx"]))
+    for k in ("alpha", "depth"):
+        np.testing.assert_array_equal(got[k].numpy().view(np.int32),
+                                      np.asarray(ref[k]).view(np.int32), err_msg=k)
+
+
 def test_non_finite_cotangents_are_zeroed_and_still_counted():
     """A hit pixel whose cotangent is NaN or inf adds 0 to its voxel but still
     counts among the pixels that hit it; the rest average as usual."""
@@ -235,8 +265,8 @@ def test_framed_chunk_batch_matches_the_jax_packages():
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
     hole = ref["images_depth"] == 0
     np.testing.assert_array_equal(got["images_depth"] == 0, hole)
-    # metres; the port's march rounds a * b + c twice where XLA fuses it
-    np.testing.assert_allclose(got["images_depth"], ref["images_depth"], rtol=0, atol=1e-6)
+    # metres, to the bit: the port's march computes what XLA computes
+    np.testing.assert_array_equal(got["images_depth"], ref["images_depth"])
     assert (~hole).sum() > 100
     for k in ("input", "target_sdf", "target_colors", "semantics"):
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)

@@ -184,8 +184,21 @@ def _skip_map(occ):
     return out
 
 
+def _fma(a, b, c):
+    """float32 a * b + c rounded once (numpy scalars): the float64 product is
+    exact, the float64 sum is rounded to odd, then to float32."""
+    p = np.float64(a) * np.float64(b)
+    s = p + np.float64(c)
+    pv = s - np.float64(c)
+    e = (np.float64(c) - (s - pv)) + (p - pv)
+    if e != 0 and np.isfinite(s) and not int(np.array(s).view(np.int64)) & 1:
+        s = np.nextafter(s, np.inf if e > 0 else -np.inf)
+    return np.float32(s)
+
+
 def _kernel_loop(occ, setup, step, k_max, flags=None):
-    """K7's loop for every ray, in numpy float32 (one rounding an operation):
+    """K7's loop for every ray, in numpy float32 (one rounding an operation,
+    the lattice and the positions each a fused multiply-add, as K7 forms them):
     at sample k its block c = floor(v / 8); past a block without an occupied
     voxel within one voxel (or beyond the ring) a hop beyond the block's box
     [8c - 0.5, 8c + 7.5) and the boxes of the unflagged blocks that follow
@@ -203,7 +216,7 @@ def _kernel_loop(occ, setup, step, k_max, flags=None):
     evaluated = np.zeros(t0.shape, np.int64)
 
     def voxel(o, d, t):
-        return [np.floor(f32(f32(o[i] + f32(t * d[i])) + half)) for i in range(3)]
+        return [np.floor(f32(_fma(t, d[i], o[i]) + half)) for i in range(3)]
 
     for b in range(B):
         o = origin[b]
@@ -215,7 +228,7 @@ def _kernel_loop(occ, setup, step, k_max, flags=None):
             ta, ts = t0[b, r], t_stop[b, r]
 
             def lattice(kk):
-                return f32(ta + f32(f32(kk) * step))
+                return _fma(f32(kk), step, ta)
 
             def flagged(c):
                 return (all(-1 <= c[i] <= nb[2 - i] - 2 for i in range(3))

@@ -16,6 +16,7 @@ import torch
 from spsg_tpu.ops import raycast as jr
 from spsg_tpu_torch.data import synthetic
 from spsg_tpu_torch.ops import raycast as R
+from spsg_tpu_torch.ops.xla_arith import fma32
 
 DIMS, IMAGE = (32, 32, 32), (96, 64)
 
@@ -92,8 +93,10 @@ def _lattice(sdf, valid, view, intr, cfg, work):
     setup = R.march_setup(valid, view, intr, cfg)
     K = int(work["samples"].max())
     ks = torch.arange(K)
-    t = setup.t0[..., None] + ks.to(torch.float32) * cfg.ray_increment
-    pos = [setup.origin[:, None, i, None] + t * setup.direction[..., i, None] for i in range(3)]
+    # the lattice and the positions each one fused multiply-add, as the march forms them
+    t = fma32(ks.to(torch.float32), cfg.ray_increment, setup.t0[..., None])
+    pos = [fma32(t, setup.direction[..., i, None], setup.origin[:, None, i, None])
+           for i in range(3)]
     return pos, ks < work["samples"][..., None]
 
 
@@ -161,7 +164,7 @@ def _march_loop(sdf, valid, setup, cfg, b, p):
     e = R.COARSE_BLOCK
 
     def sample(t):
-        pos = [o[i] + t * d[i] for i in range(3)]
+        pos = [fma32(t, d[i], o[i]) for i in range(3)]
         v = R._trilerp(sdf[b:b + 1].reshape(1, -1), valid[b:b + 1].reshape(1, -1),
                        *(q.reshape(1, 1) for q in pos), (Z, Y, X))[0][0, 0]
         ix, iy, iz = (int(torch.floor(q)) for q in pos)
@@ -172,7 +175,7 @@ def _march_loop(sdf, valid, setup, cfg, b, p):
     prev, occ, full = sample(t0)
     k = 1
     while k <= cfg.max_samples:
-        t = t0 + torch.tensor(float(k)) * step
+        t = fma32(torch.tensor(float(k)), step, t0)
         if not bool(t <= t_stop):
             break
         v, o_, f_ = sample(t)

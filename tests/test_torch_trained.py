@@ -93,6 +93,43 @@ def test_trained_nf20_generator_matches_jax(epoch59):
         np.testing.assert_allclose(g.numpy(), r, atol=5e-4, err_msg=name)
 
 
+# --- the nf-20 validation golden's views, on the CPU, at full size ----------
+
+def _golden_chunk_batch(val, cfg, i):
+    """Chunk i of golden_val.json's validation set as the golden took it
+    (chip_smoke.py's golden_validation_set: the frame in the arithmetic of
+    the port that wrote the golden), prepared for a step."""
+    from spsg_tpu_torch.training.loop import _prepare_batch
+
+    sample = cs.golden_validation_set(cfg, val, [i])[0]
+    return _prepare_batch({k: v[None] for k, v in sample.items() if isinstance(v, np.ndarray)},
+                          cfg, val["iteration"])
+
+
+@pytest.mark.parametrize("chunk", [0, 7])
+def test_port_views_on_the_cpu_are_the_nf20_goldens(chunk):
+    """precompute_views at the run's full size ((128,64,64), 320x256) on
+    synthetic_0 (8 / 4 hits patched in the golden) and synthetic_7 (209
+    normal entries up to 0.074 apart): the marches hash to the golden's, and
+    at every index of the chunk's march_patches the port's own view holds the
+    JAX value, within the tolerance that chose those indices (the same
+    numbers in tools/export_torch_goldens.py and utils/goldens.py)."""
+    assert golden_files.PATCH_TOL == export_torch_goldens.PATCH_TOL
+    _, val, _, _ = cs.load_goldens()
+    cfg = cs.run_config(val["args"])
+    assert tuple(cfg.input_dim) == (128, 64, 64)
+    assert (cfg.style_width, cfg.style_height) == (320, 256)
+    gc = val["chunks"][chunk]
+    batch = _golden_chunk_batch(val, cfg, chunk)
+    assert golden_files.frame_digest(batch) == gc["frame_sha256"]
+    views = {k: v.numpy() for k, v in Trainer(cfg, "cpu").precompute_views(batch).items()}
+    hashes = {k: golden_files.array_digest(views[k]) for k in gc["march_sha256"]}
+    assert hashes == gc["march_sha256"]
+    assert sum(len(v[0]) for v in gc["march_patches"].values()) > 0
+    assert golden_files.patches_not_held(views, gc["march_patches"]) == {
+        k: 0 for k in gc["march_patches"]}
+
+
 # --- nf-4 goldens held by chip_smoke.py's comparisons ----------------------
 
 @pytest.fixture(scope="module")
