@@ -41,9 +41,21 @@ CUDA device or if any phase fails. Phases, each printing one JSON line:
            plain tensor ops) on the card against the CPU, to the bit: fma32 on
            2^20 seeded triples and on triples made to lie just off a float32
            halfway point (where a float64 sum then a cast rounds wrong), exp32,
-           sqrt32, div_const, block_sum; the ray set-up and the depth chain at
-           the path's shape; their device times (with --baseline-port-source
-           beside the older modules'). Then
+           sqrt32, div_const, block_sum; the ray set-up (K12) and the depth
+           chain (K9-K11) at the path's shape against the CPU's plain versions;
+           their device times (with --baseline-port-source beside the older
+           modules'). Then K12 and K9-K11 against their plain versions run on
+           the card, to the bit: the set-up on the valid voxels of the step's
+           input, target and noisy prediction grids, an empty grid and a
+           camera whose rays have a component within 1e-9 of 0; the bilateral
+           filter, one median round and the normals on the step's frames,
+           frames without holes beside frames with them, frames whose holes
+           the fill cannot close (the loop runs to max_iters), frames of holes
+           but for one pixel and frames of millimetre ties; the fill loop as a
+           whole on the same frames (filled depth and all_valid, the plain
+           loop's host reads); per kernel device time, plain time, bound
+           (bytes, or the float32 operations its inputs need at 67 TFLOP/s),
+           no library yardstick. Then
            the raycaster's four kernels against their plain versions, on the
            input, target and a noisy prediction grid of a make_chunk_batch with
            frames, at a toy size (16^3, 48x32) and at the training path's
@@ -98,7 +110,7 @@ CUDA device or if any phase fails. Phases, each printing one JSON line:
            defaults (nf_gen 20, colour and semantics, max_input_height 128,
            480x384 overhead renders) on its synthetic (128,160,192) scene, the
            path's seeded weights written as a checkpoint of the original
-           reference (.pth, its module names): launches K1 5, K3 23, K4 3, K5 3;
+           reference (.pth, its module names): launches K1 5, K3 23, K4 3, K5 3, K12 3;
            the outputs (shapes, finite), the images and meshes written, every
            render hitting; seconds per scene (host clock around
            run_whole_scene, synchronised), voxels per second, each render's
@@ -131,7 +143,9 @@ CUDA device or if any phase fails. Phases, each printing one JSON line:
            that the step ran with its gate open (num_valid against
            min_num_valid_2d, the discriminator stepped), the launch counters per
            step (23 fused, 5 + 28 bare forward and dx, 28 dW: the 2D losses reach
-           the colour head; K4 3, K5 3, K6 1) and the depth chain's host reads;
+           the colour head; K4 3, K5 3, K6 1, K12 3, K9 1, K10 41 (every round
+           of the fill; those after the last hole return at once), K11 1) and
+           the depth chain's host reads (0 on the kernels);
            one step against a twin with the plain convs and the plain raycaster
            (metrics, every parameter gradient of the generator; the
            discriminator's reported; prediction pixels whose hit differs, counted); one warm-up
@@ -141,7 +155,8 @@ CUDA device or if any phase fails. Phases, each printing one JSON line:
            plain twin, and precompute_views on the same batch identical to the
            bit to what that step computed (hits, normals, frames_ok, masks);
            a 16^3 / nf 4 / 48x32 full step on the GPU against the same step
-           on the CPU
+           on the CPU. The plain twin takes the plain raycaster, set-up and
+           depth chain (plain_raycast_inside)
   metrics  the metrics CLI (spsg_tpu_torch.cli.metrics, on the card) over the scene
            phase's outputs, before its temporary directory goes: chamfer and IoU
            on its meshes, SSIM and Feature-l1 on its prediction and target
@@ -461,11 +476,25 @@ KERNELS = {
     "raycast_shade": ("spsg_tpu_torch/ops/csrc/raycast.cu", "spsg_tpu/ops/raycast.py:704"),
     "raycast_scatter": ("spsg_tpu_torch/ops/csrc/raycast.cu", "spsg_tpu/ops/raycast.py:739"),
     "raycast_occ": ("spsg_tpu_torch/ops/csrc/raycast.cu", "spsg_tpu/ops/raycast.py:878"),
+    # the ray set-up of find_surface_crossings (:436-447; _camera_rays :127, _ray_aabb
+    # :236, _valid_bounds :253) and of raycast_occ (:905-934), for K4 and K7
+    "raycast_setup": ("spsg_tpu_torch/ops/csrc/raycast.cu", "spsg_tpu/ops/raycast.py:436"),
+    # the depth chain of spsg_tpu/ops/depth.py (XLA): bilateral_filter, a round of
+    # median_fill (and fill_depth_holes' loop around it), depth_to_camera_space with
+    # camera_space_normals (:103, :121)
+    "depth_bilateral": ("spsg_tpu_torch/ops/csrc/depth.cu", "spsg_tpu/ops/depth.py:34"),
+    "depth_median_round": ("spsg_tpu_torch/ops/csrc/depth.cu", "spsg_tpu/ops/depth.py:56"),
+    "depth_normals": ("spsg_tpu_torch/ops/csrc/depth.cu", "spsg_tpu/ops/depth.py:103"),
     # the TSDF integrate of dataset generation (spsg_tpu/datagen/fusion.py, XLA)
     "tsdf_integrate": ("spsg_tpu_torch/ops/csrc/tsdf.cu", "spsg_tpu/datagen/fusion.py:77"),
 }
 CONV_KERNELS = ("conv3x3", "conv3x3_act_stats", "conv3x3_dw")
 RAYCAST_KERNELS = ("raycast_march", "raycast_shade", "raycast_scatter", "raycast_occ")
+DEPTH_KERNELS = ("depth_bilateral", "depth_median_round", "depth_normals")
+# the kernels of the set-up and the depth chain (compare_setup_depth)
+SETUP_DEPTH_KERNELS = ("raycast_setup",) + DEPTH_KERNELS
+# none of them runs on a path: the counters' zeros
+NO_SETUP_DEPTH = {k: 0 for k in SETUP_DEPTH_KERNELS}
 # (B, Z, Y, X, Cin, Cout, on the main path?)
 TOY = (2, 4, 8, 8, 5, 6, False)
 SHAPES = [
@@ -518,13 +547,15 @@ def emit(phase, **kw):
 
 
 def all_launch_counts():
-    return {**conv_ops.launch_counts, **rc_ops.launch_counts, **tsdf.launch_counts}
+    return {**conv_ops.launch_counts, **rc_ops.launch_counts, **tsdf.launch_counts,
+            **depth_ops.launch_counts}
 
 
 def reset_all_launch_counts():
     conv_ops.reset_launch_counts()
     rc_ops.reset_launch_counts()
     tsdf.reset_launch_counts()
+    depth_ops.reset_launch_counts()
 
 
 def cuda_ms(fn, reps):
@@ -1196,12 +1227,12 @@ def compare_occ(occ, setup, cfg, tag, on_path, camera=None):
                library_ms=None)
     if camera is not None:
         view, intr = camera
-        # the wrapper as the step calls it: the ray set-up in PyTorch, then K7
+        # the wrapper as the step calls it: the ray set-up (K12), then K7
         rec["ms_with_setup"] = device_ms(lambda: rc_ops.raycast_occ(occ, view, intr, cfg), 20)
         # how often the wrapper waits for the card (torch's sync debug mode warns
         # once for each operation that does; its other warning, that the mode is a
-        # prototype, is not counted): never, since the set-up fills its divisors on
-        # the card (ops/raycast.py::_div, _rdiv) and K7's map is its own launch
+        # prototype, is not counted): never, since the set-up is K12 and K7's map
+        # is its own launch
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
@@ -1385,18 +1416,28 @@ def load_baseline_port(src):
     return mods
 
 
-def compare_xla_arith():
+def path_batch():
+    """The make_chunk_batch (2 chunks, frames rendered on the card) that
+    compare_xla_arith and compare_setup_depth take at the training path's
+    shape."""
+    from spsg_tpu_torch.data import synthetic
+
+    dims, image = RC_SHAPES[1][:2]
+    return synthetic.make_chunk_batch(2, dims, image, seed=11, with_frames=True, device=DEV)
+
+
+def compare_xla_arith(bt):
     """ops/xla_arith.py on the card against the CPU, to the bit: fma32 on 2^20
     seeded float32 triples (12 decades of exponents, a third of the sums
     cancelling) and on the triples of :func:`halfway_triples`, exp32 over its
     range and the clamps, sqrt32, block_sum of 81 and 121 terms; and what is
     built of them, at the training path's shape ((128,64,64), 320x256, batch
     2): the ray set-up (march_setup, on the input grid) and the depth chain
-    (depth_to_normals on the frames, their holes filled). Device times of
+    (depth_to_normals on the frames, their holes filled), on the card by K12
+    and K9-K11, on the CPU by the plain versions. Device times of
     the set-up (a call; the step makes 3) and of the depth chain (the
     profiler's kernel time of a call), and with --baseline-port-source those
     of the older modules in turns (baseline, this, this, baseline)."""
-    from spsg_tpu_torch.data import synthetic
     from spsg_tpu_torch.ops import xla_arith
 
     g = torch.Generator().manual_seed(17)
@@ -1425,8 +1466,7 @@ def compare_xla_arith():
         raise SystemExit(f"chip_smoke: xla_arith: fma32 rounds the halfway triples as a float64 "
                          f"sum does: {rec}")
 
-    dims, image = RC_SHAPES[1][:2]
-    bt = synthetic.make_chunk_batch(2, dims, image, seed=11, with_frames=True, device=DEV)
+    image = RC_SHAPES[1][1]
     valid = to_dev(np.abs(bt["input"][..., 0]) < 3.0)
     view, intr = to_dev(bt["images_view"]), to_dev(bt["images_intrinsic"])
     depth = to_dev(bt["images_depth"])
@@ -1463,11 +1503,165 @@ def compare_xla_arith():
     return rec
 
 
+# float32 operations the bounds of K9-K12 count: a bilateral tap whose neighbour
+# is valid (d, d * -d, the scale, exp32's ~20, the weight, its product, two
+# sums); a pixel's normal (five unprojections, differences, cross product,
+# norm, three divisions); a ray of the set-up (camera ray, rotation, two
+# norms, six divisions, the slab test, skip, t0, t_stop)
+BILATERAL_TAP_FLOPS = 28
+NORMAL_FLOPS = 60
+SETUP_RAY_FLOPS = 70
+
+
+def depth_cases(depth):
+    """Frames (2, 256, 320) made to catch a fault in K9-K11 and the fill loop,
+    beside the step's own frames (``depth``, rendered with holes): a frame
+    without holes beside one with holes; frames whose holes cannot all be
+    filled (a 300-pixel-wide hole, which the fill closes 5 pixels a round, so
+    the loop runs to max_iters, beside a frame of holes only); a frame of
+    holes but for one pixel; frames of millimetre ties (four depths 1 mm apart
+    and 35 % holes)."""
+    g = torch.Generator().manual_seed(23)
+    filled = depth_ops.fill_depth_holes_plain(depth, 40)[0][0]
+    slow = depth.clone()
+    slow[0, :, :300] = 0.0
+    slow[1] = 0.0
+    one = depth.clone()
+    one[0] = 0.0
+    one[0, 100, 200] = 2.0
+    ties = (1.0 + 0.001 * torch.randint(0, 4, depth.shape, generator=g)).to(DEV)
+    ties[(torch.rand(depth.shape, generator=g) < 0.35).to(DEV)] = 0.0
+    return {"step": depth,
+            "no_holes_beside_holes": torch.stack([torch.where(filled == 0, 1.0, filled),
+                                                  depth[1]]),
+            "unfillable": slow, "all_holes_but_one": one, "millimetre_ties": ties}
+
+
+def setup_cases(bt, view, intr):
+    """(valid, view, intrinsics) of K12's cases: the valid voxels of the
+    step's three grids (input, target, a noisy prediction: |sdf| < 3) under
+    the step's cameras, an empty grid, and a camera along +z turned by 5e-10
+    rad about y, whose centre column's rays have a direction x within 1e-9 of
+    0 (the slab test's 1e12 branch)."""
+    tgt = np.clip(bt["target_sdf"], -3.0, 3.0)
+    noise = np.random.default_rng(11).normal(0, 0.5, tgt.shape).astype(np.float32)
+    grids = {"input": bt["input"][..., 0], "target": tgt, "prediction": tgt + noise}
+    cases = {k: (to_dev(np.abs(g) < 3.0), view, intr) for k, g in grids.items()}
+    cases["empty"] = (torch.zeros_like(cases["input"][0]), view, intr)
+    a = 5e-10
+    turned = torch.tensor([[np.cos(a), 0, np.sin(a), 32.0], [0, 1, 0, 32.0],
+                           [-np.sin(a), 0, np.cos(a), -40.0], [0, 0, 0, 1]],
+                          dtype=torch.float32).repeat(2, 1, 1).to(DEV)
+    near = torch.tensor([[277.0, 277.0, 160.0, 128.0]] * 2, dtype=torch.float32, device=DEV)
+    cases["near_axis"] = (cases["input"][0], turned, near)
+    return cases
+
+
+def bits_differing(got, want):
+    return sum(int((as_bits(g) != as_bits(w)).sum()) for g, w in zip(got, want))
+
+
+def kernel_record(case, shape, on_path, fn, plain, t_bytes, t_ops, reps=20):
+    """A record of compare_setup_depth: device times of the kernel and of its
+    plain version on the card (neither reads back to the host), the bound."""
+    return dict(case=case, shape=list(shape), main_path=on_path, max_abs_err=0.0,
+                ms=device_ms(fn, reps), plain_ms=device_ms(plain, 3), library_ms=None,
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def compare_setup_depth(bt):
+    """K12 and K9-K11 (with the fill loop) against their plain versions run on
+    the card, to the bit, at the training path's shape ((128,64,64) grids,
+    2 frames of 320x256; ``bt`` the make_chunk_batch of compare_xla_arith) on
+    the cases of setup_cases and depth_cases; per kernel and case its device
+    time, its plain version's, its bound (no library call computes the same
+    function: "library_ms" None). The fill (K9, 41 rounds of K10, the finish)
+    is held as a whole too, its plain loop's host reads counted (on
+    "unfillable" the plain loop runs to max_iters: 41 reads), its time beside
+    the plain loop's on the step's frames."""
+    results = {k: [] for k in SETUP_DEPTH_KERNELS}
+    view, intr = to_dev(bt["images_view"]), to_dev(bt["images_intrinsic"])
+    image = (bt["images_depth"].shape[2], bt["images_depth"].shape[1])
+    cfg = rc_ops.RaycastConfig(width=image[0], height=image[1])
+    for name, (valid, cview, cintr) in setup_cases(bt, view, intr).items():
+        fn = (lambda: rc_ops.march_setup(valid, cview, cintr, cfg))
+        plain = (lambda: rc_ops.march_setup_plain(valid, cview, cintr, cfg))
+        diff = bits_differing(fn(), plain())
+        if diff:
+            raise SystemExit(f"chip_smoke: raycast_setup {name}: {diff} elements differ from "
+                             f"march_setup_plain")
+        B, n_ray = valid.shape[0], cfg.width * cfg.height
+        t_bytes = (valid.numel() + B * (64 + 16 + 12) + B * n_ray * 24) / PEAK_BYTES
+        rec = kernel_record(name, valid.shape, name == "input", fn, plain, t_bytes,
+                            B * n_ray * SETUP_RAY_FLOPS / F32_FLOPS)
+        if name == "near_axis":
+            rec["rays_within_1e-9"] = int((fn().direction.abs() <= 1e-9).sum())
+            if not rec["rays_within_1e-9"]:
+                raise SystemExit("chip_smoke: raycast_setup near_axis: no ray component "
+                                 "within 1e-9 of 0")
+        results["raycast_setup"].append(rec)
+    depth = to_dev(bt["images_depth"])
+    fill_recs = []
+    for name, d in depth_cases(depth).items():
+        on_path = name == "step"
+        B, Hh, W = d.shape
+        n_px, valid = d.numel(), (d != 0).float()
+        k9 = torch.ones((1, 1, 9, 9), device=DEV)
+        pairs = int((F.conv2d(valid[:, None], k9, padding=4)[:, 0] * valid).sum())
+        checks = {
+            "depth_bilateral": (lambda: depth_ops.bilateral_filter(d),
+                                lambda: depth_ops.bilateral_filter_plain(d),
+                                2 * n_px * 4, pairs * BILATERAL_TAP_FLOPS),
+            "depth_median_round": (lambda: depth_ops.median_fill(d),
+                                   lambda: depth_ops.median_fill_plain(d),
+                                   2 * n_px * 4, int((d == 0).sum()) * 121),
+            "depth_normals": (lambda: depth_ops.unproject_normals(d, intr),
+                              lambda: depth_ops.unproject_normals_plain(d, intr),
+                              n_px * (4 + 12) + B * 16, B * (Hh - 2) * (W - 2) * NORMAL_FLOPS),
+        }
+        for kname, (fn, plain, nbytes, flops) in checks.items():
+            diff = bits_differing([fn()], [plain()])
+            if diff:
+                raise SystemExit(f"chip_smoke: {kname} {name}: {diff} elements differ from "
+                                 f"its plain version")
+            rec = kernel_record(name, d.shape, on_path, fn, plain, nbytes / PEAK_BYTES,
+                                flops / F32_FLOPS)
+            rec["holes"] = int((d == 0).sum())
+            results[kname].append(rec)
+        # the fill as a whole: the kernels' schedule against the plain loop
+        depth_ops.reset_host_syncs()
+        want = depth_ops.fill_depth_holes_plain(d, 40)
+        reads = depth_ops.host_syncs["fill_depth_holes"]
+        got = depth_ops.fill_depth_holes(d, 40)
+        diff = bits_differing(got, want)
+        if diff or (name == "unfillable" and reads != 41):
+            raise SystemExit(f"chip_smoke: fill_depth_holes {name}: {diff} elements differ "
+                             f"from the plain loop (its host reads: {reads})")
+        # the plain loop's time on the step's frames only: a profile of its thousands
+        # of launches takes seconds
+        fill_recs.append(dict(case=name, plain_loop_host_reads=reads,
+                              frames_all_valid=[bool(v) for v in got[1]],
+                              holes_left=int((got[0] == 0).sum()),
+                              ms=device_ms(lambda: depth_ops.fill_depth_holes(d, 40), 10),
+                              plain_ms=profiled_device_ms(
+                                  lambda: depth_ops.fill_depth_holes_plain(d, 40))
+                              if on_path else "not measured"))
+    for k, recs in results.items():
+        print(f"compare_raycast: {k} identical to its plain version on the card on "
+              f"{[r['case'] for r in recs]}", flush=True)
+    return results, fill_recs
+
+
 def phase_compare_raycast():
-    xla_rec = compare_xla_arith()
+    bt = path_batch()
+    xla_rec = compare_xla_arith(bt)
     print(f"compare_raycast: xla_arith card vs CPU bits differing {xla_rec}", flush=True)
+    setup_depth, fill_recs = compare_setup_depth(bt)
+    del bt
     gen = torch.Generator().manual_seed(5)
     results = {k: [] for k in RAYCAST_KERNELS}
+    results.update(setup_depth)
     tc = TrainConfig()
     for dims, image, on_path in RC_SHAPES:
         grids, view, intr = raycast_grids(dims, image, seed=11)
@@ -1512,7 +1706,7 @@ def phase_compare_raycast():
         raise SystemExit(f"chip_smoke: raycast_occ rounding_rays: {rec['hits']} of 4 rays hit")
     results["raycast_occ"].append(dict(grid="rounding_rays", dims=list(occ.shape[1:]),
                                        image=[1, 1], main_path=False, adversarial=True, **rec))
-    keys = ("grid", "dims", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
+    keys = ("grid", "dims", "case", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
     emit("compare_raycast",
          tolerance={"raycast_march": "hit, hit_idx, alpha, depth identical to the bit on every "
                                      "pixel; samples and evaluated equal to march_work_plain's",
@@ -1523,10 +1717,12 @@ def phase_compare_raycast():
                     "raycast_occ": "identical on every pixel; samples equal to "
                                    "occ_march_plain's, evaluated to occ_march_work_plain's, "
                                    "the map to occ_skip_map_plain's; also on the adversarial "
-                                   "grids"},
+                                   "grids",
+                    **{k: "identical to the plain version on the card to the bit, on every "
+                          "case" for k in SETUP_DEPTH_KERNELS}},
          summary={k: [{kk: r[kk] for kk in r if kk in keys or kk.endswith("_ms")} for r in v]
                   for k, v in results.items()},
-         xla_arith=xla_rec,
+         xla_arith=xla_rec, fill_depth_holes=fill_recs,
          march_pixels_differing=sum(sum(r[k] for k in ("hit_diff", "hit_idx_diff",
                                                         "alpha_bits_diff", "depth_bits_diff"))
                                     for r in results["raycast_march"]))
@@ -1584,6 +1780,8 @@ def classify(key):
         return "hand_conv"
     if "reduce_partials" in k or "sum_slices" in k:
         return "hand_partial_reductions"
+    if "raycast_bounds" in k or "raycast_setup" in k:  # K12's pre-pass and its rays
+        return "raycast_setup"
     for name in RAYCAST_KERNELS:  # K4's pre-pass and K6's zero and divide too
         if name in k:
             return name
@@ -1720,7 +1918,7 @@ def phase_path(tmp, par):
 
     want = {"conv3x3_act_stats": 23 * 4, "conv3x3": 5 * 4, "conv3x3_dw": 0,
             "raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0, "raycast_occ": 0,
-            "tsdf_integrate": 0}
+            "tsdf_integrate": 0, **NO_SETUP_DEPTH}
     if launches != want:
         raise SystemExit(f"chip_smoke: launches on the main path {launches}, expected {want}")
     out = seen["out"]
@@ -1939,7 +2137,7 @@ def bf16_scene(cfg, seen, want, run):
     out16, seconds, peak16 = timed_scene(run, g16, seen["scene_input"], seen["scene_mask"],
                                          seen["kwargs"])
     launches16 = all_launch_counts()
-    if launches16 != dict(want, raycast_march=0, raycast_shade=0) or not all(
+    if launches16 != dict(want, raycast_march=0, raycast_shade=0, raycast_setup=0) or not all(
             np.isfinite(o).all() for o in out16):
         raise SystemExit(f"chip_smoke: the bf16 scene launched {launches16}, or is not finite")
     rec = dict(
@@ -1981,7 +2179,8 @@ def phase_scene(tmp, rc_results, par):
     peak = max(seen["peak_before"], torch.cuda.max_memory_allocated())
 
     want = {"conv3x3_act_stats": 23, "conv3x3": 5, "conv3x3_dw": 0, "raycast_march": 3,
-            "raycast_shade": 3, "raycast_scatter": 0, "raycast_occ": 0, "tsdf_integrate": 0}
+            "raycast_shade": 3, "raycast_scatter": 0, "raycast_occ": 0, "tsdf_integrate": 0,
+            **NO_SETUP_DEPTH, "raycast_setup": 3}
     if launches != want:
         raise SystemExit(f"chip_smoke: launches on the scene path {launches}, expected {want}")
     out = seen["out"]
@@ -2322,7 +2521,7 @@ def phase_train():
     # three convs of the colour head have no loss without the 2D terms); no raycast
     want = {"conv3x3_act_stats": 23, "conv3x3": 5 + 25, "conv3x3_dw": 25,
             "raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0, "raycast_occ": 0,
-            "tsdf_integrate": 0}
+            "tsdf_integrate": 0, **NO_SETUP_DEPTH}
     if launches != want:
         raise SystemExit(f"chip_smoke: launches of one train step {launches}, expected {want}")
     rec = dict(config=dict(nf_gen=cfg.nf_gen, input_dim=list(cfg.input_dim),
@@ -2373,7 +2572,7 @@ def phase_train():
     geo_seconds = time.time() - t
     want = {"conv3x3_act_stats": 9, "conv3x3": 2 + 11, "conv3x3_dw": 11,
             "raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0, "raycast_occ": 0,
-            "tsdf_integrate": 0}
+            "tsdf_integrate": 0, **NO_SETUP_DEPTH}
     if all_launch_counts() != want:
         raise SystemExit(f"chip_smoke: launches of one geometry-only step "
                          f"{all_launch_counts()}, expected {want}")
@@ -2443,7 +2642,9 @@ FULL_2D = dict(pred_sdf=True, pred_color=True, pred_semantic=True, use_2d=True, 
 # projected target, prediction), of which only the prediction's has a backward
 WANT_2D = {"conv3x3_act_stats": 23, "conv3x3": 5 + 28, "conv3x3_dw": 28,
            "raycast_march": 3, "raycast_shade": 3, "raycast_scatter": 1, "raycast_occ": 0,
-           "tsdf_integrate": 0}
+           "tsdf_integrate": 0, "raycast_setup": 3, "depth_bilateral": 1,
+           # every round of the fill is launched; those after the last hole return at once
+           "depth_median_round": TrainConfig().max_depth_fill_iters + 1, "depth_normals": 1}
 # the 2D and adversarial metrics of two float32 forwards part where a
 # prediction pixel's hit flips (one pixel moves a mean over a few thousand by
 # ~1e-4): those are held to 1e-3, the 3D metrics to 1e-4
@@ -2504,16 +2705,26 @@ def full_step_grads(kind, seed=0):
     return _STEP_GRADS[kind, seed]
 
 
+# (module, name of the dispatching function, its plain version) of the raycaster,
+# its set-up and the depth chain
+PLAIN_RAYCAST = [(rc_ops, n, getattr(rc_ops, f"{n}_plain"))
+                 for n in ("march", "shade", "scatter", "occ_march", "march_setup")] + [
+    (depth_ops, n, getattr(depth_ops, f"{n}_plain"))
+    for n in ("fill_depth_holes", "unproject_normals")]
+
+
 @contextlib.contextmanager
 def plain_raycast_inside():
-    """Inside, the raycaster takes its plain versions on CUDA tensors too."""
-    saved = (rc_ops.march, rc_ops.shade, rc_ops.scatter, rc_ops.occ_march)
-    rc_ops.march, rc_ops.shade, rc_ops.scatter, rc_ops.occ_march = (
-        rc_ops.march_plain, rc_ops.shade_plain, rc_ops.scatter_plain, rc_ops.occ_march_plain)
+    """Inside, the raycaster, its ray set-up and the depth chain take their
+    plain versions on CUDA tensors too."""
+    saved = [getattr(mod, name) for mod, name, _ in PLAIN_RAYCAST]
+    for mod, name, plain in PLAIN_RAYCAST:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        rc_ops.march, rc_ops.shade, rc_ops.scatter, rc_ops.occ_march = saved
+        for (mod, name, _), fn in zip(PLAIN_RAYCAST, saved):
+            setattr(mod, name, fn)
 
 
 def recording(trainer, seen):
@@ -2702,7 +2913,7 @@ def missing_colour_step(batch):
         metrics = trainer.step(batch, flags)
         torch.cuda.synchronize()
     launches = all_launch_counts()
-    want = dict(WANT_2D, raycast_occ=2)
+    want = dict(WANT_2D, raycast_occ=2, raycast_setup=5)
     if launches != want:
         raise SystemExit(f"chip_smoke: launches of the missing-colour step {launches}, "
                          f"expected {want}")
@@ -4843,7 +5054,8 @@ def phase_trained(tmp, smi, scene_rec):
     cli_seconds = time.time() - t
     paths["trained_scene"] = all_launch_counts()
     want = {"conv3x3_act_stats": 23, "conv3x3": 5, "conv3x3_dw": 0, "raycast_march": 3,
-            "raycast_shade": 3, "raycast_scatter": 0, "raycast_occ": 0, "tsdf_integrate": 0}
+            "raycast_shade": 3, "raycast_scatter": 0, "raycast_occ": 0, "tsdf_integrate": 0,
+            **NO_SETUP_DEPTH, "raycast_setup": 3}
     if paths["trained_scene"] != want or len(renders) != 3 or not all(
             np.isfinite(o).all() for o in wseen["out"]):
         raise SystemExit(f"chip_smoke: trained whole scene: launches {paths['trained_scene']}, "
@@ -5313,13 +5525,13 @@ def run_phases(args, par):
     training = tuple(k for k in KERNELS if k != "tsdf_integrate")
     full_step = tuple(k for k in training if k != "raycast_occ")
     forward = ("conv3x3", "conv3x3_act_stats")
-    rendered = forward + ("raycast_march", "raycast_shade")
+    rendered = forward + ("raycast_setup", "raycast_march", "raycast_shade")
     on_path = {"serve": forward, "scene": rendered, "train": CONV_KERNELS,
                "train2d": full_step, "train2d_missing_colour": training,
                "train2d_style": full_step, "train2d_bf16": full_step, "train_cli": full_step,
                "datagen": ("tsdf_integrate",), **PAR_PATHS,
                "trained_chunked": forward, "trained_scene": rendered,
-               "trained_validation": rendered, "dilation2_window": forward,
+               "trained_validation": rendered + DEPTH_KERNELS, "dilation2_window": forward,
                "dilation2_step": full_step}
     for path in by_path:
         if path.startswith(("train2d_zslab", "train2d_folded", "train2d_remat",
@@ -5347,6 +5559,11 @@ def run_phases(args, par):
             measured_at = dict(grid=head["grid"], image=head["image"], dtype="float32",
                                frames=len(head["frames"]))
             detail = dict(frames=head["frames"])
+        elif name in SETUP_DEPTH_KERNELS and rc_results is not None:
+            recs = rc_results[name]
+            head = next(r for r in recs if r["main_path"])
+            measured_at = dict(case=head["case"], shape=head["shape"], dtype="float32")
+            detail = dict(cases=recs)
         elif name in RAYCAST_KERNELS and rc_results is not None:
             recs = rc_results[name]
             # at the path's size, the grid with the most work: the prediction's, and

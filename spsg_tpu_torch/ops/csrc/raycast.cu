@@ -1,10 +1,11 @@
-// The TSDF raycaster's four kernels for Hopper (sm_90a): the ray march (K4),
-// the shade gather (K5), the averaged backward scatter (K6) and the occupancy
-// march (K7). Wrappers, plain PyTorch versions and the semantics they share
-// are in ops/raycast.py.
+// The TSDF raycaster's five kernels for Hopper (sm_90a): the ray march (K4),
+// the shade gather (K5), the averaged backward scatter (K6), the occupancy
+// march (K7) and the ray set-up (K12). Wrappers, plain PyTorch versions and the
+// semantics they share are in ops/raycast.py.
 //
 // None replaces a Pallas kernel: the JAX package left the raycaster to XLA
-// (spsg_tpu/ops/raycast.py: find_surface_crossings :404-696, _forward_images
+// (spsg_tpu/ops/raycast.py: find_surface_crossings :404-696 with its set-up
+// :436-447, _camera_rays :127, _ray_aabb :236, _valid_bounds :253; _forward_images
 // :704-724, _raycast_attrs_bwd :739-776, raycast_occ :878-987), as lockstep
 // while_loops of gathers.
 // Translated op for op into PyTorch that loop would read "is any ray still
@@ -29,7 +30,7 @@
 //   raycast_march_kernel, one thread per ray (b, p), a warp an 8x4 pixel tile
 //   (its rays leave the camera side by side, read neighbouring cells and stop
 //   at similar k). The ray set-up (origin, direction, cam_z, t0, t_stop) is
-//   computed by the wrapper in PyTorch and read here. Samples lie on the
+//   K12's, read here. Samples lie on the
 //   lattice t_k = t0 + k * step, with k an exact float (the JAX package's
 //   single-rounding lattice, :533-538); k = 0 is the first sample and k runs
 //   to k_max (the plain march's cap, n_iter_max * march_block) or until
@@ -149,10 +150,24 @@
 // operations each, the samples up to each ray's first occupied one whose
 // (undilated) coarse block holds an occupied voxel (counted in chip_smoke.py
 // from the plain version); an earlier bound counted every sample to the exit.
+//
+// K12, two launches: the ray set-up of the march and of K7 (ops/raycast.py
+// march_setup), the last stage before them that ran as a chain of ~40 small
+// tensor ops. raycast_bounds_kernel, a thread a row of X voxels: the least and
+// largest x, y, z of a valid voxel per batch row (atomicMin / atomicMax on
+// ints, exact). raycast_setup_kernel, one thread per ray: every site in the
+// form of ROADMAP.md Queue C's "agreed arithmetic" table: the camera ray by a real
+// division, its norm the fma chain from x * x with a correctly rounded root,
+// the rotation fma(r2, c2, fma(r1, c1, r0 c0)), the box's slab test, skip and
+// t0 = fma(skip, step, t_start); the outputs are march_setup_plain's to the
+// bit. Bound: bytes (the valid grid read once, 24 bytes a ray written).
+// As tensor ops (float64 emulation of each fused multiply-add) the set-up
+// took 2.7 ms a call on the card (PERF.md).
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <climits>
 #include <math.h>
 #include <stdint.h>
 
@@ -766,6 +781,119 @@ __global__ void raycast_occ_kernel(
   if (evaluated_out) evaluated_out[ray] = evaluated;
 }
 
+// K12's pre-pass: per batch row, the least and the largest x, y, z of a valid
+// voxel (lo, hi: B x 3 ints each, set to INT_MAX-ish and -1 before), a thread a
+// row (b, z, y) of X bytes (16 a load where `vec`), a warp's minima and maxima
+// added by one lane with atomicMin / atomicMax. Exact: integers.
+__global__ void __launch_bounds__(kThreads) raycast_bounds_kernel(
+    const uint8_t* __restrict__ valid, int* __restrict__ lo, int* __restrict__ hi, int Z, int Y,
+    int X, bool vec) {
+  const int b = blockIdx.y;
+  const long long row = (long long)blockIdx.x * kThreads + threadIdx.x;
+  int xlo = INT_MAX, xhi = -1, ylo = INT_MAX, yhi = -1, zlo = INT_MAX, zhi = -1;
+  if (row < (long long)Z * Y) {
+    const uint8_t* r = valid + ((long long)b * Z * Y + row) * X;
+    if (vec) {
+      for (int x = 0; x < X; x += 16) {
+        const uint4 w = __ldg(reinterpret_cast<const uint4*>(r + x));
+        if ((w.x | w.y | w.z | w.w) == 0) continue;
+        const uint8_t* bytes = reinterpret_cast<const uint8_t*>(&w);
+        for (int i = 0; i < 16; ++i) {
+          if (bytes[i]) {
+            xlo = min(xlo, x + i);
+            xhi = x + i;
+          }
+        }
+      }
+    } else {
+      for (int x = 0; x < X; ++x) {
+        if (__ldg(r + x)) {
+          xlo = min(xlo, x);
+          xhi = x;
+        }
+      }
+    }
+    if (xhi >= 0) {
+      zlo = zhi = (int)(row / Y);
+      ylo = yhi = (int)(row % Y);
+    }
+  }
+  const unsigned all = 0xffffffffu;
+  xlo = __reduce_min_sync(all, xlo);
+  ylo = __reduce_min_sync(all, ylo);
+  zlo = __reduce_min_sync(all, zlo);
+  xhi = __reduce_max_sync(all, xhi);
+  yhi = __reduce_max_sync(all, yhi);
+  zhi = __reduce_max_sync(all, zhi);
+  if (threadIdx.x % 32 == 0 && xhi >= 0) {
+    atomicMin(lo + 3 * b, xlo);
+    atomicMin(lo + 3 * b + 1, ylo);
+    atomicMin(lo + 3 * b + 2, zlo);
+    atomicMax(hi + 3 * b, xhi);
+    atomicMax(hi + 3 * b + 1, yhi);
+    atomicMax(hi + 3 * b + 2, zhi);
+  }
+}
+
+// torch.minimum / torch.maximum: NaN if either is NaN
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (isnan(a) || isnan(b)) ? NAN : fminf(a, b);
+}
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (isnan(a) || isnan(b)) ? NAN : fmaxf(a, b);
+}
+
+// K12, one thread per ray (b, p): the set-up of ops/raycast.py::march_setup_plain
+// in its arithmetic (ROADMAP.md Queue C, "agreed arithmetic"): camera ray ((x -
+// mx) / fx, (y - my) / fy, 1) over its norm sqrt(fma(1, 1, fma(cy, cy, cx cx)))
+// (cam_z = 1 / norm), rotated by fma(r2, c2, fma(r1, c1, r0 c0)) a row and
+// normalised again; t_start, t_end = depth_min, depth_max over cam_z; the box
+// of the valid voxels widened by 1.5 against the slab test (1 / d where |d| >
+// 1e-9, else 1e12); skip = max(floor((t_enter - t_start) * inv_step), 0), t0 =
+// fma(skip, step, t_start), t_stop = min(t_end, t_exit + step). Thread p = 0
+// of a row writes its origin.
+__global__ void __launch_bounds__(kThreads) raycast_setup_kernel(
+    const float* __restrict__ view, const float* __restrict__ intr, const int* __restrict__ lo,
+    const int* __restrict__ hi, float* __restrict__ origin, float* __restrict__ dir,
+    float* __restrict__ cam_z, float* __restrict__ t0, float* __restrict__ t_stop, int B, int Z,
+    int Y, int X, int P, int W, float depth_min, float depth_max, float step, float inv_step) {
+  const long long ray = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (ray >= (long long)B * P) return;
+  const int b = (int)(ray / P), p = (int)(ray % P);
+  const float* m = view + 16 * b;
+  if (p == 0)
+    for (int i = 0; i < 3; ++i) origin[3 * b + i] = __ldg(m + 4 * i + 3);
+  const float fx = __ldg(intr + 4 * b), fy = __ldg(intr + 4 * b + 1),
+              mx = __ldg(intr + 4 * b + 2), my = __ldg(intr + 4 * b + 3);
+  const float cx = __fdiv_rn((float)(p % W) - mx, fx), cy = __fdiv_rn((float)(p / W) - my, fy);
+  const float cn = __fsqrt_rn(__fmaf_rn(1.f, 1.f, __fmaf_rn(cy, cy, cx * cx)));
+  const float c0 = __fdiv_rn(cx, cn), c1 = __fdiv_rn(cy, cn), c2 = __fdiv_rn(1.f, cn);
+  float w[3];
+  for (int i = 0; i < 3; ++i)
+    w[i] = __fmaf_rn(__ldg(m + 4 * i + 2), c2,
+                     __fmaf_rn(__ldg(m + 4 * i + 1), c1, __ldg(m + 4 * i) * c0));
+  const float wn = __fsqrt_rn(__fmaf_rn(w[2], w[2], __fmaf_rn(w[1], w[1], w[0] * w[0])));
+  const int dims[3] = {X, Y, Z};
+  float enter = 0.f, leave = 0.f;
+  for (int a = 0; a < 3; ++a) {
+    const float d = __fdiv_rn(w[a], wn);
+    dir[3 * ray + a] = d;
+    const float o = __ldg(m + 4 * a + 3);
+    const float inv = fabsf(d) > 1e-9f ? __fdiv_rn(1.f, d) : 1e12f;
+    const float box_lo = (float)min(__ldg(lo + 3 * b + a), dims[a]) - 1.5f;
+    const float box_hi = (float)__ldg(hi + 3 * b + a) + 1.5f;
+    const float ta = (box_lo - o) * inv, tb = (box_hi - o) * inv;
+    enter = a == 0 ? min_nan(ta, tb) : max_nan(enter, min_nan(ta, tb));
+    leave = a == 0 ? max_nan(ta, tb) : min_nan(leave, max_nan(ta, tb));
+  }
+  cam_z[ray] = c2;
+  const float t_start = __fdiv_rn(depth_min, c2), t_end = __fdiv_rn(depth_max, c2);
+  float skip = floorf((enter - t_start) * inv_step);
+  skip = skip < 0.f ? 0.f : skip;
+  t0[ray] = __fmaf_rn(skip, step, t_start);
+  t_stop[ray] = min_nan(t_end, leave + step);
+}
+
 unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 }  // namespace
@@ -858,6 +986,35 @@ int spsg_raycast_occ_hop(const uint8_t* occ, const float* origin, const float* d
   if (err != cudaSuccess) return (int)err;
   raycast_occ_kernel<<<blocks_for((long long)B * tiles_for(P, W) * 32), kThreads, 0, stream>>>(
       occ, map, origin, dir, t0, t_stop, hit, samples, evaluated, B, Z, Y, X, P, W, step, k_max);
+  return (int)cudaGetLastError();
+}
+
+// K12. `valid` (B, Z, Y, X) bytes, 0 = not valid; `view` (B, 4, 4) camera ->
+// grid and `intr` (B, 4) = fx, fy, mx, my, float32; `bounds` 6 B ints of
+// scratch (the pre-pass's least and largest x, y, z, set here); writes origin
+// (B, 3), dir (B, P, 3), cam_z, t0 and t_stop (B, P). inv_step: the float32
+// reciprocal of the float32 step (the JAX package's division by it as XLA
+// compiles it).
+int spsg_raycast_setup(const uint8_t* valid, const float* view, const float* intr, int* bounds,
+                       float* origin, float* dir, float* cam_z, float* t0, float* t_stop, int B,
+                       int Z, int Y, int X, int P, int W, float depth_min, float depth_max,
+                       float step, float inv_step, cudaStream_t stream) {
+  if (B <= 0 || B > 65535 || P <= 0 || W <= 0 || P % W != 0 || Z < 1 || Y < 1 || X < 1 ||
+      (long long)Z * Y * X >= (1LL << 31) || (long long)B * P >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  int* lo = bounds;
+  int* hi = bounds + 3 * B;
+  cudaError_t err = cudaMemsetAsync(lo, 0x7f, sizeof(int) * 3 * B, stream);
+  if (err == cudaSuccess) err = cudaMemsetAsync(hi, 0xff, sizeof(int) * 3 * B, stream);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec = X % 16 == 0 && reinterpret_cast<uintptr_t>(valid) % 16 == 0;
+  raycast_bounds_kernel<<<dim3(blocks_for((long long)Z * Y), (unsigned)B), kThreads, 0,
+                          stream>>>(valid, lo, hi, Z, Y, X, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  raycast_setup_kernel<<<blocks_for((long long)B * P), kThreads, 0, stream>>>(
+      view, intr, lo, hi, origin, dir, cam_z, t0, t_stop, B, Z, Y, X, P, W, depth_min, depth_max,
+      step, inv_step);
   return (int)cudaGetLastError();
 }
 

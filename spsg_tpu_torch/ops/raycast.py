@@ -18,8 +18,14 @@ attributes into per-view images, with the JAX package's semantics:
     over all pixels that hit it (no 64-pixel cap); the depth gradient goes to
     the voxel's SDF; nothing flows to the march, the view or the intrinsics.
 
-Four hand-written CUDA kernels (``csrc/raycast.cu``) carry it on a card; none
+Five hand-written CUDA kernels (``csrc/raycast.cu``) carry it on a card; none
 replaces a Pallas kernel (the JAX package left the raycaster to XLA):
+
+  * :func:`march_setup` (K12, ``raycast_bounds_kernel`` +
+    ``raycast_setup_kernel``): the rays and the stretch of each that a march
+    walks, which K4 and K7 read: a pre-pass reduces each batch row's box of
+    valid voxels to integer bounds, then one thread per ray computes its
+    direction, ``cam_z``, ``t0`` and ``t_stop``;
 
   * :func:`march` (K4, ``raycast_march_map_kernel`` + ``raycast_march_kernel``):
     a pre-pass marks every fully valid cell with a bit and every 8^3 coarse
@@ -50,13 +56,12 @@ replaces a Pallas kernel (the JAX package left the raycaster to XLA):
 
 Each has its plain PyTorch version beside it (``*_plain``). Dispatch is by
 where the tensors live and by nothing else: a CUDA tensor launches the kernel
-or raises, a CPU tensor takes the plain version. The ray set-up (camera rays,
-the box of valid voxels, ``t0``, ``t_stop``) is shared PyTorch code that both
-consume. The set-up and the plain versions compute what XLA computes for the
-JAX package on the CPU, site by site (:mod:`.xla_arith`: a fused multiply-add
-wherever XLA fuses one, a division by a constant as a product with its
-reciprocal, correctly rounded roots), and the kernels use ``__fmaf_rn`` at the
-same sites: their outputs are the JAX package's to the bit. Of the JAX
+or raises, a CPU tensor takes the plain version. The plain versions compute
+what XLA computes for the JAX package on the CPU, site by site
+(:mod:`.xla_arith`: a fused multiply-add wherever XLA fuses one, a division by
+a constant as a product with its reciprocal, correctly rounded roots), and the
+kernels use ``__fmaf_rn`` at the same sites: their outputs are the JAX
+package's to the bit. Of the JAX
 package's march schedules, K4 has the coarse skip (with the block edge fixed
 at the JAX package's default of 8) and the plain march has none; straggler
 and cross-batch compaction and batch groups are not here. The JAX package's
@@ -74,7 +79,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _build
-from .xla_arith import div_const, fma32, sqrt32
+from .xla_arith import div_const, fma32, recip_const, sqrt32
 
 NEG_INF = -float("inf")
 NUM_CLASSES = 14
@@ -94,7 +99,7 @@ SCATTER_ROW = 24
 
 # launches of each kernel by its wrapper (and by nothing else)
 launch_counts = {"raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0,
-                 "raycast_occ": 0}
+                 "raycast_occ": 0, "raycast_setup": 0}
 _libs = {}
 
 
@@ -224,7 +229,7 @@ class MarchSetup(NamedTuple):
     t_stop: torch.Tensor  # (B, P) samples beyond it are not taken
 
 
-def march_setup(valid, view, intrinsics, cfg: RaycastConfig) -> MarchSetup:
+def march_setup_plain(valid, view, intrinsics, cfg: RaycastConfig) -> MarchSetup:
     """Rays, and the stretch of each that the march walks: from the box of
     valid voxels (snapped down to the lattice of ``depth_min / cam_z + k *
     ray_increment``) to its exit plus one step, within [depth_min, depth_max].
@@ -242,6 +247,41 @@ def march_setup(valid, view, intrinsics, cfg: RaycastConfig) -> MarchSetup:
                       t0.contiguous(), t_stop.contiguous())
 
 
+def march_setup(valid, view, intrinsics, cfg: RaycastConfig) -> MarchSetup:
+    """The set-up of :func:`march_setup_plain`: K12 on CUDA tensors (a pre-pass
+    for the box of the valid voxels, then a thread a ray), the plain version
+    on CPU tensors; the same bits. valid (B,Z,Y,X) bool, view (B,4,4),
+    intrinsics (B,4) float32."""
+    if _device_kind(valid, "raycast_setup") == "cpu":
+        return march_setup_plain(valid, view, intrinsics, cfg)
+    if valid.dim() != 4 or valid.dtype != torch.bool:
+        raise TypeError(f"raycast_setup: valid must be bool (B,Z,Y,X), got {valid.dtype} "
+                        f"{tuple(valid.shape)}")
+    B, Z, Y, X = valid.shape
+    valid, view, intrinsics = valid.contiguous(), view.contiguous(), intrinsics.contiguous()
+    if (view.dtype != torch.float32 or tuple(view.shape) != (B, 4, 4)
+            or intrinsics.dtype != torch.float32 or tuple(intrinsics.shape) != (B, 4)):
+        raise ValueError(f"raycast_setup: view float32 ({B},4,4) and intrinsics float32 ({B},4), "
+                         f"got {view.dtype} {tuple(view.shape)}, {intrinsics.dtype} "
+                         f"{tuple(intrinsics.shape)}")
+    _check_cuda("raycast_setup", valid, view, intrinsics)
+    dev = valid.device
+    P = cfg.width * cfg.height
+    bounds = torch.empty(6 * B, dtype=torch.int32, device=dev)
+    origin = torch.empty((B, 3), dtype=torch.float32, device=dev)
+    direction = torch.empty((B, P, 3), dtype=torch.float32, device=dev)
+    cam_z, t0, t_stop = (torch.empty((B, P), dtype=torch.float32, device=dev) for _ in range(3))
+    with torch.cuda.device(dev):
+        err = _library().spsg_raycast_setup(
+            valid.data_ptr(), view.data_ptr(), intrinsics.data_ptr(), bounds.data_ptr(),
+            origin.data_ptr(), direction.data_ptr(), cam_z.data_ptr(), t0.data_ptr(),
+            t_stop.data_ptr(), B, Z, Y, X, P, cfg.width, cfg.depth_min, cfg.depth_max,
+            cfg.ray_increment, recip_const(cfg.ray_increment), _stream(valid))
+    _raise_on(err, "raycast_setup", valid.shape)
+    launch_counts["raycast_setup"] += 1
+    return MarchSetup(origin, direction, cam_z, t0, t_stop)
+
+
 # ---------------------------------------------------------------------------
 # the CUDA library
 # ---------------------------------------------------------------------------
@@ -250,9 +290,9 @@ def march_setup(valid, view, intrinsics, cfg: RaycastConfig) -> MarchSetup:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Argument types of a library built from ``csrc/raycast.cu``. K7's
     entry (``spsg_raycast_occ_hop``, and the one-sample walk
-    ``spsg_raycast_occ`` of older sources) is bound where the library has it,
-    so that an older ``raycast.cu`` binds too (``chip_smoke.py
-    --baseline-raycast-source``)."""
+    ``spsg_raycast_occ`` of older sources) and K12's (``spsg_raycast_setup``)
+    are bound where the library has them, so that an older ``raycast.cu``
+    binds too (``chip_smoke.py --baseline-raycast-source``)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.spsg_raycast_march.restype = i
     lib.spsg_raycast_march.argtypes = [p] * 15 + [i] * 6 + [f, f, i, i, p]
@@ -266,6 +306,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     if hasattr(lib, "spsg_raycast_occ_hop"):
         lib.spsg_raycast_occ_hop.restype = i
         lib.spsg_raycast_occ_hop.argtypes = [p] * 9 + [i] * 6 + [f, i, p]
+    if hasattr(lib, "spsg_raycast_setup"):
+        lib.spsg_raycast_setup.restype = i
+        lib.spsg_raycast_setup.argtypes = [p] * 9 + [i] * 6 + [f] * 4 + [p]
     return lib
 
 

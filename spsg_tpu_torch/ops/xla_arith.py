@@ -49,10 +49,16 @@ def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
     return s.float()
 
 
+def recip_const(s: float) -> float:
+    """The float32 reciprocal of the float32 ``s`` (both rounded once), as a
+    Python float: what XLA multiplies by for a division by the constant."""
+    return float(torch.tensor(1.0) / torch.tensor(s, dtype=torch.float32))
+
+
 def div_const(x: torch.Tensor, s: float) -> torch.Tensor:
-    """``x / s`` for a constant ``s`` as XLA compiles it: the product with the
-    float32 reciprocal of the float32 ``s`` (both rounded once)."""
-    return x * float(torch.tensor(1.0) / torch.tensor(s, dtype=torch.float32))
+    """``x / s`` for a constant ``s`` as XLA compiles it: the product with
+    :func:`recip_const` of ``s``."""
+    return x * recip_const(s)
 
 
 def sqrt32(x: torch.Tensor) -> torch.Tensor:

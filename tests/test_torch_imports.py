@@ -81,4 +81,6 @@ def test_importing_the_package_builds_nothing():
     assert not raycast._libs
     from spsg_tpu_torch.datagen import fusion
     assert not fusion._libs
-    assert set(_build.SOURCES) == {"conv3x3", "conv3x3_dw", "raycast", "tsdf"}
+    from spsg_tpu_torch.ops import depth
+    assert not depth._libs
+    assert set(_build.SOURCES) == {"conv3x3", "conv3x3_dw", "raycast", "tsdf", "depth"}

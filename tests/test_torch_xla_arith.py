@@ -18,7 +18,7 @@ import torch
 from spsg_tpu.data import synthetic as jax_synthetic
 from spsg_tpu.ops import raycast as jr
 from spsg_tpu_torch.ops import raycast as R
-from spsg_tpu_torch.ops.xla_arith import block_sum, exp32, fma32, sqrt32
+from spsg_tpu_torch.ops.xla_arith import block_sum, div_const, exp32, fma32, recip_const, sqrt32
 
 import torch_port_helpers as H
 
@@ -99,6 +99,18 @@ def test_exp32_is_xlas_exp(form):
         t = torch.from_numpy(o)
         got = exp32(-(t[None] * t[None] + t[:, None] * t[:, None]) * 0.125)
     np.testing.assert_array_equal(_bits(got), _bits(ref))
+
+
+@pytest.mark.parametrize("s", [0.9, 2.0 * 0.1 ** 2, 2.0 * 2.0 ** 2, 3.6])
+def test_recip_const_is_xlas_division_by_a_constant(s):
+    """The constants the kernels take as arguments (K12's 1 / step, K9's
+    1 / (2 sigma_r^2) and 1 / (2 sigma_d^2)): x times recip_const(s) is XLA's
+    jitted x / s to the bit, and div_const is that product."""
+    x = np.random.default_rng(3).normal(size=4096).astype(np.float32) * 100
+    want = np.asarray(jax.jit(lambda v: v / s)(jnp.asarray(x)))
+    got = (torch.from_numpy(x) * recip_const(s)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert torch.equal(div_const(torch.from_numpy(x), s), torch.from_numpy(got))
 
 
 def test_sqrt32_is_correctly_rounded():
