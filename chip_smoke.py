@@ -51,11 +51,17 @@ CUDA device or if any phase fails. Phases, each printing one JSON line:
            filter, one median round and the normals on the step's frames,
            frames without holes beside frames with them, frames whose holes
            the fill cannot close (the loop runs to max_iters), frames of holes
-           but for one pixel and frames of millimetre ties; the fill loop as a
-           whole on the same frames (filled depth and all_valid, the plain
-           loop's host reads); per kernel device time, plain time, bound
-           (bytes, or the float32 operations its inputs need at 67 TFLOP/s),
-           no library yardstick. Then
+           but for one pixel, frames of millimetre ties, a checkerboard of
+           holes (a round that read its own writes would differ) and frames
+           of negative depths and NaN pixels of either sign (a wrong key
+           order would differ); the fill as a whole on the same frames (filled
+           depth and all_valid, the plain loop's host reads, the holes of each
+           round that ran, K9's and K10's launches a fill, the fill's bound);
+           per kernel device time, plain time, bound (bytes, or the float32
+           operations its inputs need at 67 TFLOP/s), no library yardstick;
+           with --baseline-port-source K9, a K10 round and the fill of the
+           older depth.py timed in turns with these on the step's frames, and
+           the older fill's launches. Then
            the raycaster's four kernels against their plain versions, on the
            input, target and a noisy prediction grid of a make_chunk_batch with
            frames, at a toy size (16^3, 48x32) and at the training path's
@@ -143,9 +149,9 @@ CUDA device or if any phase fails. Phases, each printing one JSON line:
            that the step ran with its gate open (num_valid against
            min_num_valid_2d, the discriminator stepped), the launch counters per
            step (23 fused, 5 + 28 bare forward and dx, 28 dW: the 2D losses reach
-           the colour head; K4 3, K5 3, K6 1, K12 3, K9 1, K10 41 (every round
-           of the fill; those after the last hole return at once), K11 1) and
-           the depth chain's host reads (0 on the kernels);
+           the colour head; K4 3, K5 3, K6 1, K12 3, K9 1, K10 1 (one
+           cooperative launch runs every round of the fill), K11 1) and the
+           depth chain's host reads (0 on the kernels);
            one step against a twin with the plain convs and the plain raycaster
            (metrics, every parameter gradient of the generator; the
            discriminator's reported; prediction pixels whose hit differs, counted); one warm-up
@@ -1520,7 +1526,14 @@ def depth_cases(depth):
     filled (a 300-pixel-wide hole, which the fill closes 5 pixels a round, so
     the loop runs to max_iters, beside a frame of holes only); a frame of
     holes but for one pixel; frames of millimetre ties (four depths 1 mm apart
-    and 35 % holes)."""
+    and 35 % holes); the step's frames with a checkerboard of holes over rows
+    20-235 (each hole's diagonal neighbours are holes: a round that read a
+    value it wrote would fill them from each other); the step's frames with
+    rows 40-79 negated (3 % of them -inf, 60 % of a patch, where windows'
+    medians are -inf; windows of negative millimetres only, whose keys' low
+    bits are ones) and NaN pixels of either sign, 8 % of the frame and 60 % of
+    a band (rows 120-159, where windows' medians fall among their NaNs: a key
+    that does not put every NaN after +inf selects another value)."""
     g = torch.Generator().manual_seed(23)
     filled = depth_ops.fill_depth_holes_plain(depth, 40)[0][0]
     slow = depth.clone()
@@ -1531,10 +1544,51 @@ def depth_cases(depth):
     one[0, 100, 200] = 2.0
     ties = (1.0 + 0.001 * torch.randint(0, 4, depth.shape, generator=g)).to(DEV)
     ties[(torch.rand(depth.shape, generator=g) < 0.35).to(DEV)] = 0.0
+    yy, xx = torch.meshgrid(torch.arange(depth.shape[1]), torch.arange(depth.shape[2]),
+                            indexing="ij")
+    board = depth.clone()
+    board[:, (((yy + xx) % 2 == 0) & (yy >= 20) & (yy < 236)).to(DEV)] = 0.0
+    odd = depth.clone()
+    odd[:, 40:80] *= -1.0
+    odd[:, 40:80][(torch.rand((depth.shape[0], 40, depth.shape[2]), generator=g)
+                   < 0.03).to(DEV)] = -float("inf")
+    odd[:, 50:60, 100:130][(torch.rand((depth.shape[0], 10, 30), generator=g)
+                            < 0.6).to(DEV)] = -float("inf")
+    nan = torch.rand(depth.shape, generator=g) < 0.08
+    nan[:, 120:160] = torch.rand((depth.shape[0], 40, depth.shape[2]), generator=g) < 0.6
+    negative = nan & (torch.rand(depth.shape, generator=g) < 0.5)
+    odd[nan.to(DEV)] = float("nan")
+    odd[negative.to(DEV)] = -float("nan")
     return {"step": depth,
             "no_holes_beside_holes": torch.stack([torch.where(filled == 0, 1.0, filled),
                                                   depth[1]]),
-            "unfillable": slow, "all_holes_but_one": one, "millimetre_ties": ties}
+            "unfillable": slow, "all_holes_but_one": one, "millimetre_ties": ties,
+            "checkerboard": board, "negative_nan": odd}
+
+
+def fill_round_holes(d, max_iters=40):
+    """The holes of the frames with holes that each round of the plain fill
+    meets (round 0 on the filtered frames, then each round the loop runs):
+    what a fill's selections must read, for its bound."""
+    had = (d == 0).reshape(d.shape[0], -1).any(dim=-1)[:, None, None]
+    if not bool(had.any()):
+        return []
+    cur = depth_ops.bilateral_filter_plain(d)
+    holes = [int(((cur == 0) & had).sum())]
+    cur = depth_ops.median_fill_plain(cur)
+    while len(holes) <= max_iters and bool(((cur == 0) & had).any()):
+        holes.append(int(((cur == 0) & had).sum()))
+        cur = depth_ops.median_fill_plain(cur)
+    return holes
+
+
+def fill_launches(module, d):
+    """Launches of each kernel of ``module``'s (an ops/depth.py) one fill of ``d``."""
+    module.reset_launch_counts()
+    module.fill_depth_holes(d, 40)
+    counts = dict(module.launch_counts)
+    module.reset_launch_counts()
+    return counts
 
 
 def setup_cases(bt, view, intr):
@@ -1576,10 +1630,13 @@ def compare_setup_depth(bt):
     2 frames of 320x256; ``bt`` the make_chunk_batch of compare_xla_arith) on
     the cases of setup_cases and depth_cases; per kernel and case its device
     time, its plain version's, its bound (no library call computes the same
-    function: "library_ms" None). The fill (K9, 41 rounds of K10, the finish)
-    is held as a whole too, its plain loop's host reads counted (on
-    "unfillable" the plain loop runs to max_iters: 41 reads), its time beside
-    the plain loop's on the step's frames."""
+    function: "library_ms" None). The fill (K9, then every round of K10 in one
+    cooperative launch) is held as a whole too, its plain loop's host reads
+    counted (on "unfillable" the plain loop runs to max_iters: 41 reads), its
+    launches, bound and time beside the plain loop's on the step's frames.
+    With --baseline-port-source, K9, a K10 round and the fill of the older
+    depth.py are timed in turns with these on the step's frames. K9 and K10 at
+    other radii (their generic instantiations) are held to the bit too."""
     results = {k: [] for k in SETUP_DEPTH_KERNELS}
     view, intr = to_dev(bt["images_view"]), to_dev(bt["images_intrinsic"])
     image = (bt["images_depth"].shape[2], bt["images_depth"].shape[1])
@@ -1602,6 +1659,7 @@ def compare_setup_depth(bt):
                                  "within 1e-9 of 0")
         results["raycast_setup"].append(rec)
     depth = to_dev(bt["images_depth"])
+    old = BASELINE["port"]["depth"] if "port" in BASELINE else None
     fill_recs = []
     for name, d in depth_cases(depth).items():
         on_path = name == "step"
@@ -1612,15 +1670,18 @@ def compare_setup_depth(bt):
         checks = {
             "depth_bilateral": (lambda: depth_ops.bilateral_filter(d),
                                 lambda: depth_ops.bilateral_filter_plain(d),
-                                2 * n_px * 4, pairs * BILATERAL_TAP_FLOPS),
+                                2 * n_px * 4, pairs * BILATERAL_TAP_FLOPS,
+                                old and (lambda: old.bilateral_filter(d))),
             "depth_median_round": (lambda: depth_ops.median_fill(d),
                                    lambda: depth_ops.median_fill_plain(d),
-                                   2 * n_px * 4, int((d == 0).sum()) * 121),
+                                   2 * n_px * 4, int((d == 0).sum()) * 121,
+                                   old and (lambda: old.median_fill(d))),
             "depth_normals": (lambda: depth_ops.unproject_normals(d, intr),
                               lambda: depth_ops.unproject_normals_plain(d, intr),
-                              n_px * (4 + 12) + B * 16, B * (Hh - 2) * (W - 2) * NORMAL_FLOPS),
+                              n_px * (4 + 12) + B * 16, B * (Hh - 2) * (W - 2) * NORMAL_FLOPS,
+                              None),
         }
-        for kname, (fn, plain, nbytes, flops) in checks.items():
+        for kname, (fn, plain, nbytes, flops, old_fn) in checks.items():
             diff = bits_differing([fn()], [plain()])
             if diff:
                 raise SystemExit(f"chip_smoke: {kname} {name}: {diff} elements differ from "
@@ -1628,6 +1689,8 @@ def compare_setup_depth(bt):
             rec = kernel_record(name, d.shape, on_path, fn, plain, nbytes / PEAK_BYTES,
                                 flops / F32_FLOPS)
             rec["holes"] = int((d == 0).sum())
+            if on_path and old_fn is not None:  # the older kernel in turns with this one
+                time_in_turns(fn, old_fn, 20, rec)
             results[kname].append(rec)
         # the fill as a whole: the kernels' schedule against the plain loop
         depth_ops.reset_host_syncs()
@@ -1638,18 +1701,48 @@ def compare_setup_depth(bt):
         if diff or (name == "unfillable" and reads != 41):
             raise SystemExit(f"chip_smoke: fill_depth_holes {name}: {diff} elements differ "
                              f"from the plain loop (its host reads: {reads})")
-        # the plain loop's time on the step's frames only: a profile of its thousands
-        # of launches takes seconds
-        fill_recs.append(dict(case=name, plain_loop_host_reads=reads,
-                              frames_all_valid=[bool(v) for v in got[1]],
-                              holes_left=int((got[0] == 0).sum()),
-                              ms=device_ms(lambda: depth_ops.fill_depth_holes(d, 40), 10),
-                              plain_ms=profiled_device_ms(
-                                  lambda: depth_ops.fill_depth_holes_plain(d, 40))
-                              if on_path else "not measured"))
+        # the bound: the frames read once and written once, 121 compares a hole a
+        # round that runs (the same count for any version of the fill)
+        holes = fill_round_holes(d)
+        t_bytes, t_ops = (2 * n_px * 4 + B) / PEAK_BYTES, sum(holes) * 121 / F32_FLOPS
+        fill_fn = (lambda: depth_ops.fill_depth_holes(d, 40))
+        rec = dict(case=name, plain_loop_host_reads=reads,
+                   frames_all_valid=[bool(v) for v in got[1]],
+                   holes_left=int((got[0] == 0).sum()), holes_by_round=holes,
+                   rounds=len(holes), launches_a_fill=fill_launches(depth_ops, d),
+                   bound_ms=max(t_bytes, t_ops) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   ms=device_ms(fill_fn, 10),
+                   # the plain loop's time on the step's frames only: a profile of its
+                   # thousands of launches takes seconds
+                   plain_ms=profiled_device_ms(
+                       lambda: depth_ops.fill_depth_holes_plain(d, 40))
+                   if on_path else "not measured")
+        if on_path:
+            rec["ptxas"] = [k for k in _build.ptxas_summary("depth")
+                            if "bilateral" in k["kernel"] or "fill" in k["kernel"]
+                            or "median" in k["kernel"]]
+            if old is not None:
+                rec["baseline_launches_a_fill"] = fill_launches(old, d)
+                time_in_turns(fill_fn, lambda: old.fill_depth_holes(d, 40), 10, rec)
+        fill_recs.append(rec)
+    # the generic instantiations, which no path runs: K9 at radius 3 (sigma_d 1.5),
+    # K10 at radius 3 (4 slots a lane) and at radius 6 (169 taps, 35 slots a lane)
+    for what, fn, plain in (
+            ("depth_bilateral radius 3", lambda: depth_ops.bilateral_filter(depth, 1.5),
+             lambda: depth_ops.bilateral_filter_plain(depth, 1.5)),
+            ("depth_median_round radius 3", lambda: depth_ops.median_fill(depth, 3),
+             lambda: depth_ops.median_fill_plain(depth, 3)),
+            ("depth_median_round radius 6", lambda: depth_ops.median_fill(depth, 6),
+             lambda: depth_ops.median_fill_plain(depth, 6))):
+        diff = bits_differing([fn()], [plain()])
+        if diff:
+            raise SystemExit(f"chip_smoke: {what}: {diff} elements differ from its plain version")
     for k, recs in results.items():
         print(f"compare_raycast: {k} identical to its plain version on the card on "
               f"{[r['case'] for r in recs]}", flush=True)
+    print("compare_raycast: K9 at radius 3 and K10 at radii 3 and 6 (the generic "
+          "instantiations) identical to their plain versions on the step's frames", flush=True)
     return results, fill_recs
 
 
@@ -2643,8 +2736,8 @@ FULL_2D = dict(pred_sdf=True, pred_color=True, pred_semantic=True, use_2d=True, 
 WANT_2D = {"conv3x3_act_stats": 23, "conv3x3": 5 + 28, "conv3x3_dw": 28,
            "raycast_march": 3, "raycast_shade": 3, "raycast_scatter": 1, "raycast_occ": 0,
            "tsdf_integrate": 0, "raycast_setup": 3, "depth_bilateral": 1,
-           # every round of the fill is launched; those after the last hole return at once
-           "depth_median_round": TrainConfig().max_depth_fill_iters + 1, "depth_normals": 1}
+           # one cooperative launch of K10 runs every round of the fill
+           "depth_median_round": 1, "depth_normals": 1}
 # the 2D and adversarial metrics of two float32 forwards part where a
 # prediction pixel's hit flips (one pixel moves a mean over a few thousand by
 # ~1e-4): those are held to 1e-3, the 3D metrics to 1e-4

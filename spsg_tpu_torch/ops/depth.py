@@ -19,10 +19,11 @@ JAX package's to the bit on either device; the kernels compute the same bits.
 The plain fill keeps the reference's early exit (depth_utils.py:84-94): each
 test of "any hole left" reads a flag back to the host, once before the fill
 and once per round, at most ``max_iters + 1`` times a call. The kernel path
-reads nothing back: each round reads the flag the previous round left on the
-card and returns at once where no hole is left, so the rounds that run are the
-plain loop's. :data:`host_syncs` counts the plain loop's reads, the only ones
-that remain.
+reads nothing back: K9 lists the filtered frames' holes on the card, and one
+cooperative launch of K10 runs every round over the shrinking hole list, a
+warp a hole, until a round leaves no hole or ``max_iters`` rounds after the
+first, so the rounds that run are the plain loop's. :data:`host_syncs` counts
+the plain loop's reads, the only ones that remain.
 """
 
 from __future__ import annotations
@@ -39,8 +40,9 @@ from .xla_arith import block_sum, div_const, exp32, fma32, recip_const, sqrt32
 
 # host reads of the plain fill loop's early-exit flag since the last reset
 host_syncs = {"fill_depth_holes": 0}
-# launches of each kernel by its wrapper (and by nothing else): K9, K10 (each
-# round of a fill, also one that returns at once), K11
+# launches of each kernel by its wrapper (and by nothing else): K9, K10 (a
+# single round, or the one cooperative launch that runs every round of a fill),
+# K11
 launch_counts = {"depth_bilateral": 0, "depth_median_round": 0, "depth_normals": 0}
 _libs = {}
 _spatial = {}
@@ -211,9 +213,9 @@ def _library():
         lib.spsg_depth_bilateral.restype = i
         lib.spsg_depth_bilateral.argtypes = [p] * 3 + [i] * 4 + [f, p]
         lib.spsg_depth_median_round.restype = i
-        lib.spsg_depth_median_round.argtypes = [p] * 2 + [i] * 4 + [p]
+        lib.spsg_depth_median_round.argtypes = [p] * 4 + [i] * 4 + [p]
         lib.spsg_depth_fill.restype = i
-        lib.spsg_depth_fill.argtypes = [p] * 7 + [i] * 4 + [f, i, i, p]
+        lib.spsg_depth_fill.argtypes = [p] * 8 + [i] * 4 + [f, i, i, p]
         lib.spsg_depth_normals.restype = i
         lib.spsg_depth_normals.argtypes = [p] * 3 + [i] * 3 + [p]
         _libs["depth"] = lib
@@ -227,12 +229,12 @@ def _frames(depth: torch.Tensor, what: str) -> torch.Tensor:
     return depth.contiguous()
 
 
-def _bilateral_args(depth: torch.Tensor, sigma_d: float, sigma_r: float):
-    """(spatial weights on the depth's device, radius, range scale) of K9."""
-    key = (sigma_d, depth.device)
-    if key not in _spatial:
-        _spatial[key] = _spatial_weights(sigma_d, "cpu").to(depth.device)
-    return _spatial[key], int(math.ceil(2.0 * sigma_d)), recip_const(2.0 * sigma_r ** 2)
+def _bilateral_args(sigma_d: float, sigma_r: float):
+    """(spatial weights in host memory, radius, range scale) of K9: the
+    kernel takes the weights by value, not from device memory."""
+    if sigma_d not in _spatial:
+        _spatial[sigma_d] = _spatial_weights(sigma_d, "cpu").contiguous()
+    return _spatial[sigma_d], int(math.ceil(2.0 * sigma_d)), recip_const(2.0 * sigma_r ** 2)
 
 
 def bilateral_filter(depth: torch.Tensor, sigma_d: float = 2.0,
@@ -242,7 +244,7 @@ def bilateral_filter(depth: torch.Tensor, sigma_d: float = 2.0,
     if _device_kind(depth, "depth_bilateral") == "cpu":
         return bilateral_filter_plain(depth, sigma_d, sigma_r)
     depth = _frames(depth, "depth_bilateral")
-    w_spatial, radius, scale = _bilateral_args(depth, sigma_d, sigma_r)
+    w_spatial, radius, scale = _bilateral_args(sigma_d, sigma_r)
     out = torch.empty_like(depth)
     B, H, W = depth.shape
     with torch.cuda.device(depth.device):
@@ -262,9 +264,12 @@ def median_fill(depth: torch.Tensor, structure_radius: int = 5) -> torch.Tensor:
     depth = _frames(depth, "depth_median_round")
     out = torch.empty_like(depth)
     B, H, W = depth.shape
+    # scratch: the round's hole list and its count
+    holes = torch.empty(B * H * W + 1, dtype=torch.int32, device=depth.device)
     with torch.cuda.device(depth.device):
-        err = _library().spsg_depth_median_round(depth.data_ptr(), out.data_ptr(), B, H, W,
-                                                 structure_radius, _stream(depth))
+        err = _library().spsg_depth_median_round(
+            depth.data_ptr(), out.data_ptr(), holes.data_ptr(), holes[-1:].data_ptr(), B, H, W,
+            structure_radius, _stream(depth))
     _raise_on(err, "depth_median_round", depth.shape)
     launch_counts["depth_median_round"] += 1
     return out
@@ -272,28 +277,30 @@ def median_fill(depth: torch.Tensor, structure_radius: int = 5) -> torch.Tensor:
 
 def fill_depth_holes(depth: torch.Tensor, max_iters: int = 40):
     """:func:`fill_depth_holes_plain` (the same outputs, to the bit). On a
-    CUDA tensor: K9 on every frame, then K10 ``max_iters + 1`` times, each
-    round after the first returning at once where the previous round left no
-    hole (so as many rounds change the map as in the plain loop), and no read
-    back to the host; a frame without holes comes out as it went in."""
+    CUDA tensor: K9 on every frame (listing its holes), then one cooperative
+    launch of K10 that runs the plain loop's rounds over the hole list, with
+    no read back to the host; a frame without holes comes out as it went
+    in."""
     if _device_kind(depth, "fill_depth_holes") == "cpu":
         return fill_depth_holes_plain(depth, max_iters)
     depth = _frames(depth, "fill_depth_holes")
     if max_iters < 0:
         raise ValueError(f"fill_depth_holes: max_iters must be >= 0, got {max_iters}")
-    w_spatial, radius, scale = _bilateral_args(depth, 2.0, 0.1)
+    w_spatial, radius, scale = _bilateral_args(2.0, 0.1)
     B, H, W = depth.shape
     buf0, buf1, out = (torch.empty_like(depth) for _ in range(3))
-    flags = torch.empty(B + max_iters + 1, dtype=torch.int32, device=depth.device)
+    # the two hole lists; had, the lists' counts and the rounds' flags
+    lists = torch.empty(2 * B * H * W, dtype=torch.int32, device=depth.device)
+    flags = torch.empty(B + 2 * max_iters + 3, dtype=torch.int32, device=depth.device)
     all_valid = torch.empty(B, dtype=torch.bool, device=depth.device)
     with torch.cuda.device(depth.device):
         err = _library().spsg_depth_fill(
             depth.data_ptr(), w_spatial.data_ptr(), buf0.data_ptr(), buf1.data_ptr(),
-            flags.data_ptr(), out.data_ptr(), all_valid.data_ptr(), B, H, W, radius, scale, 5,
-            max_iters, _stream(depth))
+            lists.data_ptr(), flags.data_ptr(), out.data_ptr(), all_valid.data_ptr(), B, H, W,
+            radius, scale, 5, max_iters, _stream(depth))
     _raise_on(err, "fill_depth_holes", depth.shape)
     launch_counts["depth_bilateral"] += 1
-    launch_counts["depth_median_round"] += max_iters + 1
+    launch_counts["depth_median_round"] += 1
     return out, all_valid
 
 

@@ -47,6 +47,34 @@ def _holes(depth, seed, frames_with=(0, 1)):
     return d
 
 
+def _checkerboard(depth):
+    """Holes on every other pixel of a band of rows: each hole's diagonal
+    neighbours are holes too, so a round that read a value it wrote itself
+    would fill them from each other."""
+    d = depth.copy()
+    yy, xx = np.mgrid[:d.shape[1], :d.shape[2]]
+    d[:, ((yy + xx) % 2 == 0) & (yy >= 4) & (yy < 28)] = 0.0
+    return d
+
+
+def _negative_nan(depth, seed):
+    """Holes, negative depths on a band of 16 rows (3 % of them -inf, 60 % of
+    a patch, where a window's median is -inf; windows of negative millimetres
+    only, whose keys' low bits are ones), NaN pixels of either sign (8 % of
+    the frame, 60 % of a band, where a window's median falls among its NaNs):
+    the selection's key must order them as torch.sort does."""
+    d = _holes(depth, seed)
+    rng = np.random.default_rng(seed)
+    d[:, 8:24] *= -1.0
+    d[:, 8:24][rng.random((d.shape[0], 16, d.shape[2])) < 0.03] = -np.inf
+    d[:, 12:18, 30:40][rng.random((d.shape[0], 6, 10)) < 0.6] = -np.inf
+    nan = rng.random(d.shape) < 0.08
+    nan[:, 20:26, 8:30] = rng.random((d.shape[0], 6, 22)) < 0.6
+    d[nan] = np.nan
+    d[nan & (rng.random(d.shape) < 0.5)] = -np.float32(np.nan)
+    return d
+
+
 def _ties(shape, seed):
     """Depths on a 1 mm grid with a few values, so the windows hold many ties
     in millimetres, and holes."""
@@ -143,35 +171,143 @@ def test_selection_by_counting_is_the_sorted_median(frames, case):
         assert filled.sum() > 50
 
 
+def _order_key(m):
+    """K10's key of a float32: its bits with the sign bit set where it is
+    positive, all bits flipped where it is negative, 0xffffffff for every NaN;
+    the keys' unsigned order is torch.sort's order of the floats."""
+    u = m.astype(np.float32).view(np.uint32).astype(np.uint64)
+    key = np.where(u & 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+    return np.where(np.isnan(m), 0xFFFFFFFF, key).astype(np.uint64)
+
+
+def _key_value(key):
+    bits = np.where(key & 0x80000000, key & 0x7FFFFFFF, ~key & 0xFFFFFFFF)
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def _median_by_warp(depth, holes, r=5, slots=4):
+    """K10's selection, a warp a hole, written out for the flat indices
+    ``holes`` of the frames ``depth`` (B, H, W): lane l holds tap t = l + 32 s
+    of the window in slot s (32 slots-many places; past the window's
+    (2r+1)^2 taps +inf), the millimetres of the valid pixels, +inf at holes and
+    outside the image, as keys. Warp sums: the valid pixels n, the finite keys
+    and the -inf keys; pick = min((n + 1) // 2, max(n - 1, 0)). Where pick
+    falls among the -inf keys or past the finite ones the hole stays 0; else
+    the finite key of rank pick - (-inf keys) by a radix select over the finite
+    keys: the bits where they all agree (their AND and OR, warp sums) are the
+    result's, the others from the highest to the lowest where they differ:
+    count the candidates (the finite keys that agree with the result on the
+    decided bits) with a 0 at the bit and go to the half that holds the rank.
+    The hole takes 0.001f * the selected value."""
+    B, Hh, W = depth.shape
+    k = 2 * r + 1
+    mm = np.where(depth != 0, np.floor(xla_arith.fma32(torch.from_numpy(depth), 1000.0,
+                                                       0.5).numpy()), np.inf)
+    mm = np.pad(mm.astype(np.float32), ((0, 0), (r, r), (r, r)), constant_values=np.inf)
+    ok = np.pad(depth != 0, ((0, 0), (r, r), (r, r)))
+    b, yx = np.divmod(np.asarray(holes, np.int64), Hh * W)
+    y, x = np.divmod(yx, W)
+    t = np.arange(32)[:, None] + 32 * np.arange(slots)[None, :]  # (lane, slot)
+    tap = (t < k * k).reshape(-1)
+    ty, tx = (t // k).reshape(-1) % k, (t % k).reshape(-1)
+    yy, xx = y[:, None] + ty, x[:, None] + tx
+    m = np.where(tap, mm[b[:, None], yy, xx], np.float32(np.inf)).astype(np.float32)
+    keys = _order_key(m)
+    fin = np.isfinite(m)
+    nvalid = (tap & ok[b[:, None], yy, xx]).sum(axis=1)
+    nfin, nlow = fin.sum(axis=1), (m == -np.inf).sum(axis=1)
+    pick = np.minimum((nvalid + 1) // 2, np.maximum(nvalid - 1, 0))
+    found = (pick >= nlow) & (pick < nlow + nfin)
+    rank = pick - nlow
+    kand = np.bitwise_and.reduce(np.where(fin, keys, 0xFFFFFFFF).astype(np.uint64), axis=1)
+    kor = np.bitwise_or.reduce(np.where(fin, keys, 0).astype(np.uint64), axis=1)
+    diff = kand ^ kor
+    bits = (diff[:, None] >> np.arange(32, dtype=np.uint64)) & 1
+    top = np.where(diff != 0, 31 - np.argmax(bits[:, ::-1], axis=1), -1)
+    bottom = np.where(diff != 0, np.argmax(bits, axis=1), 0)
+    decided = np.where(top >= 0, (0xFFFFFFFF << (top + 1)) & 0xFFFFFFFF, 0xFFFFFFFF)
+    decided = decided.astype(np.uint64)
+    res = kand & decided
+    for bit in range(31, -1, -1):
+        on = (bit <= top) & (bit >= bottom)
+        bm = np.uint64(1 << bit)
+        cand = fin & ((keys & decided[:, None]) == res[:, None])
+        zeros = (cand & ((keys & bm) == 0)).sum(axis=1)
+        go = on & (rank >= zeros)
+        rank = np.where(go, rank - zeros, rank)
+        res = np.where(go, res | bm, res)
+        decided = np.where(on, decided | bm, decided)
+    below = np.where(diff != 0, (np.uint64(1) << bottom.astype(np.uint64)) - np.uint64(1), 0)
+    res = res | (kand & below.astype(np.uint64))
+    val = _key_value(res)
+    return np.where(found, np.float32(0.001) * val, np.float32(0.0)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["ties", "frames", "checkerboard", "negative_nan"])
+def test_selection_by_warp_is_the_sorted_median(frames, case):
+    """K10's single round: the frame copied, its holes listed, each hole's
+    median selected as the kernel's warp does; the plain version's bits."""
+    depth = {"ties": lambda: _ties((2, 24, 30), 3), "frames": lambda: _holes(frames[0], 4),
+             "checkerboard": lambda: _checkerboard(frames[0]),
+             "negative_nan": lambda: _negative_nan(frames[0], 13)}[case]()
+    want = D.median_fill_plain(H.t(depth)).numpy()
+    holes = np.flatnonzero(depth == 0)
+    got = depth.copy().reshape(-1)
+    got[holes] = _median_by_warp(depth, holes)
+    np.testing.assert_array_equal(_bits(got.reshape(depth.shape)), _bits(want))
+    filled = (depth == 0) & (want != 0)
+    assert filled.sum() > 50
+    if case == "negative_nan":  # windows with negative millimetres and NaNs both fill holes
+        assert (want[filled] < 0).any() and np.isnan(depth).sum() > 200
+
+
 # --- the fill's round schedule ----------------------------------------------------
 
-def _fill_on_the_card(depth, max_iters):
-    """spsg_depth_fill's schedule in torch: K9 on every frame and the frames'
-    hole flags, round 0 from it (a frame without holes from its own depth),
-    then rounds 1..max_iters, each run only where the previous round left its
-    flag set (written as a select, never read back), ping-ponging between two
-    buffers; the finish picks the buffer of the last round that ran. Returns
-    (filled, all_valid, rounds that ran after round 0)."""
-    had = (depth == 0).reshape(depth.shape[0], -1).any(dim=-1)[:, None, None]
-    bufs = [None, D.bilateral_filter_plain(depth)]
-    bufs[0] = D.median_fill_plain(torch.where(had, bufs[1], depth))
-    left = [bool((bufs[0] == 0).any())]
-    for k in range(1, max_iters + 1):
-        src = bufs[(k - 1) % 2]
-        run = left[k - 1]
-        if run:
-            bufs[k % 2] = D.median_fill_plain(src)
-        left.append(run and bool((bufs[k % 2] == 0).any()))
-    rounds = 0
-    while rounds < max_iters and left[rounds]:
-        rounds += 1
-    out = torch.where(had, bufs[rounds % 2], depth)
-    return out, ~(out.reshape(out.shape[0], -1) == 0).any(dim=-1), rounds
+def _fill_on_the_card(depth, max_iters, seed=0):
+    """spsg_depth_fill's schedule over hole lists: K9 writes the filtered
+    frames into both buffers, flags the frames with holes (had) and lists
+    round 0's holes (every pixel it leaves at 0). Round k reads buf[(k + 1) %
+    2], writes buf[k % 2] and walks its list, skipping the entries of frames
+    without holes: a pixel that round k - 1 filled (not 0 in the buffer read)
+    is copied, a pixel still a hole goes onto round k + 1's list and takes its
+    median (:func:`_median_by_warp`, from the buffer read only); the round's
+    flag is set where a median is 0. Round k + 1 runs where that flag is set
+    and k < max_iters. The lists come in a seeded random order (on the card
+    their order changes from run to run), and after every round both buffers
+    are checked to hold every pixel that is not on the next list (the
+    invariant). The output: the last round's buffer, a frame without holes
+    its own depth. Returns (filled, all_valid, rounds that ran after round
+    0)."""
+    rng = np.random.default_rng(seed)
+    B, Hh, W = depth.shape
+    had = (depth == 0).reshape(B, -1).any(dim=-1)
+    filtered = D.bilateral_filter_plain(depth).reshape(-1)
+    bufs = [filtered.clone(), filtered.clone()]
+    todo = rng.permutation(np.flatnonzero(filtered.numpy() == 0))
+    k = 0
+    while True:
+        src, dst = bufs[(k + 1) % 2], bufs[k % 2]
+        todo = todo[had.numpy()[todo // (Hh * W)]]
+        v = src[todo]
+        dst[todo[(v != 0).numpy()]] = v[v != 0]
+        holes = todo[(v == 0).numpy()]
+        med = torch.from_numpy(_median_by_warp(src.reshape(B, Hh, W).numpy(), holes))
+        dst[holes] = med
+        todo = rng.permutation(holes)
+        off = torch.ones(B * Hh * W, dtype=torch.bool)
+        off[torch.from_numpy(todo)] = False
+        assert torch.equal(bufs[0][off].view(torch.int32), bufs[1][off].view(torch.int32))
+        if k == max_iters or not bool((med == 0).any()):
+            break
+        k += 1
+    out = torch.where(had[:, None, None], bufs[k % 2].reshape(B, Hh, W), depth)
+    return out, ~(out.reshape(B, -1) == 0).any(dim=-1), k
 
 
 @pytest.mark.parametrize("case,max_iters", [("holes", 40), ("one_frame", 40),
                                             ("unfillable", 6), ("cap", 2), ("none", 5),
-                                            ("all_but_one", 40), ("zero_iters", 0)])
+                                            ("all_but_one", 40), ("zero_iters", 0),
+                                            ("checkerboard", 40), ("negative_nan", 40)])
 def test_fill_schedule_gives_the_loops_output_and_rounds(frames, case, max_iters,
                                                          monkeypatch):
     depth = frames[0]
@@ -188,6 +324,10 @@ def test_fill_schedule_gives_the_loops_output_and_rounds(frames, case, max_iters
         depth[1, 3, 4] = 2.5
     elif case == "none":
         depth = np.where(depth == 0, 1.0, depth).astype(np.float32)
+    elif case == "checkerboard":
+        depth = _checkerboard(depth)
+    elif case == "negative_nan":
+        depth = _negative_nan(depth, 14)
     else:
         depth = _holes(depth, 9)
     t = H.t(depth)
