@@ -59,9 +59,15 @@ CUDA device or if any phase fails. Phases, each printing one JSON line:
            round that ran, K9's and K10's launches a fill, the fill's bound);
            per kernel device time, plain time, bound (bytes, or the float32
            operations its inputs need at 67 TFLOP/s), no library yardstick;
-           with --baseline-port-source K9, a K10 round and the fill of the
-           older depth.py timed in turns with these on the step's frames, and
-           the older fill's launches. Then
+           with --baseline-port-source K9, a K10 round, K11 and the fill of
+           the older depth.py timed in turns with these on the step's frames,
+           the older K12 on every set-up case, and the older fill's launches;
+           the chain (depth_to_normals: K9, then the fill's launch with K11 as
+           its last phase) against the plain chain run on the card, to the bit,
+           on every frame case, its launches and device time; the operations
+           that a set-up and a chain put on the stream (torch.profiler), with
+           --baseline-port-source the older ones' too and the chain in turns.
+           Then
            the raycaster's four kernels against their plain versions, on the
            input, target and a noisy prediction grid of a make_chunk_batch with
            frames, at a toy size (16^3, 48x32) and at the training path's
@@ -150,7 +156,8 @@ CUDA device or if any phase fails. Phases, each printing one JSON line:
            min_num_valid_2d, the discriminator stepped), the launch counters per
            step (23 fused, 5 + 28 bare forward and dx, 28 dW: the 2D losses reach
            the colour head; K4 3, K5 3, K6 1, K12 3, K9 1, K10 1 (one
-           cooperative launch runs every round of the fill), K11 1) and the
+           cooperative launch runs every round of the fill), K11 1 (run as
+           the last phase of that launch)) and the
            depth chain's host reads (0 on the kernels);
            one step against a twin with the plain convs and the plain raycaster
            (metrics, every parameter gradient of the generator; the
@@ -938,6 +945,35 @@ def kernel_split_ms(fn, reps=5):
             for m, e in zip(names, prof.key_averages()) if e.self_device_time_total > 0}
 
 
+def _op_name(key):
+    key = key.replace("(anonymous namespace)::", "")
+    m = re.match(r"(?:void\s+)?([\w:<>, ]+?)\s*\(", key)
+    return m.group(1) if m else key[:60]
+
+
+def stream_ops(fn, reps=4):
+    """The operations one call of ``fn`` puts on the card's stream (kernels,
+    memsets, copies; torch.profiler's device activities), by name, and their
+    total: counted over ``reps`` calls after a warm-up step of the profiler
+    (whose first events it may drop), per call."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=reps)) as prof:
+        for _ in range(reps + 2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    ops = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            name = _op_name(e.key)
+            ops[name] = ops.get(name, 0) + e.count / reps
+    return dict(total=sum(ops.values()), by_name=ops)
+
+
 def time_in_turns(fn, baseline, reps, rec):
     """rec["ms"] of ``fn``; with a ``baseline`` also rec["baseline_ms"], the
     two in turns (baseline, fn, fn, baseline), as time_kernel does."""
@@ -1634,13 +1670,21 @@ def compare_setup_depth(bt):
     cooperative launch) is held as a whole too, its plain loop's host reads
     counted (on "unfillable" the plain loop runs to max_iters: 41 reads), its
     launches, bound and time beside the plain loop's on the step's frames.
-    With --baseline-port-source, K9, a K10 round and the fill of the older
-    depth.py are timed in turns with these on the step's frames. K9 and K10 at
-    other radii (their generic instantiations) are held to the bit too."""
+    With --baseline-port-source, K9, a K10 round, K11 and the fill of the
+    older depth.py are timed in turns with these on the step's frames, and the
+    older K12 on every set-up case. The chain (depth_to_normals: K9, then the
+    fill's launch with K11 as its last phase) is held to the bit against the
+    plain chain on every case, its launches counted; on the step's frames the
+    operations a chain and a set-up put on the stream are counted (the
+    profiler), and with --baseline-port-source the older chain's, and the
+    chain is timed in turns with it. K9 and K10 at other radii (their generic
+    instantiations) are held to the bit too."""
     results = {k: [] for k in SETUP_DEPTH_KERNELS}
     view, intr = to_dev(bt["images_view"]), to_dev(bt["images_intrinsic"])
     image = (bt["images_depth"].shape[2], bt["images_depth"].shape[1])
     cfg = rc_ops.RaycastConfig(width=image[0], height=image[1])
+    old_rc = BASELINE["port"]["raycast"] if "port" in BASELINE else None
+    old_cfg = old_rc and old_rc.RaycastConfig(width=image[0], height=image[1])
     for name, (valid, cview, cintr) in setup_cases(bt, view, intr).items():
         fn = (lambda: rc_ops.march_setup(valid, cview, cintr, cfg))
         plain = (lambda: rc_ops.march_setup_plain(valid, cview, cintr, cfg))
@@ -1657,6 +1701,13 @@ def compare_setup_depth(bt):
             if not rec["rays_within_1e-9"]:
                 raise SystemExit("chip_smoke: raycast_setup near_axis: no ray component "
                                  "within 1e-9 of 0")
+        if name == "input":  # what a set-up puts on the stream
+            rec["stream_ops"] = stream_ops(fn)
+        if old_rc is not None:  # the older set-up in turns with this one, on every case
+            old_fn = (lambda: old_rc.march_setup(valid, cview, cintr, old_cfg))
+            if name == "input":
+                rec["baseline_stream_ops"] = stream_ops(old_fn)
+            time_in_turns(fn, old_fn, 20, rec)
         results["raycast_setup"].append(rec)
     depth = to_dev(bt["images_depth"])
     old = BASELINE["port"]["depth"] if "port" in BASELINE else None
@@ -1679,7 +1730,7 @@ def compare_setup_depth(bt):
             "depth_normals": (lambda: depth_ops.unproject_normals(d, intr),
                               lambda: depth_ops.unproject_normals_plain(d, intr),
                               n_px * (4 + 12) + B * 16, B * (Hh - 2) * (W - 2) * NORMAL_FLOPS,
-                              None),
+                              old and (lambda: old.unproject_normals(d, intr))),
         }
         for kname, (fn, plain, nbytes, flops, old_fn) in checks.items():
             diff = bits_differing([fn()], [plain()])
@@ -1725,6 +1776,24 @@ def compare_setup_depth(bt):
             if old is not None:
                 rec["baseline_launches_a_fill"] = fill_launches(old, d)
                 time_in_turns(fill_fn, lambda: old.fill_depth_holes(d, 40), 10, rec)
+        # the chain (depth_to_normals: on the card K9 and the fill with K11 as its
+        # last phase) against the plain chain run on the card, to the bit
+        chain_fn = (lambda: depth_ops.depth_to_normals(d, intr, 40))
+        diff = bits_differing(chain_fn(), depth_ops.depth_to_normals_plain(d, intr, 40))
+        if diff:
+            raise SystemExit(f"chip_smoke: depth_to_normals {name}: {diff} elements differ "
+                             f"from the plain chain")
+        depth_ops.reset_launch_counts()
+        chain_fn()
+        rec["chain"] = dict(bits_differing=0, launches=dict(depth_ops.launch_counts),
+                            ms=device_ms(chain_fn, 10))
+        depth_ops.reset_launch_counts()
+        if on_path:  # what a chain puts on the stream
+            rec["chain"]["stream_ops"] = stream_ops(chain_fn)
+            if old is not None:
+                old_chain = (lambda: old.depth_to_normals(d, intr, 40))
+                rec["chain"]["baseline_stream_ops"] = stream_ops(old_chain)
+                time_in_turns(chain_fn, old_chain, 10, rec["chain"])
         fill_recs.append(rec)
     # the generic instantiations, which no path runs: K9 at radius 3 (sigma_d 1.5),
     # K10 at radius 3 (4 slots a lane) and at radius 6 (169 taps, 35 slots a lane)
@@ -1873,8 +1942,8 @@ def classify(key):
         return "hand_conv"
     if "reduce_partials" in k or "sum_slices" in k:
         return "hand_partial_reductions"
-    if "raycast_bounds" in k or "raycast_setup" in k:  # K12's pre-pass and its rays
-        return "raycast_setup"
+    if any(t in k for t in ("raycast_box", "raycast_rays", "raycast_bounds", "raycast_setup")):
+        return "raycast_setup"  # K12's two kernels (and those of older versions)
     for name in RAYCAST_KERNELS:  # K4's pre-pass and K6's zero and divide too
         if name in k:
             return name
@@ -2803,7 +2872,7 @@ def full_step_grads(kind, seed=0):
 PLAIN_RAYCAST = [(rc_ops, n, getattr(rc_ops, f"{n}_plain"))
                  for n in ("march", "shade", "scatter", "occ_march", "march_setup")] + [
     (depth_ops, n, getattr(depth_ops, f"{n}_plain"))
-    for n in ("fill_depth_holes", "unproject_normals")]
+    for n in ("fill_depth_holes", "unproject_normals", "depth_to_normals")]
 
 
 @contextlib.contextmanager

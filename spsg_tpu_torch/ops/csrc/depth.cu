@@ -1,7 +1,7 @@
 // The depth chain's kernels for Hopper (sm_90a): the bilateral filter (K9),
 // the median hole fill (K10: one round, and every round of the fill in one
 // cooperative launch) and the unprojection with the cross-product normals
-// (K11). The wrappers and the plain PyTorch versions they must match to the
+// (K11, on its own or as the fill's last phase). The wrappers and the plain PyTorch versions they must match to the
 // bit are in ops/depth.py (bilateral_filter_plain, median_fill_plain,
 // fill_depth_holes_plain, unproject_normals_plain).
 //
@@ -81,21 +81,36 @@
 // round after which no frame that had holes has one, or after max_iters
 // rounds after the first. Every block reads the same flag after the barrier,
 // so the rounds end uniformly. Last, out = the buffer of the last round (a
-// frame without holes: its own depth), all_valid = no hole left in the frame.
+// frame without holes: its own depth), all_valid = no hole left in the frame;
+// where the caller wants normals (depth_to_normals), K11's tiles write the
+// output and take the normals from the same reads.
 // A single round (spsg_depth_median_round) is depth_holes_kernel (the frame
 // copied, its holes listed) and depth_median_round_kernel, the same round.
 // Bound of a fill: bytes, the frames read once and written once (1.3 MB at
 // the step's 2 x 320x256, 0.39 us at 3.35 TB/s); the selections, 121 compares
 // a hole a round that runs (~2.8 M in the step's first round), need less.
 //
-// K11 depth_normals_kernel, one thread per pixel: the camera-space point of
-// the pixel and its four neighbours (x = depth * (gx - mx) / fx, y likewise,
-// z = depth; (0, 0, 0) where depth is 0), a = p(y+1) - p(y-1), b = p(x+1) -
-// p(x-1), n = (fma(a1, b2, -(a2 b1)), fma(a2, b0, -(a0 b2)), fma(a0, b1,
-// -(a1 b0))), l2 = fma(n2, n2, fma(n1, n1, n0 n0)), the normal n / -sqrt(max(
-// l2, 1e-24)) where l2 > 0 and the x of the centre or of a neighbour is not 0,
-// else 0; 0 on the image's border. Bound: bytes (the depth read, 12 bytes a
-// pixel written).
+// K11, the unprojection and the normals (normals_tile), a block a 32x8 tile
+// of pixels (a warp a row, as K9): each point of the tile and of its
+// one-pixel apron (34x10) is unprojected once into shared memory (x = depth *
+// (gx - mx) / fx, y likewise, z = depth; (0, 0, 0) where depth is 0: two
+// divisions a point, where a thread a pixel that unprojected its four
+// neighbours too took ten), then an interior pixel takes from there a = p(y+1)
+// - p(y-1), b = p(x+1) - p(x-1), n = (fma(a1, b2, -(a2 b1)), fma(a2, b0, -(a0
+// b2)), fma(a0, b1, -(a1 b0))), l2 = fma(n2, n2, fma(n1, n1, n0 n0)), the
+// normal n / -sqrt(max(l2, 1e-24)) where l2 > 0 and the x of the centre or of a
+// neighbour is not 0, else 0; 0 on the image's border. The tile's 256 x 3
+// outputs are staged in shared memory and stored as float4 runs (a tile row's
+// 96 floats are contiguous in (B, H, W, 3)), the ragged edge as floats. It
+// runs as depth_normals_kernel on its own (unproject_normals; the chain
+// without a fill), and as the last phase of depth_fill_kernel (the chain with
+// a fill): after the last round's barrier, the tiles (grid-stride) read the
+// last round's buffer, write the fill's output from it and take their normals
+// from the same reads, so that the chain is K9 and one cooperative launch.
+// Bound: bytes (the depth read, 12 bytes a pixel written: 0.000783 ms at the
+// step's 2 x 320x256); what held the first version (a thread a pixel, 16x16
+// blocks, three 4-byte stores 12 bytes apart) back was a launch of its own and
+// five unprojections a pixel.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -111,8 +126,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kTile = 16;           // K11: a 16x16 tile of pixels a block
-constexpr int kBx = 32, kBy = 8;    // K9: a warp a row of 32 pixels, 8 rows a block
+constexpr int kBx = 32, kBy = 8;    // K9, K11: a warp a row of 32 pixels, 8 rows a block
 constexpr int kMaxRadius = 16;
 constexpr int kRadius = 4;          // the port's bilateral radius
 constexpr int kTaps = (2 * kRadius + 1) * (2 * kRadius + 1);
@@ -415,6 +429,111 @@ __device__ void median_round(const float* __restrict__ src, float* __restrict__ 
   if (tid == 0 && left != nullptr && s_left) *left = 1;
 }
 
+// ------------------------------------------------------------------- K11
+
+constexpr int kAx = kBx + 2, kAy = kBy + 2;  // K11: a 32x8 tile and its one-pixel apron
+
+// K11's shared memory: the tile's and its apron's camera-space points (x, y,
+// z apart, so that a warp's reads of a row are conflict-free) and the tile's
+// normals, staged for contiguous stores
+struct NormalTile {
+  float px[kAy][kAx], py[kAy][kAx], pz[kAy][kAx];
+  __align__(16) float out[kBy * kBx * 3];
+};
+
+// The normals of the 32x8 tile at (x0, y0) of frame b, by a block of kThreads
+// (thread t: pixel (x0 + t % 32, y0 + t / 32)). Each point of the tile and its
+// apron is unprojected once into shared memory (x = depth * (gx - mx) / fx, y
+// likewise, z = depth; (0, 0, 0) where depth is 0); an interior pixel takes a =
+// p(y+1) - p(y-1), b = p(x+1) - p(x-1), n = (fma(a1, b2, -(a2 b1)), fma(a2, b0,
+// -(a0 b2)), fma(a0, b1, -(a1 b0))), l2 = fma(n2, n2, fma(n1, n1, n0 n0)) and
+// the normal n / -sqrt(max(l2, 1e-24)) where l2 > 0 and the x of the centre or
+// of a neighbour is not 0, else 0; the border is 0. The tile's rows go out as
+// float4 runs (a row's 96 floats are contiguous in (B, H, W, 3)) where the
+// tile is whole and W % 4 == 0, else as floats. `src` (B, H, W) is read
+// through L2: in the fill it is a buffer that this launch wrote. With `out`,
+// the tile's own depths are copied there too and a 0 among them clears
+// all_valid[b] (the fill's output).
+__device__ __forceinline__ void normals_tile(const float* __restrict__ src,
+                                             const float* __restrict__ intrinsics,
+                                             float* __restrict__ normals, int b, int x0, int y0,
+                                             int H, int W, NormalTile& t, int tid,
+                                             float* __restrict__ out, uint8_t* all_valid) {
+  const float fx = __ldg(intrinsics + 4 * b), fy = __ldg(intrinsics + 4 * b + 1),
+              mx = __ldg(intrinsics + 4 * b + 2), my = __ldg(intrinsics + 4 * b + 3);
+  const long long frame = (long long)b * H * W;
+  for (int i = tid; i < kAx * kAy; i += kThreads) {
+    const int ay = i / kAx, ax = i - ay * kAx;
+    const int x = x0 - 1 + ax, y = y0 - 1 + ay;
+    float px = 0.f, py = 0.f, pz = 0.f;
+    if (x >= 0 && x < W && y >= 0 && y < H) {
+      const long long at = frame + (long long)y * W + x;
+      const float d = __ldcg(src + at);
+      if (out != nullptr && ax >= 1 && ax <= kBx && ay >= 1 && ay <= kBy) {
+        out[at] = d;
+        if (d == 0.f) all_valid[b] = 0;
+      }
+      if (d != 0.f) {
+        px = __fdiv_rn(d * ((float)x - mx), fx);
+        py = __fdiv_rn(d * ((float)y - my), fy);
+        pz = d;
+      }
+    }
+    t.px[ay][ax] = px;
+    t.py[ay][ax] = py;
+    t.pz[ay][ax] = pz;
+  }
+  __syncthreads();
+  const int tx = tid % kBx, ty = tid / kBx;
+  const int x = x0 + tx, y = y0 + ty;
+  float n0 = 0.f, n1 = 0.f, n2 = 0.f;
+  if (x > 0 && x < W - 1 && y > 0 && y < H - 1) {
+    const int cx = tx + 1, cy = ty + 1;
+    const float a0 = t.px[cy + 1][cx] - t.px[cy - 1][cx], a1 = t.py[cy + 1][cx] - t.py[cy - 1][cx],
+                a2 = t.pz[cy + 1][cx] - t.pz[cy - 1][cx];
+    const float b0 = t.px[cy][cx + 1] - t.px[cy][cx - 1], b1 = t.py[cy][cx + 1] - t.py[cy][cx - 1],
+                b2 = t.pz[cy][cx + 1] - t.pz[cy][cx - 1];
+    const float c0 = __fmaf_rn(a1, b2, -(a2 * b1));
+    const float c1 = __fmaf_rn(a2, b0, -(a0 * b2));
+    const float c2 = __fmaf_rn(a0, b1, -(a1 * b0));
+    const float l2 = __fmaf_rn(c2, c2, __fmaf_rn(c1, c1, c0 * c0));
+    const bool some_valid = t.px[cy][cx] != 0.f || t.px[cy + 1][cx] != 0.f ||
+                            t.px[cy][cx + 1] != 0.f || t.px[cy - 1][cx] != 0.f ||
+                            t.px[cy][cx - 1] != 0.f;
+    if (l2 > 0.f && some_valid) {
+      const float nl = -__fsqrt_rn(l2 < 1e-24f ? 1e-24f : l2);
+      n0 = __fdiv_rn(c0, nl);
+      n1 = __fdiv_rn(c1, nl);
+      n2 = __fdiv_rn(c2, nl);
+    }
+  }
+  float* o = t.out + ty * kBx * 3 + tx * 3;
+  o[0] = n0;
+  o[1] = n1;
+  o[2] = n2;
+  __syncthreads();
+  float* base = normals + (((long long)b * H + y0) * W + x0) * 3;
+  const int row = W * 3;
+  if (x0 + kBx <= W && W % 4 == 0 && reinterpret_cast<uintptr_t>(normals) % 16 == 0) {
+    constexpr int kRun = kBx * 3 / 4;  // float4 a tile row
+    for (int i = tid; i < kBy * kRun; i += kThreads) {
+      const int r = i / kRun;
+      if (y0 + r < H)
+        reinterpret_cast<float4*>(base + (long long)r * row)[i - r * kRun] =
+            reinterpret_cast<const float4*>(t.out)[i];
+    }
+  } else {
+    const int cols = min(kBx, W - x0) * 3;
+    for (int i = tid; i < kBy * kBx * 3; i += kThreads) {
+      const int r = i / (kBx * 3), c = i - r * (kBx * 3);
+      if (y0 + r < H && c < cols) base[(long long)r * row + c] = t.out[i];
+    }
+  }
+  __syncthreads();
+}
+
+// ------------------------------------------------------------------- K10: the fill
+
 struct FillArgs {
   const float* depth;
   const int* had;
@@ -426,14 +545,23 @@ struct FillArgs {
   int* left;    // left[k]: a hole is left after round k
   float* out;
   uint8_t* all_valid;
+  const float* intrinsics;  // with normals: K11's phase
+  float* normals;           // (B, H, W, 3), or null: no normals phase
   int B, H, W, r, max_iters;
 };
 
-// Every round of the fill and its output, in one cooperative launch
+// Every round of the fill and its output, in one cooperative launch; with
+// a.normals, the output is written by K11's tiles (a tile a block,
+// grid-stride), which read the last round's buffer (a frame without holes:
+// its depth) and take its normals from there, with no barrier of their own.
+// At most 48 registers at the port's radius, so that 5 blocks of 256 share an
+// SM (more registers halve the blocks resident and slow every round).
 template <int S>
-__global__ void __launch_bounds__(kThreads) depth_fill_kernel(const FillArgs a) {
+__global__ void __launch_bounds__(kThreads, S == kSlots ? 5 : 1)
+    depth_fill_kernel(const FillArgs a) {
   __shared__ Compact cs;
   __shared__ int s_left;
+  __shared__ NormalTile tile;
   cg::grid_group grid = cg::this_grid();
   if (blockIdx.x == 0)
     for (int i = threadIdx.x; i < a.B; i += kThreads) a.all_valid[i] = 1;
@@ -447,6 +575,16 @@ __global__ void __launch_bounds__(kThreads) depth_fill_kernel(const FillArgs a) 
     if (k == a.max_iters || __ldcg(a.left + k) == 0) break;
   }
   const float* res = (k & 1) ? a.buf1 : a.buf0;
+  if (a.normals != nullptr) {
+    const int tiles_x = (a.W + kBx - 1) / kBx, tiles_y = (a.H + kBy - 1) / kBy;
+    for (int i = blockIdx.x; i < a.B * tiles_x * tiles_y; i += gridDim.x) {
+      const int b = i / (tiles_x * tiles_y), yx = i - b * tiles_x * tiles_y;
+      normals_tile(__ldg(a.had + b) != 0 ? res : a.depth, a.intrinsics, a.normals, b,
+                   (yx % tiles_x) * kBx, (yx / tiles_x) * kBy, a.H, a.W, tile, threadIdx.x,
+                   a.out, a.all_valid);
+    }
+    return;
+  }
   const int HW = a.H * a.W;
   const long long n = (long long)a.B * HW;
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
@@ -484,55 +622,15 @@ __global__ void __launch_bounds__(kThreads) depth_median_round_kernel(
   median_round<S>(src, dst, nullptr, list, count, nullptr, nullptr, nullptr, H, W, r, cs, s_left);
 }
 
-// ------------------------------------------------------------------- K11
+// ------------------------------------------------------------------- K11 alone
 
-struct Point {
-  float x, y, z;
-};
-
-// The camera-space point of pixel (x, y) of a frame: (0, 0, 0) where its depth is 0
-__device__ __forceinline__ Point unproject(const float* __restrict__ frame, int W, int x, int y,
-                                           float fx, float fy, float mx, float my) {
-  const float d = __ldg(frame + (long long)y * W + x);
-  if (d == 0.f) return {0.f, 0.f, 0.f};
-  return {__fdiv_rn(d * ((float)x - mx), fx), __fdiv_rn(d * ((float)y - my), fy), d};
-}
-
+// K11 on its own: a block a 32x8 tile (grid tiles_x, tiles_y, B)
 __global__ void __launch_bounds__(kThreads) depth_normals_kernel(
     const float* __restrict__ depth, const float* __restrict__ intrinsics,
     float* __restrict__ normals, int H, int W) {
-  const int b = blockIdx.z;
-  const int x = blockIdx.x * kTile + threadIdx.x, y = blockIdx.y * kTile + threadIdx.y;
-  if (x >= W || y >= H) return;
-  float* o = normals + (((long long)b * H + y) * W + x) * 3;
-  float n0 = 0.f, n1 = 0.f, n2 = 0.f;
-  if (x > 0 && x < W - 1 && y > 0 && y < H - 1) {
-    const float fx = __ldg(intrinsics + 4 * b), fy = __ldg(intrinsics + 4 * b + 1),
-                mx = __ldg(intrinsics + 4 * b + 2), my = __ldg(intrinsics + 4 * b + 3);
-    const float* frame = depth + (long long)b * H * W;
-    const Point cc = unproject(frame, W, x, y, fx, fy, mx, my);
-    const Point pc = unproject(frame, W, x, y + 1, fx, fy, mx, my);
-    const Point mc = unproject(frame, W, x, y - 1, fx, fy, mx, my);
-    const Point cp = unproject(frame, W, x + 1, y, fx, fy, mx, my);
-    const Point cm = unproject(frame, W, x - 1, y, fx, fy, mx, my);
-    const float a0 = pc.x - mc.x, a1 = pc.y - mc.y, a2 = pc.z - mc.z;
-    const float b0 = cp.x - cm.x, b1 = cp.y - cm.y, b2 = cp.z - cm.z;
-    const float c0 = __fmaf_rn(a1, b2, -(a2 * b1));
-    const float c1 = __fmaf_rn(a2, b0, -(a0 * b2));
-    const float c2 = __fmaf_rn(a0, b1, -(a1 * b0));
-    const float l2 = __fmaf_rn(c2, c2, __fmaf_rn(c1, c1, c0 * c0));
-    const bool some_valid =
-        cc.x != 0.f || pc.x != 0.f || cp.x != 0.f || mc.x != 0.f || cm.x != 0.f;
-    if (l2 > 0.f && some_valid) {
-      const float nl = -__fsqrt_rn(l2 < 1e-24f ? 1e-24f : l2);
-      n0 = __fdiv_rn(c0, nl);
-      n1 = __fdiv_rn(c1, nl);
-      n2 = __fdiv_rn(c2, nl);
-    }
-  }
-  o[0] = n0;
-  o[1] = n1;
-  o[2] = n2;
+  __shared__ NormalTile t;
+  normals_tile(depth, intrinsics, normals, blockIdx.z, blockIdx.x * kBx, blockIdx.y * kBy, H, W,
+               t, threadIdx.x, nullptr, nullptr);
 }
 
 // ------------------------------------------------------------------- host
@@ -578,10 +676,6 @@ cudaError_t launch_bilateral(const float* depth, const float* w_spatial, float* 
   return cudaGetLastError();
 }
 
-dim3 grid_for(int B, int H, int W) {
-  return dim3((unsigned)((W + kTile - 1) / kTile), (unsigned)((H + kTile - 1) / kTile),
-              (unsigned)B);
-}
 
 }  // namespace
 
@@ -628,12 +722,13 @@ int spsg_depth_median_round(const float* src, float* dst, int* list, int* count,
 
 // The fill: K9 into buf0 and buf1 (flagging the frames with holes, listing
 // round 0's holes), then depth_fill_kernel (every round, `out`, `all_valid`:
-// B bytes). `lists`: 2 B H W ints; `flags`: B + 2 max_iters + 3 ints (had,
-// the lists' counts, the rounds' flags), zeroed here.
-int spsg_depth_fill(const float* depth, const float* w_spatial, float* buf0, float* buf1,
-                    int* lists, int* flags, float* out, uint8_t* all_valid, int B, int H, int W,
-                    int r_bilateral, float range_scale, int r_median, int max_iters,
-                    cudaStream_t stream) {
+// B bytes; where `normals` is not null, K11 over `out` into it, (B, H, W, 3),
+// with `intrinsics` (B, 4)). `lists`: 2 B H W ints; `flags`: B + 2 max_iters
+// + 3 ints (had, the lists' counts, the rounds' flags), zeroed here.
+int spsg_depth_fill(const float* depth, const float* w_spatial, const float* intrinsics,
+                    float* buf0, float* buf1, int* lists, int* flags, float* out,
+                    uint8_t* all_valid, float* normals, int B, int H, int W, int r_bilateral,
+                    float range_scale, int r_median, int max_iters, cudaStream_t stream) {
   if (bad_shape(B, H, W, r_bilateral) || bad_shape(B, H, W, r_median) || max_iters < 0)
     return (int)cudaErrorInvalidValue;
   const long long n = (long long)B * H * W;
@@ -648,6 +743,8 @@ int spsg_depth_fill(const float* depth, const float* w_spatial, float* buf0, flo
   a.left = flags + B + max_iters + 2;
   a.out = out;
   a.all_valid = all_valid;
+  a.intrinsics = intrinsics;
+  a.normals = normals;
   a.B = B;
   a.H = H;
   a.W = W;
@@ -671,8 +768,8 @@ int spsg_depth_fill(const float* depth, const float* w_spatial, float* buf0, flo
 int spsg_depth_normals(const float* depth, const float* intrinsics, float* normals, int B, int H,
                        int W, cudaStream_t stream) {
   if (bad_shape(B, H, W, 0)) return (int)cudaErrorInvalidValue;
-  depth_normals_kernel<<<grid_for(B, H, W), dim3(kTile, kTile), 0, stream>>>(depth, intrinsics,
-                                                                            normals, H, W);
+  const dim3 grid((unsigned)((W + kBx - 1) / kBx), (unsigned)((H + kBy - 1) / kBy), (unsigned)B);
+  depth_normals_kernel<<<grid, kThreads, 0, stream>>>(depth, intrinsics, normals, H, W);
   return (int)cudaGetLastError();
 }
 

@@ -151,18 +151,31 @@
 // (undilated) coarse block holds an occupied voxel (counted in chip_smoke.py
 // from the plain version); an earlier bound counted every sample to the exit.
 //
-// K12, two launches: the ray set-up of the march and of K7 (ops/raycast.py
-// march_setup), the last stage before them that ran as a chain of ~40 small
-// tensor ops. raycast_bounds_kernel, a thread a row of X voxels: the least and
-// largest x, y, z of a valid voxel per batch row (atomicMin / atomicMax on
-// ints, exact). raycast_setup_kernel, one thread per ray: every site in the
-// form of ROADMAP.md Queue C's "agreed arithmetic" table: the camera ray by a real
+// K12, two launches and no other stream operation: the ray set-up of the
+// march and of K7 (ops/raycast.py march_setup), the last stage before them
+// that ran as a chain of ~40 small tensor ops. Every site in the form of
+// ROADMAP.md Queue C's "agreed arithmetic" table: the camera ray by a real
 // division, its norm the fma chain from x * x with a correctly rounded root,
 // the rotation fma(r2, c2, fma(r1, c1, r0 c0)), the box's slab test, skip and
 // t0 = fma(skip, step, t_start); the outputs are march_setup_plain's to the
-// bit. Bound: bytes (the valid grid read once, 24 bytes a ray written).
-// As tensor ops (float64 emulation of each fused multiply-add) the set-up
-// took 2.7 ms a call on the card (PERF.md).
+// bit. raycast_box_kernel, 64 blocks a batch row, reduces the valid voxels, 16
+// bytes a thread, to a partial box each (least and largest x, y, z; integers,
+// exact), written plainly into scratch. raycast_rays_kernel, a thread a ray,
+// is a programmatic dependent launch: it starts while the first kernel runs,
+// computes the part of its ray that does not depend on the box (direction,
+// cam_z, the direction's reciprocals, t_start, t_end), waits for the first
+// kernel (griddepcontrol.wait), reduces the 64 partials of its batch row(s)
+// from L2 and finishes the ray (slab test, skip, t0, t_stop). Bound: bytes
+// (the valid grid read once, 24 bytes a ray written, 0.00149 ms at the step's
+// shape); issuing the ~13 IEEE divisions and 2 roots of a ray, not in that
+// count, takes an estimated ~1.7 us at the step's shape. The first version (a memset of
+// each bound, an atomicMin / atomicMax pre-pass, a kernel a ray: four stream
+// operations in a row, 0.0132 ms) paid four fills and drains; a single
+// cooperative launch (box, then rays, a grid barrier, then the finish) was
+// slower than these two (0.0116 against 0.0079 ms, PERF.md), because its
+// blocks did the box and their rays one after the other. As tensor ops
+// (float64 emulation of each fused multiply-add) the set-up took 2.7 ms a
+// call on the card (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -781,60 +794,6 @@ __global__ void raycast_occ_kernel(
   if (evaluated_out) evaluated_out[ray] = evaluated;
 }
 
-// K12's pre-pass: per batch row, the least and the largest x, y, z of a valid
-// voxel (lo, hi: B x 3 ints each, set to INT_MAX-ish and -1 before), a thread a
-// row (b, z, y) of X bytes (16 a load where `vec`), a warp's minima and maxima
-// added by one lane with atomicMin / atomicMax. Exact: integers.
-__global__ void __launch_bounds__(kThreads) raycast_bounds_kernel(
-    const uint8_t* __restrict__ valid, int* __restrict__ lo, int* __restrict__ hi, int Z, int Y,
-    int X, bool vec) {
-  const int b = blockIdx.y;
-  const long long row = (long long)blockIdx.x * kThreads + threadIdx.x;
-  int xlo = INT_MAX, xhi = -1, ylo = INT_MAX, yhi = -1, zlo = INT_MAX, zhi = -1;
-  if (row < (long long)Z * Y) {
-    const uint8_t* r = valid + ((long long)b * Z * Y + row) * X;
-    if (vec) {
-      for (int x = 0; x < X; x += 16) {
-        const uint4 w = __ldg(reinterpret_cast<const uint4*>(r + x));
-        if ((w.x | w.y | w.z | w.w) == 0) continue;
-        const uint8_t* bytes = reinterpret_cast<const uint8_t*>(&w);
-        for (int i = 0; i < 16; ++i) {
-          if (bytes[i]) {
-            xlo = min(xlo, x + i);
-            xhi = x + i;
-          }
-        }
-      }
-    } else {
-      for (int x = 0; x < X; ++x) {
-        if (__ldg(r + x)) {
-          xlo = min(xlo, x);
-          xhi = x;
-        }
-      }
-    }
-    if (xhi >= 0) {
-      zlo = zhi = (int)(row / Y);
-      ylo = yhi = (int)(row % Y);
-    }
-  }
-  const unsigned all = 0xffffffffu;
-  xlo = __reduce_min_sync(all, xlo);
-  ylo = __reduce_min_sync(all, ylo);
-  zlo = __reduce_min_sync(all, zlo);
-  xhi = __reduce_max_sync(all, xhi);
-  yhi = __reduce_max_sync(all, yhi);
-  zhi = __reduce_max_sync(all, zhi);
-  if (threadIdx.x % 32 == 0 && xhi >= 0) {
-    atomicMin(lo + 3 * b, xlo);
-    atomicMin(lo + 3 * b + 1, ylo);
-    atomicMin(lo + 3 * b + 2, zlo);
-    atomicMax(hi + 3 * b, xhi);
-    atomicMax(hi + 3 * b + 1, yhi);
-    atomicMax(hi + 3 * b + 2, zhi);
-  }
-}
-
 // torch.minimum / torch.maximum: NaN if either is NaN
 __device__ __forceinline__ float min_nan(float a, float b) {
   return (isnan(a) || isnan(b)) ? NAN : fminf(a, b);
@@ -843,29 +802,117 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return (isnan(a) || isnan(b)) ? NAN : fmaxf(a, b);
 }
 
-// K12, one thread per ray (b, p): the set-up of ops/raycast.py::march_setup_plain
-// in its arithmetic (ROADMAP.md Queue C, "agreed arithmetic"): camera ray ((x -
-// mx) / fx, (y - my) / fy, 1) over its norm sqrt(fma(1, 1, fma(cy, cy, cx cx)))
-// (cam_z = 1 / norm), rotated by fma(r2, c2, fma(r1, c1, r0 c0)) a row and
-// normalised again; t_start, t_end = depth_min, depth_max over cam_z; the box
-// of the valid voxels widened by 1.5 against the slab test (1 / d where |d| >
-// 1e-9, else 1e12); skip = max(floor((t_enter - t_start) * inv_step), 0), t0 =
-// fma(skip, step, t_start), t_stop = min(t_end, t_exit + step). Thread p = 0
-// of a row writes its origin.
-__global__ void __launch_bounds__(kThreads) raycast_setup_kernel(
-    const float* __restrict__ view, const float* __restrict__ intr, const int* __restrict__ lo,
-    const int* __restrict__ hi, float* __restrict__ origin, float* __restrict__ dir,
-    float* __restrict__ cam_z, float* __restrict__ t0, float* __restrict__ t_stop, int B, int Z,
-    int Y, int X, int P, int W, float depth_min, float depth_max, float step, float inv_step) {
-  const long long ray = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (ray >= (long long)B * P) return;
-  const int b = (int)(ray / P), p = (int)(ray % P);
-  const float* m = view + 16 * b;
+// ------------------------------------------------------------------- K12
+
+constexpr int kSetupThreads = 256;
+constexpr int kSetupWarps = kSetupThreads / 32;
+constexpr int kBoxBlocks = 64;  // blocks a batch row of the box pass (ops/raycast.py SETUP_BOX_BLOCKS)
+constexpr unsigned kFull = 0xffffffffu;
+
+struct SetupArgs {
+  const uint8_t* valid;  // (B, Z, Y, X)
+  const float* view;     // (B, 4, 4)
+  const float* intr;     // (B, 4)
+  int* part;             // [b][field][block]: the box blocks' least x, y, z and largest x, y, z
+  float *origin, *dir, *cam_z, *t0, *t_stop;
+  int B, Z, Y, X, P, W;
+  bool vec;  // X % 16 == 0 and valid 16-byte aligned
+  float depth_min, depth_max, step, inv_step;
+};
+
+// What a ray needs of its set-up once the box is known: the reciprocals of
+// its direction (1e12 where |d| <= 1e-9) and [t_start, t_end]
+struct RayPart {
+  float inv[3];
+  float t_start, t_end;
+};
+
+// A box with no voxel: least INT_MAX, largest -1
+__device__ __forceinline__ void box_empty(int v[6]) {
+  v[0] = v[1] = v[2] = INT_MAX;
+  v[3] = v[4] = v[5] = -1;
+}
+
+__device__ __forceinline__ void box_add(int v[6], int x0, int x1, int y, int z) {
+  v[0] = min(v[0], x0);
+  v[1] = min(v[1], y);
+  v[2] = min(v[2], z);
+  v[3] = max(v[3], x1);
+  v[4] = max(v[4], y);
+  v[5] = max(v[5], z);
+}
+
+// bit 7 of each byte of u set where that byte is not 0
+__device__ __forceinline__ unsigned nonzero_bytes(unsigned u) {
+  return (((u & 0x7f7f7f7fu) + 0x7f7f7f7fu) | u) & 0x80808080u;
+}
+
+// The box of the block (every thread gets it): warp minima and maxima, then
+// the warps'. Every thread of the block calls it.
+__device__ __forceinline__ void block_box(int v[6], int (*s_red)[6], int tid) {
+#pragma unroll
+  for (int f = 0; f < 6; ++f) {
+    v[f] = f < 3 ? __reduce_min_sync(kFull, v[f]) : __reduce_max_sync(kFull, v[f]);
+    if (tid % 32 == 0) s_red[tid / 32][f] = v[f];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int f = 0; f < 6; ++f)
+    for (int w = 0; w < kSetupWarps; ++w)
+      v[f] = f < 3 ? min(v[f], s_red[w][f]) : max(v[f], s_red[w][f]);
+  __syncthreads();
+}
+
+// The share of block r (of kBoxBlocks) of batch row b's valid voxels: 16
+// bytes a thread where a.vec (the first and last nonzero byte of a run from
+// its four words' nonzero-byte masks), else a row of X bytes a thread. Exact:
+// integers.
+__device__ __forceinline__ void reduce_rows(const SetupArgs& a, int b, int r, int tid, int v[6]) {
+  const uint8_t* g = a.valid + (long long)b * a.Z * a.Y * a.X;
+  const int stride = kBoxBlocks * kSetupThreads;
+  if (a.vec) {
+    const int runs = a.X / 16, n = a.Z * a.Y * runs;
+#pragma unroll 4
+    for (int i = r * kSetupThreads + tid; i < n; i += stride) {
+      const uint4 w = __ldg(reinterpret_cast<const uint4*>(g) + i);
+      const unsigned long long lo = nonzero_bytes(w.x) | (unsigned long long)nonzero_bytes(w.y) << 32;
+      const unsigned long long hi = nonzero_bytes(w.z) | (unsigned long long)nonzero_bytes(w.w) << 32;
+      if ((lo | hi) == 0ull) continue;
+      const int row = i / runs, x = (i - row * runs) * 16;
+      const int first = lo ? (__ffsll((long long)lo) - 1) >> 3 : 8 + ((__ffsll((long long)hi) - 1) >> 3);
+      const int last = hi ? 8 + ((63 - __clzll((long long)hi)) >> 3) : (63 - __clzll((long long)lo)) >> 3;
+      box_add(v, x + first, x + last, row % a.Y, row / a.Y);
+    }
+  } else {
+    for (int row = r * kSetupThreads + tid; row < a.Z * a.Y; row += stride) {
+      const uint8_t* q = g + (long long)row * a.X;
+      int x0 = INT_MAX, x1 = -1;
+      for (int x = 0; x < a.X; ++x) {
+        if (__ldg(q + x)) {
+          x0 = min(x0, x);
+          x1 = x;
+        }
+      }
+      if (x1 >= 0) box_add(v, x0, x1, row % a.Y, row / a.Y);
+    }
+  }
+}
+
+// The part of ray (b, p) that does not depend on the box, in the arithmetic of
+// ops/raycast.py::march_setup_plain (ROADMAP.md Queue C, "agreed arithmetic"):
+// camera ray ((x - mx) / fx, (y - my) / fy, 1) over its norm sqrt(fma(1, 1,
+// fma(cy, cy, cx cx))) (cam_z = 1 / norm), rotated by fma(r2, c2, fma(r1, c1,
+// r0 c0)) a row and normalised again, the reciprocals of the direction (1 / d
+// where |d| > 1e-9, else 1e12), t_start, t_end = depth_min, depth_max over
+// cam_z. Writes dir and cam_z; p = 0 writes the row's origin.
+__device__ __forceinline__ RayPart ray_part(const SetupArgs& a, int ray) {
+  const int b = ray / a.P, p = ray - b * a.P;
+  const float* m = a.view + 16 * b;
   if (p == 0)
-    for (int i = 0; i < 3; ++i) origin[3 * b + i] = __ldg(m + 4 * i + 3);
-  const float fx = __ldg(intr + 4 * b), fy = __ldg(intr + 4 * b + 1),
-              mx = __ldg(intr + 4 * b + 2), my = __ldg(intr + 4 * b + 3);
-  const float cx = __fdiv_rn((float)(p % W) - mx, fx), cy = __fdiv_rn((float)(p / W) - my, fy);
+    for (int i = 0; i < 3; ++i) a.origin[3 * b + i] = __ldg(m + 4 * i + 3);
+  const float fx = __ldg(a.intr + 4 * b), fy = __ldg(a.intr + 4 * b + 1),
+              mx = __ldg(a.intr + 4 * b + 2), my = __ldg(a.intr + 4 * b + 3);
+  const float cx = __fdiv_rn((float)(p % a.W) - mx, fx), cy = __fdiv_rn((float)(p / a.W) - my, fy);
   const float cn = __fsqrt_rn(__fmaf_rn(1.f, 1.f, __fmaf_rn(cy, cy, cx * cx)));
   const float c0 = __fdiv_rn(cx, cn), c1 = __fdiv_rn(cy, cn), c2 = __fdiv_rn(1.f, cn);
   float w[3];
@@ -873,25 +920,90 @@ __global__ void __launch_bounds__(kThreads) raycast_setup_kernel(
     w[i] = __fmaf_rn(__ldg(m + 4 * i + 2), c2,
                      __fmaf_rn(__ldg(m + 4 * i + 1), c1, __ldg(m + 4 * i) * c0));
   const float wn = __fsqrt_rn(__fmaf_rn(w[2], w[2], __fmaf_rn(w[1], w[1], w[0] * w[0])));
-  const int dims[3] = {X, Y, Z};
-  float enter = 0.f, leave = 0.f;
-  for (int a = 0; a < 3; ++a) {
-    const float d = __fdiv_rn(w[a], wn);
-    dir[3 * ray + a] = d;
-    const float o = __ldg(m + 4 * a + 3);
-    const float inv = fabsf(d) > 1e-9f ? __fdiv_rn(1.f, d) : 1e12f;
-    const float box_lo = (float)min(__ldg(lo + 3 * b + a), dims[a]) - 1.5f;
-    const float box_hi = (float)__ldg(hi + 3 * b + a) + 1.5f;
-    const float ta = (box_lo - o) * inv, tb = (box_hi - o) * inv;
-    enter = a == 0 ? min_nan(ta, tb) : max_nan(enter, min_nan(ta, tb));
-    leave = a == 0 ? max_nan(ta, tb) : min_nan(leave, max_nan(ta, tb));
+  RayPart r;
+  for (int i = 0; i < 3; ++i) {
+    const float d = __fdiv_rn(w[i], wn);
+    a.dir[3 * (long long)ray + i] = d;
+    r.inv[i] = fabsf(d) > 1e-9f ? __fdiv_rn(1.f, d) : 1e12f;
   }
-  cam_z[ray] = c2;
-  const float t_start = __fdiv_rn(depth_min, c2), t_end = __fdiv_rn(depth_max, c2);
-  float skip = floorf((enter - t_start) * inv_step);
+  a.cam_z[ray] = c2;
+  r.t_start = __fdiv_rn(a.depth_min, c2);
+  r.t_end = __fdiv_rn(a.depth_max, c2);
+  return r;
+}
+
+// The rest of ray (b, p) against the box [lo, hi] (widened by 1.5): the slab
+// test with NaN-propagating min / max, skip = max(floor((t_enter - t_start) *
+// inv_step), 0), t0 = fma(skip, step, t_start), t_stop = min(t_end, t_exit +
+// step)
+__device__ __forceinline__ void ray_finish(const SetupArgs& a, int ray, int b, const RayPart& r,
+                                           const float* lo, const float* hi) {
+  const float* m = a.view + 16 * b;
+  float enter = 0.f, leave = 0.f;
+  for (int i = 0; i < 3; ++i) {
+    const float o = __ldg(m + 4 * i + 3);
+    const float ta = (lo[i] - o) * r.inv[i], tb = (hi[i] - o) * r.inv[i];
+    enter = i == 0 ? min_nan(ta, tb) : max_nan(enter, min_nan(ta, tb));
+    leave = i == 0 ? max_nan(ta, tb) : min_nan(leave, max_nan(ta, tb));
+  }
+  float skip = floorf((enter - r.t_start) * a.inv_step);
   skip = skip < 0.f ? 0.f : skip;
-  t0[ray] = __fmaf_rn(skip, step, t_start);
-  t_stop[ray] = min_nan(t_end, leave + step);
+  a.t0[ray] = __fmaf_rn(skip, a.step, r.t_start);
+  a.t_stop[ray] = min_nan(r.t_end, leave + a.step);
+}
+
+// K12's first kernel, kBoxBlocks blocks a batch row: block r of row b
+// reduces its share of the row's valid voxels to a partial box (least x, y, z,
+// largest x, y, z; INT_MAX / -1 where it saw none), written plainly into its
+// slot of `part`. It lets the second kernel launch at once
+// (griddepcontrol.launch_dependents, programmatic dependent launch).
+__global__ void __launch_bounds__(kSetupThreads) raycast_box_kernel(const SetupArgs a) {
+  __shared__ int s_red[kSetupWarps][6];
+  asm volatile("griddepcontrol.launch_dependents;");
+  const int tid = threadIdx.x, b = blockIdx.x / kBoxBlocks, r = blockIdx.x % kBoxBlocks;
+  int v[6];
+  box_empty(v);
+  reduce_rows(a, b, r, tid, v);
+  block_box(v, s_red, tid);
+  if (tid == 0)
+    for (int f = 0; f < 6; ++f) a.part[(b * 6 + f) * kBoxBlocks + r] = v[f];
+}
+
+// K12's second kernel, a thread a ray (b, p), launched while the first runs:
+// ray_part, then griddepcontrol.wait (the first kernel done and its partials
+// visible), then, for each batch row the block's rays touch, the row's box
+// from its kBoxBlocks partials (read through L2), widened as the plain
+// version widens it (min(lo, dim) - 1.5, hi + 1.5: an empty row gives dim -
+// 1.5 and -2.5), and ray_finish. At most 40 registers: 6 blocks an SM hold
+// the step's 163,840 rays in one wave beside the first kernel's blocks.
+__global__ void __launch_bounds__(kSetupThreads, 6) raycast_rays_kernel(const SetupArgs a) {
+  __shared__ int s_red[kSetupWarps][6];
+  const int tid = threadIdx.x;
+  const int n = a.B * a.P;
+  const int first = blockIdx.x * kSetupThreads, last = min(n, first + kSetupThreads);
+  const int ray = first + tid;
+  const RayPart part = ray < n ? ray_part(a, ray) : RayPart{};
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int dims[3] = {a.X, a.Y, a.Z};
+  for (int b = first / a.P; b <= (last - 1) / a.P; ++b) {
+    int v[6];
+    box_empty(v);
+    if (tid < kBoxBlocks) {
+      const int* q = a.part + b * 6 * kBoxBlocks + tid;
+#pragma unroll
+      for (int f = 0; f < 6; ++f) {
+        const int u = __ldcg(q + f * kBoxBlocks);
+        v[f] = f < 3 ? min(v[f], u) : max(v[f], u);
+      }
+    }
+    block_box(v, s_red, tid);
+    float lo[3], hi[3];
+    for (int i = 0; i < 3; ++i) {
+      lo[i] = (float)min(v[i], dims[i]) - 1.5f;
+      hi[i] = (float)v[3 + i] + 1.5f;
+    }
+    if (ray < last && ray / a.P == b) ray_finish(a, ray, b, part, lo, hi);
+  }
 }
 
 unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
@@ -990,31 +1102,38 @@ int spsg_raycast_occ_hop(const uint8_t* occ, const float* origin, const float* d
 }
 
 // K12. `valid` (B, Z, Y, X) bytes, 0 = not valid; `view` (B, 4, 4) camera ->
-// grid and `intr` (B, 4) = fx, fy, mx, my, float32; `bounds` 6 B ints of
-// scratch (the pre-pass's least and largest x, y, z, set here); writes origin
-// (B, 3), dir (B, P, 3), cam_z, t0 and t_stop (B, P). inv_step: the float32
-// reciprocal of the float32 step (the JAX package's division by it as XLA
-// compiles it).
-int spsg_raycast_setup(const uint8_t* valid, const float* view, const float* intr, int* bounds,
-                       float* origin, float* dir, float* cam_z, float* t0, float* t_stop, int B,
-                       int Z, int Y, int X, int P, int W, float depth_min, float depth_max,
-                       float step, float inv_step, cudaStream_t stream) {
-  if (B <= 0 || B > 65535 || P <= 0 || W <= 0 || P % W != 0 || Z < 1 || Y < 1 || X < 1 ||
-      (long long)Z * Y * X >= (1LL << 31) || (long long)B * P >= (1LL << 31))
+// grid and `intr` (B, 4) = fx, fy, mx, my, float32; `partials` (at least 6 B
+// kBoxBlocks ints) scratch, written here; writes origin (B, 3), dir (B, P, 3),
+// cam_z, t0 and t_stop (B, P). inv_step: the float32 reciprocal of the
+// float32 step (the JAX package's division by it as XLA compiles it). Two
+// launches, the second a programmatic dependent launch; no memset, no
+// atomics, nothing read back.
+int spsg_raycast_setup_pdl(const uint8_t* valid, const float* view, const float* intr,
+                           int* partials, int partial_ints, float* origin, float* dir,
+                           float* cam_z, float* t0, float* t_stop, int B, int Z, int Y, int X,
+                           int P, int W, float depth_min, float depth_max, float step,
+                           float inv_step, cudaStream_t stream) {
+  if (B <= 0 || P <= 0 || W <= 0 || P % W != 0 || Z < 1 || Y < 1 || X < 1 ||
+      (long long)Z * Y * X >= (1LL << 31) || (long long)B * P >= (1LL << 30) ||
+      (long long)B * kBoxBlocks >= (1LL << 31) || (long long)partial_ints < 6LL * B * kBoxBlocks)
     return (int)cudaErrorInvalidValue;
-  int* lo = bounds;
-  int* hi = bounds + 3 * B;
-  cudaError_t err = cudaMemsetAsync(lo, 0x7f, sizeof(int) * 3 * B, stream);
-  if (err == cudaSuccess) err = cudaMemsetAsync(hi, 0xff, sizeof(int) * 3 * B, stream);
+  const SetupArgs a{valid, view, intr, partials, origin, dir, cam_z, t0, t_stop, B, Z, Y, X, P, W,
+                    X % 16 == 0 && reinterpret_cast<uintptr_t>(valid) % 16 == 0, depth_min,
+                    depth_max, step, inv_step};
+  raycast_box_kernel<<<(unsigned)(B * kBoxBlocks), kSetupThreads, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const bool vec = X % 16 == 0 && reinterpret_cast<uintptr_t>(valid) % 16 == 0;
-  raycast_bounds_kernel<<<dim3(blocks_for((long long)Z * Y), (unsigned)B), kThreads, 0,
-                          stream>>>(valid, lo, hi, Z, Y, X, vec);
-  err = cudaGetLastError();
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(((long long)B * P + kSetupThreads - 1) / kSetupThreads));
+  cfg.blockDim = dim3(kSetupThreads);
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, raycast_rays_kernel, a);
   if (err != cudaSuccess) return (int)err;
-  raycast_setup_kernel<<<blocks_for((long long)B * P), kThreads, 0, stream>>>(
-      view, intr, lo, hi, origin, dir, cam_z, t0, t_stop, B, Z, Y, X, P, W, depth_min, depth_max,
-      step, inv_step);
   return (int)cudaGetLastError();
 }
 

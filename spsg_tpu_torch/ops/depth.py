@@ -23,7 +23,8 @@ reads nothing back: K9 lists the filtered frames' holes on the card, and one
 cooperative launch of K10 runs every round over the shrinking hole list, a
 warp a hole, until a round leaves no hole or ``max_iters`` rounds after the
 first, so the rounds that run are the plain loop's. :data:`host_syncs` counts
-the plain loop's reads, the only ones that remain.
+the plain loop's reads, the only ones that remain. In :func:`depth_to_normals`
+K11 runs as that launch's last phase: the chain is two launches.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from .xla_arith import block_sum, div_const, exp32, fma32, recip_const, sqrt32
 host_syncs = {"fill_depth_holes": 0}
 # launches of each kernel by its wrapper (and by nothing else): K9, K10 (a
 # single round, or the one cooperative launch that runs every round of a fill),
-# K11
+# K11 (on its own, or as the last phase of the fill's launch in depth_to_normals)
 launch_counts = {"depth_bilateral": 0, "depth_median_round": 0, "depth_normals": 0}
 _libs = {}
 _spatial = {}
@@ -205,20 +206,24 @@ def unproject_normals_plain(depth: torch.Tensor, intrinsics: torch.Tensor) -> to
 # ---------------------------------------------------------------------------
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Argument types of a library built from ``csrc/depth.cu``."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.spsg_depth_bilateral.restype = i
+    lib.spsg_depth_bilateral.argtypes = [p] * 3 + [i] * 4 + [f, p]
+    lib.spsg_depth_median_round.restype = i
+    lib.spsg_depth_median_round.argtypes = [p] * 4 + [i] * 4 + [p]
+    lib.spsg_depth_fill.restype = i
+    lib.spsg_depth_fill.argtypes = [p] * 10 + [i] * 4 + [f, i, i, p]
+    lib.spsg_depth_normals.restype = i
+    lib.spsg_depth_normals.argtypes = [p] * 3 + [i] * 3 + [p]
+    return lib
+
+
 def _library():
     lib = _libs.get("depth")
     if lib is None:
-        lib = _build.load("depth")
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.spsg_depth_bilateral.restype = i
-        lib.spsg_depth_bilateral.argtypes = [p] * 3 + [i] * 4 + [f, p]
-        lib.spsg_depth_median_round.restype = i
-        lib.spsg_depth_median_round.argtypes = [p] * 4 + [i] * 4 + [p]
-        lib.spsg_depth_fill.restype = i
-        lib.spsg_depth_fill.argtypes = [p] * 8 + [i] * 4 + [f, i, i, p]
-        lib.spsg_depth_normals.restype = i
-        lib.spsg_depth_normals.argtypes = [p] * 3 + [i] * 3 + [p]
-        _libs["depth"] = lib
+        lib = _libs["depth"] = _bind(_build.load("depth"))
     return lib
 
 
@@ -275,6 +280,40 @@ def median_fill(depth: torch.Tensor, structure_radius: int = 5) -> torch.Tensor:
     return out
 
 
+def _fill(depth: torch.Tensor, max_iters: int, intrinsics=None):
+    """The fill on a CUDA tensor (K9, then one cooperative launch of K10 that
+    runs every round); with ``intrinsics``, K11 as that launch's last phase.
+    Returns (filled, all_valid, normals or None)."""
+    depth = _frames(depth, "fill_depth_holes")
+    if max_iters < 0:
+        raise ValueError(f"fill_depth_holes: max_iters must be >= 0, got {max_iters}")
+    w_spatial, radius, scale = _bilateral_args(2.0, 0.1)
+    B, H, W = depth.shape
+    normals = None
+    if intrinsics is not None:
+        intrinsics = _intrinsics(intrinsics, B)
+        _check_cuda("depth_to_normals", depth, intrinsics)
+        normals = torch.empty((B, H, W, 3), dtype=torch.float32, device=depth.device)
+    buf0, buf1, out = (torch.empty_like(depth) for _ in range(3))
+    # the two hole lists; had, the lists' counts and the rounds' flags
+    lists = torch.empty(2 * B * H * W, dtype=torch.int32, device=depth.device)
+    flags = torch.empty(B + 2 * max_iters + 3, dtype=torch.int32, device=depth.device)
+    all_valid = torch.empty(B, dtype=torch.bool, device=depth.device)
+    with torch.cuda.device(depth.device):
+        err = _library().spsg_depth_fill(
+            depth.data_ptr(), w_spatial.data_ptr(),
+            None if intrinsics is None else intrinsics.data_ptr(), buf0.data_ptr(),
+            buf1.data_ptr(), lists.data_ptr(), flags.data_ptr(), out.data_ptr(),
+            all_valid.data_ptr(), None if normals is None else normals.data_ptr(), B, H, W,
+            radius, scale, 5, max_iters, _stream(depth))
+    _raise_on(err, "fill_depth_holes", depth.shape)
+    launch_counts["depth_bilateral"] += 1
+    launch_counts["depth_median_round"] += 1
+    if normals is not None:  # K11 ran, inside the fill's launch
+        launch_counts["depth_normals"] += 1
+    return out, all_valid, normals
+
+
 def fill_depth_holes(depth: torch.Tensor, max_iters: int = 40):
     """:func:`fill_depth_holes_plain` (the same outputs, to the bit). On a
     CUDA tensor: K9 on every frame (listing its holes), then one cooperative
@@ -283,39 +322,28 @@ def fill_depth_holes(depth: torch.Tensor, max_iters: int = 40):
     in."""
     if _device_kind(depth, "fill_depth_holes") == "cpu":
         return fill_depth_holes_plain(depth, max_iters)
-    depth = _frames(depth, "fill_depth_holes")
-    if max_iters < 0:
-        raise ValueError(f"fill_depth_holes: max_iters must be >= 0, got {max_iters}")
-    w_spatial, radius, scale = _bilateral_args(2.0, 0.1)
-    B, H, W = depth.shape
-    buf0, buf1, out = (torch.empty_like(depth) for _ in range(3))
-    # the two hole lists; had, the lists' counts and the rounds' flags
-    lists = torch.empty(2 * B * H * W, dtype=torch.int32, device=depth.device)
-    flags = torch.empty(B + 2 * max_iters + 3, dtype=torch.int32, device=depth.device)
-    all_valid = torch.empty(B, dtype=torch.bool, device=depth.device)
-    with torch.cuda.device(depth.device):
-        err = _library().spsg_depth_fill(
-            depth.data_ptr(), w_spatial.data_ptr(), buf0.data_ptr(), buf1.data_ptr(),
-            lists.data_ptr(), flags.data_ptr(), out.data_ptr(), all_valid.data_ptr(), B, H, W,
-            radius, scale, 5, max_iters, _stream(depth))
-    _raise_on(err, "fill_depth_holes", depth.shape)
-    launch_counts["depth_bilateral"] += 1
-    launch_counts["depth_median_round"] += 1
-    return out, all_valid
+    return _fill(depth, max_iters)[:2]
+
+
+def _intrinsics(intrinsics: torch.Tensor, B: int) -> torch.Tensor:
+    if intrinsics.dtype != torch.float32 or tuple(intrinsics.shape) != (B, 4):
+        raise ValueError(f"depth_normals: intrinsics must be float32 ({B}, 4), got "
+                         f"{intrinsics.dtype} {tuple(intrinsics.shape)}")
+    return intrinsics.contiguous()
 
 
 def unproject_normals(depth: torch.Tensor, intrinsics: torch.Tensor) -> torch.Tensor:
     """:func:`unproject_normals_plain`: K11 on CUDA tensors, the plain version
     on CPU tensors; the same bits (the border, where the plain version's roll
-    wraps around, is 0 in both)."""
+    wraps around, is 0 in both). K11 takes a 32x8 tile a block: the tile's
+    points and their one-pixel apron unprojected once into shared memory, the
+    normals from there, staged and stored as contiguous float4 runs. Bound:
+    bytes (the depth read, 12 bytes a pixel written)."""
     if _device_kind(depth, "depth_normals") == "cpu":
         return unproject_normals_plain(depth, intrinsics)
     depth = _frames(depth, "depth_normals")
     B, H, W = depth.shape
-    if intrinsics.dtype != torch.float32 or tuple(intrinsics.shape) != (B, 4):
-        raise ValueError(f"depth_normals: intrinsics must be float32 ({B}, 4), got "
-                         f"{intrinsics.dtype} {tuple(intrinsics.shape)}")
-    intrinsics = intrinsics.contiguous()
+    intrinsics = _intrinsics(intrinsics, B)
     _check_cuda("depth_normals", depth, intrinsics)
     normals = torch.empty((B, H, W, 3), dtype=torch.float32, device=depth.device)
     with torch.cuda.device(depth.device):
@@ -326,14 +354,32 @@ def unproject_normals(depth: torch.Tensor, intrinsics: torch.Tensor) -> torch.Te
     return normals
 
 
+def depth_to_normals_plain(depth: torch.Tensor, intrinsics: torch.Tensor,
+                           max_fill_iters: int = 40):
+    """The Depth2Normals chain of plain versions: :func:`fill_depth_holes_plain`
+    (where ``max_fill_iters`` > 0), then :func:`unproject_normals_plain`."""
+    if max_fill_iters > 0:
+        filled, all_valid = fill_depth_holes_plain(depth, max_fill_iters)
+    else:
+        filled = depth
+        all_valid = ~(depth.reshape(depth.shape[0], -1) == 0.0).any(dim=-1)
+    return unproject_normals_plain(filled, intrinsics), filled, all_valid
+
+
 def depth_to_normals(depth: torch.Tensor, intrinsics: torch.Tensor, max_fill_iters: int = 40):
     """The Depth2Normals chain (reference depth_utils.py:66-99): bilateral-seeded
     median hole fill -> camera-space unprojection -> cross normals. Returns
     (normals (B, H, W, 3), filled depth (B, H, W), all_valid (B,) bool).
-    The fill decides per frame (:func:`fill_depth_holes`)."""
+    The fill decides per frame (:func:`fill_depth_holes`). On CUDA tensors
+    with a fill, K11 runs as the last phase of the fill's cooperative launch
+    (after the last round, its tiles write the fill's output and take their
+    normals from the same reads), so the chain is two launches, K9 and the
+    fill; without a fill it is K11 alone. CPU tensors take
+    :func:`depth_to_normals_plain`; the same bits."""
+    if _device_kind(depth, "depth_to_normals") == "cpu":
+        return depth_to_normals_plain(depth, intrinsics, max_fill_iters)
     if max_fill_iters > 0:
-        filled, all_valid = fill_depth_holes(depth, max_fill_iters)
-    else:
-        filled = depth
-        all_valid = ~(depth.reshape(depth.shape[0], -1) == 0.0).any(dim=-1)
-    return unproject_normals(filled, intrinsics), filled, all_valid
+        filled, all_valid, normals = _fill(depth, max_fill_iters, intrinsics)
+        return normals, filled, all_valid
+    all_valid = ~(depth.reshape(depth.shape[0], -1) == 0.0).any(dim=-1)
+    return unproject_normals(depth, intrinsics), depth, all_valid

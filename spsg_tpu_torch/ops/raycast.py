@@ -21,11 +21,12 @@ attributes into per-view images, with the JAX package's semantics:
 Five hand-written CUDA kernels (``csrc/raycast.cu``) carry it on a card; none
 replaces a Pallas kernel (the JAX package left the raycaster to XLA):
 
-  * :func:`march_setup` (K12, ``raycast_bounds_kernel`` +
-    ``raycast_setup_kernel``): the rays and the stretch of each that a march
-    walks, which K4 and K7 read: a pre-pass reduces each batch row's box of
-    valid voxels to integer bounds, then one thread per ray computes its
-    direction, ``cam_z``, ``t0`` and ``t_stop``;
+  * :func:`march_setup` (K12, ``raycast_box_kernel`` + ``raycast_rays_kernel``,
+    the second a programmatic dependent launch): the rays and the stretch of
+    each that a march walks, which K4 and K7 read: blocks reduce each batch
+    row's valid voxels to partial integer boxes while a thread a ray computes
+    what does not depend on the box; then each ray's block reduces the
+    partials of its row and finishes ``t0`` and ``t_stop``;
 
   * :func:`march` (K4, ``raycast_march_map_kernel`` + ``raycast_march_kernel``):
     a pre-pass marks every fully valid cell with a bit and every 8^3 coarse
@@ -96,6 +97,9 @@ OCC_HOP_BLOCKS = 32
 OCC_HOP_LIMIT = 2.0 ** 18
 # floats in K6's per-pixel row of sums: 21 channels, the count, padding (kRow)
 SCATTER_ROW = 24
+# K12: the blocks a batch row that reduce its valid voxels, each writing a
+# partial box of 6 ints (kBoxBlocks)
+SETUP_BOX_BLOCKS = 64
 
 # launches of each kernel by its wrapper (and by nothing else)
 launch_counts = {"raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0,
@@ -248,10 +252,18 @@ def march_setup_plain(valid, view, intrinsics, cfg: RaycastConfig) -> MarchSetup
 
 
 def march_setup(valid, view, intrinsics, cfg: RaycastConfig) -> MarchSetup:
-    """The set-up of :func:`march_setup_plain`: K12 on CUDA tensors (a pre-pass
-    for the box of the valid voxels, then a thread a ray), the plain version
-    on CPU tensors; the same bits. valid (B,Z,Y,X) bool, view (B,4,4),
-    intrinsics (B,4) float32."""
+    """The set-up of :func:`march_setup_plain`: K12 on CUDA tensors, the plain
+    version on CPU tensors; the same bits. valid (B,Z,Y,X) bool, view (B,4,4),
+    intrinsics (B,4) float32.
+
+    K12 is two launches. The first: SETUP_BOX_BLOCKS blocks a batch row
+    reduce its valid voxels to a partial box each (into scratch). The second,
+    a thread a ray, is a programmatic dependent launch that starts while the
+    first runs: it computes what does not depend on the box (direction,
+    cam_z, t_start, t_end), waits for the first, reduces its row's partials
+    and finishes the ray (slab test, t0, t_stop). No memset, no atomics,
+    nothing read back to the host. Bound: bytes (the valid grid read once, 24
+    bytes a ray written)."""
     if _device_kind(valid, "raycast_setup") == "cpu":
         return march_setup_plain(valid, view, intrinsics, cfg)
     if valid.dim() != 4 or valid.dtype != torch.bool:
@@ -267,16 +279,16 @@ def march_setup(valid, view, intrinsics, cfg: RaycastConfig) -> MarchSetup:
     _check_cuda("raycast_setup", valid, view, intrinsics)
     dev = valid.device
     P = cfg.width * cfg.height
-    bounds = torch.empty(6 * B, dtype=torch.int32, device=dev)
+    partials = torch.empty(6 * B * SETUP_BOX_BLOCKS, dtype=torch.int32, device=dev)
     origin = torch.empty((B, 3), dtype=torch.float32, device=dev)
     direction = torch.empty((B, P, 3), dtype=torch.float32, device=dev)
     cam_z, t0, t_stop = (torch.empty((B, P), dtype=torch.float32, device=dev) for _ in range(3))
     with torch.cuda.device(dev):
-        err = _library().spsg_raycast_setup(
-            valid.data_ptr(), view.data_ptr(), intrinsics.data_ptr(), bounds.data_ptr(),
-            origin.data_ptr(), direction.data_ptr(), cam_z.data_ptr(), t0.data_ptr(),
-            t_stop.data_ptr(), B, Z, Y, X, P, cfg.width, cfg.depth_min, cfg.depth_max,
-            cfg.ray_increment, recip_const(cfg.ray_increment), _stream(valid))
+        err = _library().spsg_raycast_setup_pdl(
+            valid.data_ptr(), view.data_ptr(), intrinsics.data_ptr(), partials.data_ptr(),
+            partials.numel(), origin.data_ptr(), direction.data_ptr(), cam_z.data_ptr(),
+            t0.data_ptr(), t_stop.data_ptr(), B, Z, Y, X, P, cfg.width, cfg.depth_min,
+            cfg.depth_max, cfg.ray_increment, recip_const(cfg.ray_increment), _stream(valid))
     _raise_on(err, "raycast_setup", valid.shape)
     launch_counts["raycast_setup"] += 1
     return MarchSetup(origin, direction, cam_z, t0, t_stop)
@@ -290,9 +302,10 @@ def march_setup(valid, view, intrinsics, cfg: RaycastConfig) -> MarchSetup:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Argument types of a library built from ``csrc/raycast.cu``. K7's
     entry (``spsg_raycast_occ_hop``, and the one-sample walk
-    ``spsg_raycast_occ`` of older sources) and K12's (``spsg_raycast_setup``)
-    are bound where the library has them, so that an older ``raycast.cu``
-    binds too (``chip_smoke.py --baseline-raycast-source``)."""
+    ``spsg_raycast_occ`` of older sources) and K12's (``spsg_raycast_setup_pdl``,
+    and the memset-and-pre-pass ``spsg_raycast_setup`` of older sources) are
+    bound where the library has them, so that an older ``raycast.cu`` binds
+    too (``chip_smoke.py --baseline-raycast-source``)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.spsg_raycast_march.restype = i
     lib.spsg_raycast_march.argtypes = [p] * 15 + [i] * 6 + [f, f, i, i, p]
@@ -309,6 +322,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     if hasattr(lib, "spsg_raycast_setup"):
         lib.spsg_raycast_setup.restype = i
         lib.spsg_raycast_setup.argtypes = [p] * 9 + [i] * 6 + [f] * 4 + [p]
+    if hasattr(lib, "spsg_raycast_setup_pdl"):
+        lib.spsg_raycast_setup_pdl.restype = i
+        lib.spsg_raycast_setup_pdl.argtypes = [p] * 4 + [i] + [p] * 5 + [i] * 6 + [f] * 4 + [p]
     return lib
 
 

@@ -3,9 +3,11 @@ ray set-up's (K12, csrc/raycast.cu) on the CPU, where they cannot run: the
 dispatch (a CPU tensor takes the plain version and builds nothing), the
 kernels' designs written out in numpy / torch against the plain versions to
 the bit (K10's selection by counting, the fill's round schedule with its flag
-left on the card, K9's block order, K11's neighbours, K12's integer box and
-per-ray slab test), the binding of an older raycaster library, and the plain
-versions against the JAX package's to the bit. On the card chip_smoke.py holds
+left on the card, K9's block order, K11's neighbours and its 32x8 tiles with
+their apron and staged rows, the fill followed by K11 as the fill's launch
+runs it, K12's integer box and per-ray slab test and its two-launch schedule
+of partial boxes and parked rays), the binding of older and newer raycaster
+libraries, and the plain versions against the JAX package's to the bit. On the card chip_smoke.py holds
 each kernel against its plain version."""
 
 import types
@@ -102,6 +104,9 @@ def test_cpu_tensors_take_the_plain_versions_and_build_nothing(frames, monkeypat
              (D.median_fill(depth), D.median_fill_plain(depth)),
              (D.unproject_normals(depth, intr), D.unproject_normals_plain(depth, intr))]
     pairs += list(zip(D.fill_depth_holes(depth, 6), D.fill_depth_holes_plain(depth, 6)))
+    filled, ok = D.fill_depth_holes_plain(depth, 6)
+    pairs += list(zip(D.depth_to_normals(depth, intr, 6),
+                      (D.unproject_normals_plain(filled, intr), filled, ok)))
     for got, want in pairs:
         assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
     valid = torch.rand(2, 16, 16, 16, generator=torch.Generator().manual_seed(0)) < 0.1
@@ -132,6 +137,22 @@ def test_bind_takes_a_library_without_the_setup_entry():
     new = types.SimpleNamespace(**{n: _Entry() for n in core + ("spsg_raycast_setup",)})
     R._bind(new)
     assert len(new.spsg_raycast_setup.argtypes) == 20
+
+
+def test_bind_takes_the_two_launch_setup_entry():
+    """The two-launch K12 (spsg_raycast_setup_pdl, 21 arguments: the
+    partials' scratch and its length beside the older entry's) binds, alone
+    or beside an older entry."""
+    core = ("spsg_raycast_march", "spsg_raycast_shade", "spsg_raycast_scatter")
+    lib = types.SimpleNamespace(**{n: _Entry() for n in core + ("spsg_raycast_setup_pdl",)})
+    R._bind(lib)
+    assert len(lib.spsg_raycast_setup_pdl.argtypes) == 21
+    assert lib.spsg_raycast_setup_pdl.argtypes[4] is R.ctypes.c_int
+    both = types.SimpleNamespace(**{n: _Entry() for n in core + ("spsg_raycast_setup",
+                                                                  "spsg_raycast_setup_pdl")})
+    R._bind(both)
+    assert len(both.spsg_raycast_setup.argtypes) == 20
+    assert len(both.spsg_raycast_setup_pdl.argtypes) == 21
 
 
 # --- K10: the upper median by counting --------------------------------------------
@@ -476,6 +497,269 @@ def test_setup_written_as_the_kernel_is(grid):
         assert (want.direction[..., 0].abs() <= 1e-9).any()
     if grid == "empty":
         assert torch.isfinite(want.t0).all()
+
+
+# --- K12 as two launches, K11 as a tile -----------------------------------------
+
+_INT_MAX = 2 ** 31 - 1
+
+
+def _nonzero_bytes(u):
+    """K12's mask of a uint32 word: bit 7 of each byte set where that byte is
+    not 0."""
+    u = np.asarray(u, np.uint32)
+    return (((u & np.uint32(0x7F7F7F7F)) + np.uint32(0x7F7F7F7F)) | u) & np.uint32(0x80808080)
+
+
+def _first_last_byte(words):
+    """The first and last nonzero byte of a 16-byte run from its four words'
+    masks, as K12 reads them (or None where the run is all 0)."""
+    m = [int(x) for x in _nonzero_bytes(words)]
+    lo, hi = m[0] | m[1] << 32, m[2] | m[3] << 32
+    if not lo | hi:
+        return None
+    first = ((lo & -lo).bit_length() - 1) >> 3 if lo else 8 + (((hi & -hi).bit_length() - 1) >> 3)
+    last = 8 + ((hi.bit_length() - 1) >> 3) if hi else (lo.bit_length() - 1) >> 3
+    return first, last
+
+
+def _partials(valid, blocks, threads):
+    """K12's first kernel: block r of a batch row's ``blocks`` takes the units
+    u = r * threads + tid + k * blocks * threads of the row (16-byte runs where
+    X % 16 == 0, else rows), its threads' boxes reduced to one partial (least
+    x, y, z; largest x, y, z; INT_MAX / -1 where it saw no valid voxel).
+    Returns (B, 6, blocks) ints."""
+    B, Z, Y, X = valid.shape
+    part = np.empty((B, 6, blocks), np.int64)
+    part[:, :3], part[:, 3:] = _INT_MAX, -1
+    vec = X % 16 == 0
+    for b in range(B):
+        g = valid[b].numpy().astype(np.uint8)
+        if vec:
+            units = g.reshape(Z * Y * X // 16, 16).view(np.uint32)  # 4 words a run
+        for u in range(Z * Y * X // 16 if vec else Z * Y):
+            r = (u // threads) % blocks
+            if vec:
+                fl = _first_last_byte(units[u])
+                if fl is None:
+                    continue
+                row, x = divmod(u, X // 16)
+                x0, x1 = 16 * x + fl[0], 16 * x + fl[1]
+            else:
+                row = u
+                xs = np.flatnonzero(g.reshape(Z * Y, X)[row])
+                if not len(xs):
+                    continue
+                x0, x1 = int(xs[0]), int(xs[-1])
+            z, y = divmod(row, Y)
+            p = part[b, :, r]
+            p[:3] = np.minimum(p[:3], (x0, y, z))
+            p[3:] = np.maximum(p[3:], (x1, y, z))
+    return part
+
+
+def _ray_part(view, intr, cfg, rays):
+    """K12's phase A for the flat rays ``rays``: what does not depend on the
+    box (direction, cam_z, the reciprocals of the direction, t_start, t_end),
+    in its arithmetic."""
+    f = xla_arith.fma32
+    P = cfg.width * cfg.height
+    b, p = rays // P, rays % P
+    fx, fy, mx, my = (intr[b, i] for i in range(4))
+    cx = ((p % cfg.width).float() - mx) / fx
+    cy = (torch.div(p, cfg.width, rounding_mode="floor").float() - my) / fy
+    cn = xla_arith.sqrt32(f(torch.ones_like(cx), 1.0, f(cy, cy, cx * cx)))
+    c = (cx / cn, cy / cn, torch.ones_like(cn) / cn)
+    m = view[b]
+    w = [f(m[:, i, 2], c[2], f(m[:, i, 1], c[1], m[:, i, 0] * c[0])) for i in range(3)]
+    wn = xla_arith.sqrt32(f(w[2], w[2], f(w[1], w[1], w[0] * w[0])))
+    d = [wi / wn for wi in w]
+    inv = [torch.where(di.abs() > 1e-9, torch.ones_like(di) / di, 1e12) for di in d]
+    return dict(dir=torch.stack(d, -1), cam_z=c[2], inv=inv,
+                t_start=torch.full_like(c[2], cfg.depth_min) / c[2],
+                t_end=torch.full_like(c[2], cfg.depth_max) / c[2])
+
+
+def _setup_two_launches(valid, view, intr, cfg, box_blocks, box_threads, ray_threads):
+    """K12's two kernels: the first's partial boxes (``box_blocks`` blocks a
+    batch row of ``box_threads``); the second's blocks of ``ray_threads``
+    rays, a thread a ray: what does not depend on the box set up and parked,
+    then (after the wait) for each batch row the block's rays touch, the
+    row's box from its partials (min(lo, dim) - 1.5, hi + 1.5) and the rays
+    of that row finished from what was parked."""
+    B, Z, Y, X = valid.shape
+    P = cfg.width * cfg.height
+    n = B * P
+    part = _partials(valid, box_blocks, box_threads)
+    out = dict(direction=torch.zeros(n, 3), cam_z=torch.zeros(n), t0=torch.zeros(n),
+               t_stop=torch.zeros(n))
+    blocks = -(-n // ray_threads)
+    parked = [_ray_part(view, intr, cfg, torch.arange(blk * ray_threads,
+                                                      min(n, blk * ray_threads + ray_threads)))
+              for blk in range(blocks)]
+    for blk in range(blocks):  # after the wait
+        first, last = blk * ray_threads, min(n, blk * ray_threads + ray_threads)
+        rays = torch.arange(first, last)
+        for b in range(first // P, (last - 1) // P + 1):
+            lo_i, hi_i = part[b, :3].min(axis=1), part[b, 3:].max(axis=1)
+            lo = [float(min(lo_i[a], dim)) - 1.5 for a, dim in enumerate((X, Y, Z))]
+            hi = [float(hi_i[a]) + 1.5 for a in range(3)]
+            sel = rays // P == b
+            q = {k: (v[sel] if torch.is_tensor(v) else [x[sel] for x in v])
+                 for k, v in parked[blk].items()}
+            o = view[b, :3, 3]
+            enter = leave = None
+            for a in range(3):
+                ta, tb = (lo[a] - o[a]) * q["inv"][a], (hi[a] - o[a]) * q["inv"][a]
+                mn, mx_ = torch.minimum(ta, tb), torch.maximum(ta, tb)
+                enter = mn if enter is None else torch.maximum(enter, mn)
+                leave = mx_ if leave is None else torch.minimum(leave, mx_)
+            skip = torch.floor((enter - q["t_start"]) * xla_arith.recip_const(cfg.ray_increment))
+            skip = torch.where(skip < 0, 0.0, skip)
+            rr = rays[sel]
+            out["direction"][rr] = q["dir"]
+            out["cam_z"][rr] = q["cam_z"]
+            out["t0"][rr] = xla_arith.fma32(skip, cfg.ray_increment, q["t_start"])
+            out["t_stop"][rr] = torch.minimum(q["t_end"], leave + cfg.ray_increment)
+    return R.MarchSetup(view[:, :3, 3].clone(), out["direction"].reshape(B, P, 3),
+                        *(out[k].reshape(B, P) for k in ("cam_z", "t0", "t_stop")))
+
+
+def _setup_grid(grid):
+    b = jax_synthetic.make_chunk_batch(2, (16, 16, 16), image_dims=(48, 32), seed=3,
+                                       with_frames=True)
+    valid = torch.from_numpy(np.abs(b["input"][..., 0]) < 3.0)
+    view, intr = H.t(b["images_view"]), H.t(b["images_intrinsic"])
+    if grid == "empty":
+        valid[1] = False
+    elif grid == "near_axis":
+        view = torch.eye(4).repeat(2, 1, 1)
+        view[:, :3, 3] = torch.tensor([8.0, 8.0, -20.0])
+        intr = torch.tensor([[40.0, 40.0, 24.0, 16.0]] * 2)
+    elif grid in ("corners", "corners_x20"):
+        # valid voxels at index 0 and at the far corner only (frame 1: the far
+        # corner alone); X = 20 takes the kernel's row-a-thread path
+        shape = (2, 16, 16, 16 if grid == "corners" else 20)
+        valid = torch.zeros(shape, dtype=torch.bool)
+        valid[:, -1, -1, -1] = True
+        valid[0, 0, 0, 0] = True
+    return valid, view, intr
+
+
+@pytest.mark.parametrize("launch", ["one_box_block", "seven_box_blocks",
+                                    "more_box_blocks_than_rows", "the_kernels"])
+@pytest.mark.parametrize("grid", ["input", "empty", "near_axis", "corners", "corners_x20"])
+def test_setup_as_two_launches(grid, launch):
+    """K12's schedule (partial boxes a block over a partition of each batch
+    row's valid voxels, box blocks that see no valid voxel or no unit at all;
+    rays parked across the wait, ray blocks that span two batch rows) gives
+    march_setup_plain's bits."""
+    valid, view, intr = _setup_grid(grid)
+    cfg = R.RaycastConfig(width=48, height=32)
+    box_blocks, box_threads, ray_threads = {
+        "one_box_block": (1, 256, 256),
+        "seven_box_blocks": (7, 32, 100),  # ray block 15 spans the two batch rows
+        "more_box_blocks_than_rows": (300, 1, 7),
+        "the_kernels": (R.SETUP_BOX_BLOCKS, 256, 256),
+    }[launch]
+    want = R.march_setup_plain(valid, view, intr, cfg)
+    got = _setup_two_launches(valid, view, intr, cfg, box_blocks, box_threads, ray_threads)
+    for name, g, w in zip(R.MarchSetup._fields, got, want):
+        np.testing.assert_array_equal(_bits(g.contiguous().numpy()), _bits(w.numpy()),
+                                      err_msg=name)
+    if grid.startswith("corners"):  # frame 0's box spans the grid, frame 1's is one voxel
+        part = _partials(valid, box_blocks, box_threads)
+        assert list(part[0, :3].min(axis=1)) == [0, 0, 0]
+        assert list(part[1, :3].min(axis=1)) == [valid.shape[3] - 1, 15, 15]
+
+
+def test_nonzero_byte_masks_find_the_first_and_last_valid_voxel():
+    """K12's 16-byte runs: every placement of one or two nonzero bytes (and
+    bytes other than 1) gives the first and last nonzero byte."""
+    rng = np.random.default_rng(0)
+    for i in range(16):
+        for j in range(i, 16):
+            run = np.zeros(16, np.uint8)
+            run[i], run[j] = rng.integers(1, 256), rng.integers(1, 256)
+            assert _first_last_byte(run.view(np.uint32)) == (i, j)
+    assert _first_last_byte(np.zeros(4, np.uint32)) is None
+
+
+def _normals_by_tiles(depth, intr, tx=32, ty=8):
+    """K11's tile: each point of a 32x8 tile and its one-pixel apron (34x10)
+    unprojected once (0 outside the image), interior pixels' normals from
+    those points, the tile's outputs staged and written row by row, a row's
+    valid pixels' 3 floats a run (the kernel's float4 runs or floats)."""
+    B, Hh, W = depth.shape
+    out = torch.full((B, Hh, W, 3), float("nan"))
+    f = xla_arith.fma32
+    for b in range(B):
+        fx, fy, mx, my = intr[b]
+        for y0 in range(0, Hh, ty):
+            for x0 in range(0, W, tx):
+                ys = torch.arange(y0 - 1, y0 + ty + 1)[:, None].expand(ty + 2, tx + 2)
+                xs = torch.arange(x0 - 1, x0 + tx + 1)[None, :].expand(ty + 2, tx + 2)
+                inside = (ys >= 0) & (ys < Hh) & (xs >= 0) & (xs < W)
+                d = torch.where(inside, depth[b][ys.clamp(0, Hh - 1), xs.clamp(0, W - 1)], 0.0)
+                px = torch.where(d != 0, d * (xs.float() - mx) / fx, 0.0)
+                py = torch.where(d != 0, d * (ys.float() - my) / fy, 0.0)
+                pz = torch.where(d != 0, d, 0.0)
+                pts = torch.stack([px, py, pz], -1)  # (ty + 2, tx + 2, 3)
+                a = pts[2:, 1:-1] - pts[:-2, 1:-1]
+                bb = pts[1:-1, 2:] - pts[1:-1, :-2]
+                n = torch.stack([f(a[..., 1], bb[..., 2], -(a[..., 2] * bb[..., 1])),
+                                 f(a[..., 2], bb[..., 0], -(a[..., 0] * bb[..., 2])),
+                                 f(a[..., 0], bb[..., 1], -(a[..., 1] * bb[..., 0]))], -1)
+                l2 = f(n[..., 2], n[..., 2], f(n[..., 1], n[..., 1], n[..., 0] * n[..., 0]))
+                nl = -xla_arith.sqrt32(torch.where(l2 < 1e-24, 1e-24, l2))
+                some = ((px[1:-1, 1:-1] != 0) | (px[2:, 1:-1] != 0) | (px[1:-1, 2:] != 0)
+                        | (px[:-2, 1:-1] != 0) | (px[1:-1, :-2] != 0))
+                y, x = ys[1:-1, 1:-1], xs[1:-1, 1:-1]
+                interior = (x > 0) & (x < W - 1) & (y > 0) & (y < Hh - 1)
+                keep = (interior & (l2 > 0) & some)[..., None]
+                staged = torch.where(keep, n / nl[..., None], 0.0).reshape(ty, tx * 3)
+                cols = min(tx, W - x0) * 3
+                for r in range(min(ty, Hh - y0)):
+                    out[b, y0 + r].reshape(-1)[x0 * 3:x0 * 3 + cols] = staged[r, :cols]
+    return out
+
+
+@pytest.mark.parametrize("size", [(48, 32), (37, 13), (3, 3)])
+def test_normals_as_tiles_of_the_kernel(frames, size):
+    """K11's tile schedule (apron points unprojected once, staged rows,
+    ragged tiles in x and y, a frame with one interior pixel) gives
+    unproject_normals_plain's bits, on frames with holes."""
+    W, Hh = size
+    oy, ox = (32 - Hh) // 2, (48 - W) // 2
+    depth = H.t(_holes(frames[0], 15))[:, oy:oy + Hh, ox:ox + W].contiguous()
+    if size == (3, 3):
+        depth[0, 0, 1] = 0.0  # a hole beside the one interior pixel
+    intr = H.t(frames[1])
+    got = _normals_by_tiles(depth, intr)
+    want = D.unproject_normals_plain(depth, intr)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want.numpy()))
+    assert bool((want != 0).any()) and not bool(torch.isnan(got).any())
+
+
+@pytest.mark.parametrize("case", ["holes", "none", "unfillable"])
+def test_fill_then_normals_is_the_plain_chain(frames, case):
+    """The chain as the card runs it with a fill: the fill's schedule
+    (_fill_on_the_card), then K11's tiles over its output (the launch's last
+    phase), against depth_to_normals on CPU tensors (the plain chain)."""
+    depth = frames[0]
+    if case == "holes":
+        depth = _holes(depth, 16)
+    elif case == "none":
+        depth = np.where(depth == 0, 1.0, depth).astype(np.float32)
+    else:
+        depth = _holes(depth, 17, (0,))
+        depth[1] = 0.0
+    t, intr = H.t(depth), H.t(frames[1])
+    filled, ok, _ = _fill_on_the_card(t, 6)
+    want = D.depth_to_normals(t, intr, 6)
+    for g, w in zip((_normals_by_tiles(filled, intr), filled), want):
+        np.testing.assert_array_equal(_bits(g.numpy()), _bits(w.numpy()))
+    np.testing.assert_array_equal(ok.numpy(), want[2].numpy())
 
 
 # --- the plain versions against the JAX package's, to the bit ---------------------
