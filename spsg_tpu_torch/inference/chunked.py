@@ -19,6 +19,16 @@ With ``mesh=`` (``parallel.make_mesh()``, one process a device) every window
 batch splits over the ranks: each runs its share of the windows through the
 generator, the outputs are gathered in window order and rank 0 stitches them
 and accumulates the IoU over every window, in the one-process order.
+
+With the recorder of ``utils/timing.py`` on, a call is one span tree:
+``serve.room`` → ``serve.prep`` (from entry until the padded scene is on the
+device), ``serve.stitcher_init``, ``serve.batch`` a window batch (→
+``serve.gather``, ``serve.forward``, ``serve.stitch``), ``serve.finalize`` (→
+``serve.normalize``, ``serve.readback``, both marked on the stream); the
+counters are ``serve.rooms``, ``serve.windows``, ``serve.batches`` and
+``serve.bytes_up`` / ``serve.bytes_down``, the sizes of the arrays that cross
+(:func:`_upload`, :func:`_download`). ``summarize_iou`` is the span
+``serve.iou``.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ import torch.nn.functional as F
 from ..data import category, colorspace
 from ..parallel import mesh as pmesh
 from ..training.state import resolve_device
+from ..utils import timing
 
 
 @dataclasses.dataclass
@@ -49,6 +60,19 @@ class SceneOutputs:
     class_intersection: np.ndarray  # (14,)
     class_union: np.ndarray  # (14,)
     class_weight: np.ndarray  # (14,) target voxel counts per class
+
+
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``, its size counted in ``serve.bytes_up``."""
+    timing.count("serve.bytes_up", a.nbytes)
+    return torch.from_numpy(a).to(device)
+
+
+def _download(t: torch.Tensor) -> np.ndarray:
+    """A tensor read back to the host, its size counted in ``serve.bytes_down``."""
+    a = t.cpu().numpy()
+    timing.count("serve.bytes_down", a.nbytes)
+    return a
 
 
 def prep_compact_scene(sdf, rgb, truncation, lab, pads):
@@ -113,10 +137,9 @@ class _Stitcher:
             sm = (np.ascontiguousarray(target_semantics[:Z]).astype(np.int32)
                   if target_semantics is not None
                   else np.full((Z, Y, X), category.UNLABELED, np.int32))
-            self.tgt = torch.from_numpy(np.pad(tgt, pad3, constant_values=np.inf)).to(device)
-            self.kn = torch.from_numpy(np.pad(kn, pad3, constant_values=True)).to(device)
-            self.sm = torch.from_numpy(
-                np.pad(sm, pad3, constant_values=category.UNLABELED)).to(device)
+            self.tgt = _upload(np.pad(tgt, pad3, constant_values=np.inf), device)
+            self.kn = _upload(np.pad(kn, pad3, constant_values=True), device)
+            self.sm = _upload(np.pad(sm, pad3, constant_values=category.UNLABELED), device)
 
         shp = (Z + pz, Y + cy, X + cx)
         zeros = lambda s, dt: torch.zeros(s, dtype=dt, device=device)
@@ -205,26 +228,28 @@ class _Stitcher:
         the compact results back in one go."""
         Z, Y, X = self.Z, self.Y, self.X
         trunc = self.truncation
-        acc = {k: (v[:Z, :Y, :X] if v.dim() >= 3 else v) for k, v in self.acc.items()}
-        counts = acc["counts"]
-        got = counts > 0
-        cf = torch.clamp(counts.float(), min=1.0)
-        neg_inf = torch.full((), float("-inf"), device=self.device)
-        out = dict(
-            counts=counts.to(torch.int16),  # overlaps <= (chunk/stride)^2
-            occ=acc["occ"].bool(),
-            geo_i=acc["geo_i"], geo_u=acc["geo_u"],
-            cls_i=acc["cls_i"], cls_u=acc["cls_u"], cls_w=acc["cls_w"],
-            sdf=torch.where(got, torch.clamp(acc["sdf"] / cf, -trunc, trunc), neg_inf),
-        )
-        if self.pred_color:
-            # u8, rounded half to even like the JAX package
-            col = torch.clamp(acc["color"] / cf[..., None] * 255.0, 0.0, 255.0)
-            out["color"] = torch.round(torch.where(got[..., None], col, 0.0)).to(torch.uint8)
-        if self.pred_semantic:
-            # torch.argmax, like jnp.argmax, takes the first maximum
-            out["sem_label"] = torch.argmax(acc["sem"], dim=-1).to(torch.uint8)
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        with timing.span("serve.normalize", stream=True):
+            acc = {k: (v[:Z, :Y, :X] if v.dim() >= 3 else v) for k, v in self.acc.items()}
+            counts = acc["counts"]
+            got = counts > 0
+            cf = torch.clamp(counts.float(), min=1.0)
+            neg_inf = torch.full((), float("-inf"), device=self.device)
+            out = dict(
+                counts=counts.to(torch.int16),  # overlaps <= (chunk/stride)^2
+                occ=acc["occ"].bool(),
+                geo_i=acc["geo_i"], geo_u=acc["geo_u"],
+                cls_i=acc["cls_i"], cls_u=acc["cls_u"], cls_w=acc["cls_w"],
+                sdf=torch.where(got, torch.clamp(acc["sdf"] / cf, -trunc, trunc), neg_inf),
+            )
+            if self.pred_color:
+                # u8, rounded half to even like the JAX package
+                col = torch.clamp(acc["color"] / cf[..., None] * 255.0, 0.0, 255.0)
+                out["color"] = torch.round(torch.where(got[..., None], col, 0.0)).to(torch.uint8)
+            if self.pred_semantic:
+                # torch.argmax, like jnp.argmax, takes the first maximum
+                out["sem_label"] = torch.argmax(acc["sem"], dim=-1).to(torch.uint8)
+        with timing.span("serve.readback", stream=True):
+            return {k: _download(v) for k, v in out.items()}
 
 
 def _outputs(fin, pred_color, pred_semantic) -> SceneOutputs:
@@ -322,112 +347,125 @@ def run_chunked_inference(
     arguments; each runs ``window_batch / ranks`` windows of every batch (the
     world size must divide ``window_batch``), rank 0 stitches the gathered
     outputs and returns the scene, the other ranks return None."""
-    mesh = pmesh.check_mesh(mesh)
-    sharded = pmesh.active(mesh)
-    n_ranks = mesh.size if sharded else 1
-    if window_batch % n_ranks:
-        raise ValueError(f"window_batch {window_batch} does not split over {n_ranks} ranks")
-    per_rank = window_batch // n_ranks
-    stitching = not sharded or mesh.rank == 0
-    raw_sdf = raw_rgb = None
-    if compact_scene is not None:
-        raw_sdf = compact_scene["sdf"]
-        raw_rgb = compact_scene["colors"]
-        # a float RGB cast to uint8 would be truncated, not divided by 255
-        if raw_rgb.dtype != np.uint8:
-            raise TypeError(
-                f"compact_scene['colors'] must be uint8 in [0,255], got {raw_rgb.dtype}")
-        if not np.issubdtype(raw_sdf.dtype, np.floating):
-            raise TypeError(f"compact_scene['sdf'] must be floating, got {raw_sdf.dtype}")
-        scene_zyx = raw_sdf.shape[:3]
-    else:
-        scene_zyx = scene_input.shape[:3]
-    device = resolve_device(device)
-    # crop height (test_scene_as_chunks.py:120-132)
-    if max_height > 0 and scene_zyx[0] > max_height:
-        if compact_scene is not None:
-            raw_sdf = raw_sdf[:max_height]
-            raw_rgb = raw_rgb[:max_height]
-        else:
-            scene_input = scene_input[:max_height]
-            scene_mask = scene_mask[:max_height]
-        if target_sdf is not None:
-            target_sdf = target_sdf[:max_height]
-        if known is not None:
-            known = known[:max_height]
-        if target_semantics is not None:
-            target_semantics = target_semantics[:max_height]
-    scene_dims = raw_sdf.shape[:3] if compact_scene is not None else scene_input.shape[:3]
-    cz, cy, cx = chunk_dims
-    Z, Y, X = (int(d) for d in scene_dims)
+    span = timing.span
+    with span("serve.room"), torch.no_grad():
+        timing.count("serve.rooms")
+        with span("serve.prep"):
+            mesh = pmesh.check_mesh(mesh)
+            sharded = pmesh.active(mesh)
+            n_ranks = mesh.size if sharded else 1
+            if window_batch % n_ranks:
+                raise ValueError(
+                    f"window_batch {window_batch} does not split over {n_ranks} ranks")
+            per_rank = window_batch // n_ranks
+            stitching = not sharded or mesh.rank == 0
+            raw_sdf = raw_rgb = None
+            if compact_scene is not None:
+                raw_sdf = compact_scene["sdf"]
+                raw_rgb = compact_scene["colors"]
+                # a float RGB cast to uint8 would be truncated, not divided by 255
+                if raw_rgb.dtype != np.uint8:
+                    raise TypeError(
+                        f"compact_scene['colors'] must be uint8 in [0,255], got {raw_rgb.dtype}")
+                if not np.issubdtype(raw_sdf.dtype, np.floating):
+                    raise TypeError(
+                        f"compact_scene['sdf'] must be floating, got {raw_sdf.dtype}")
+                scene_zyx = raw_sdf.shape[:3]
+            else:
+                scene_zyx = scene_input.shape[:3]
+            device = resolve_device(device)
+            # crop height (test_scene_as_chunks.py:120-132)
+            if max_height > 0 and scene_zyx[0] > max_height:
+                if compact_scene is not None:
+                    raw_sdf = raw_sdf[:max_height]
+                    raw_rgb = raw_rgb[:max_height]
+                else:
+                    scene_input = scene_input[:max_height]
+                    scene_mask = scene_mask[:max_height]
+                if target_sdf is not None:
+                    target_sdf = target_sdf[:max_height]
+                if known is not None:
+                    known = known[:max_height]
+                if target_semantics is not None:
+                    target_semantics = target_semantics[:max_height]
+            scene_dims = raw_sdf.shape[:3] if compact_scene is not None else scene_input.shape[:3]
+            cz, cy, cx = chunk_dims
+            Z, Y, X = (int(d) for d in scene_dims)
 
-    # Window selection: the reference's "empty chunk" test
-    # (test_scene_as_chunks.py:158-160) includes the [0,1] color channels in
-    # its occupancy check, so it effectively never skips an in-bounds window —
-    # every window gets a prediction and enters the IoU accumulators. We match
-    # that (process all windows); `skip_empty_windows=True` restores the
-    # stricter SDF-only skip as an opt-in speed knob (metrics then become
-    # incomparable to reference numbers on scenes with empty-input windows).
-    positions = []
-    for y, x in window_positions(scene_dims[1:], stride):
-        if skip_empty_windows:
-            # raw or clamped alike: |clip(s, +-t)| < t iff |s| < t
-            win = (raw_sdf[:cz, y:y + cy, x:x + cx] if compact_scene is not None
-                   else scene_input[:cz, y:y + cy, x:x + cx, 0])
-            if not np.any(np.abs(win) < truncation):
-                continue
-        positions.append((int(y), int(x)))
-    if not positions:
-        raise ValueError("scene has no occupied windows")
-    n_win = len(positions)
-    n_batches = -(-n_win // window_batch)  # ceil: the last partial batch runs padded
+            # Window selection: the reference's "empty chunk" test
+            # (test_scene_as_chunks.py:158-160) includes the [0,1] color channels in
+            # its occupancy check, so it effectively never skips an in-bounds window —
+            # every window gets a prediction and enters the IoU accumulators. We match
+            # that (process all windows); `skip_empty_windows=True` restores the
+            # stricter SDF-only skip as an opt-in speed knob (metrics then become
+            # incomparable to reference numbers on scenes with empty-input windows).
+            positions = []
+            for y, x in window_positions(scene_dims[1:], stride):
+                if skip_empty_windows:
+                    # raw or clamped alike: |clip(s, +-t)| < t iff |s| < t
+                    win = (raw_sdf[:cz, y:y + cy, x:x + cx] if compact_scene is not None
+                           else scene_input[:cz, y:y + cy, x:x + cx, 0])
+                    if not np.any(np.abs(win) < truncation):
+                        continue
+                positions.append((int(y), int(x)))
+            if not positions:
+                raise ValueError("scene has no occupied windows")
+            n_win = len(positions)
+            n_batches = -(-n_win // window_batch)  # ceil: the last partial batch runs padded
+            timing.count("serve.windows", n_win)
 
-    # The scene is padded once with the reference fill values (sdf ->
-    # -truncation, colors/mask -> 0, test_scene_as_chunks.py:166-180) so a
-    # window slice never clamps; it lives on the device and windows are
-    # sliced there.
-    pad_z = max(0, cz - Z)
-    if compact_scene is not None:
-        scene_in_dev, scene_mask_dev = prep_compact_scene(
-            torch.from_numpy(np.ascontiguousarray(raw_sdf, dtype=np.float32)).to(device),
-            torch.from_numpy(np.ascontiguousarray(raw_rgb)).to(device), float(truncation),
-            compact_scene.get("color_space", "lab") == "lab", (pad_z, cy, cx))
-    else:
-        widths = ((0, pad_z), (0, cy), (0, cx), (0, 0))
-        scene_in_pad = np.pad(scene_input.astype(np.float32), widths)
-        scene_in_pad[Z:, :, :, 0] = -truncation
-        scene_in_pad[:, Y:, :, 0] = -truncation
-        scene_in_pad[:, :, X:, 0] = -truncation
-        scene_in_dev = torch.from_numpy(scene_in_pad).to(device)
-        scene_mask_dev = torch.from_numpy(
-            np.pad(scene_mask.astype(np.float32), widths)).to(device)
+            # The scene is padded once with the reference fill values (sdf ->
+            # -truncation, colors/mask -> 0, test_scene_as_chunks.py:166-180) so a
+            # window slice never clamps; it lives on the device and windows are
+            # sliced there.
+            pad_z = max(0, cz - Z)
+            if compact_scene is not None:
+                scene_in_dev, scene_mask_dev = prep_compact_scene(
+                    _upload(np.ascontiguousarray(raw_sdf, dtype=np.float32), device),
+                    _upload(np.ascontiguousarray(raw_rgb), device), float(truncation),
+                    compact_scene.get("color_space", "lab") == "lab", (pad_z, cy, cx))
+            else:
+                widths = ((0, pad_z), (0, cy), (0, cx), (0, 0))
+                scene_in_pad = np.pad(scene_input.astype(np.float32), widths)
+                scene_in_pad[Z:, :, :, 0] = -truncation
+                scene_in_pad[:, Y:, :, 0] = -truncation
+                scene_in_pad[:, :, X:, 0] = -truncation
+                scene_in_dev = _upload(scene_in_pad, device)
+                scene_mask_dev = _upload(np.pad(scene_mask.astype(np.float32), widths), device)
+        with span("serve.stitcher_init"):
+            st = (_Stitcher(scene_dims, chunk_dims, stride, pad, truncation, pred_color,
+                            pred_semantic, target_sdf, known, target_semantics, device)
+                  if stitching else None)
 
-    st = (_Stitcher(scene_dims, chunk_dims, stride, pad, truncation, pred_color,
-                    pred_semantic, target_sdf, known, target_semantics, device)
-          if stitching else None)
-    generator = generator.to(device)
-    was_training = generator.training
-    generator.eval()
-    try:
-        with torch.no_grad():
+        generator = generator.to(device)
+        was_training = generator.training
+        generator.eval()
+        try:
             for bidx in range(n_batches):
                 start = bidx * window_batch
                 n_real = min(window_batch, n_win - start)
                 # the padded tail of the last batch repeats position (0, 0)
                 pos = positions[start:start + n_real] + [(0, 0)] * (window_batch - n_real)
                 mine = pos[mesh.rank * per_rank:(mesh.rank + 1) * per_rank] if sharded else pos
-                cb = torch.stack([scene_in_dev[:cz, y:y + cy, x:x + cx] for y, x in mine])
-                mb = torch.stack([scene_mask_dev[:cz, y:y + cy, x:x + cx] for y, x in mine])
-                outs = generator(
-                    cb, mb, pred_color=pred_color, pred_sdf=True, pred_semantic=pred_semantic)
-                if sharded:  # the batch's outputs in window order, on every rank
-                    outs = [None if o is None else pmesh.gather(o, mesh) for o in outs]
-                if st is not None:
-                    st.update(*outs, pos, n_real)
-            fin = st.finalize() if st is not None else None
-    finally:
-        generator.train(was_training)
-    return _outputs(fin, pred_color, pred_semantic) if fin is not None else None
+                with span("serve.batch"):
+                    timing.count("serve.batches")
+                    with span("serve.gather"):
+                        cb, mb = (torch.stack([t[:cz, y:y + cy, x:x + cx] for y, x in mine])
+                                  for t in (scene_in_dev, scene_mask_dev))
+                    with span("serve.forward"):
+                        outs = generator(cb, mb, pred_color=pred_color, pred_sdf=True,
+                                         pred_semantic=pred_semantic)
+                        if sharded:  # the batch's outputs in window order, on every rank
+                            outs = [None if o is None else pmesh.gather(o, mesh) for o in outs]
+                    if st is not None:
+                        with span("serve.stitch", stream=True):
+                            st.update(*outs, pos, n_real)
+            if st is None:
+                return None
+            with span("serve.finalize"):
+                return _outputs(st.finalize(), pred_color, pred_semantic)
+        finally:
+            generator.train(was_training)
 
 
 def summarize_iou(
@@ -440,16 +478,17 @@ def summarize_iou(
 ) -> Dict:
     """Global geo IoU + per-class IoU + frequency-weighted mean IoU
     (test_scene_as_chunks.py:252-264, 308-319)."""
-    geo_iou = geo_i / geo_u if geo_u > 0 else float("nan")
-    with np.errstate(invalid="ignore", divide="ignore"):
-        iou_classes = cls_i / cls_u
-    clean = np.nan_to_num(iou_classes, nan=0.0)
-    mean_iou = float((clean * cls_w / max(cls_w.sum(), 1)).sum())
-    return {
-        "geo_iou": float(geo_iou),
-        "class_iou": {class_names[i]: float(iou_classes[i]) for i in range(len(cls_i))},
-        "mean_iou": mean_iou,
-    }
+    with timing.span("serve.iou"):
+        geo_iou = geo_i / geo_u if geo_u > 0 else float("nan")
+        with np.errstate(invalid="ignore", divide="ignore"):
+            iou_classes = cls_i / cls_u
+        clean = np.nan_to_num(iou_classes, nan=0.0)
+        mean_iou = float((clean * cls_w / max(cls_w.sum(), 1)).sum())
+        return {
+            "geo_iou": float(geo_iou),
+            "class_iou": {class_names[i]: float(iou_classes[i]) for i in range(len(cls_i))},
+            "mean_iou": mean_iou,
+        }
 
 
 def write_iou_txt(path: str, summary: Dict, class_names=category.CLASS_NAMES) -> None:

@@ -55,6 +55,17 @@ scheduling (``step_many``, ``compact_resid``, ``fuse_raycast``,
 ``pair_raycast``) has no counterpart: the three raycasts run one after the
 other, which is the JAX package's default.
 
+With the recorder of ``utils/timing.py`` on, a step is one span tree:
+``train.step`` → ``train.forward`` (→ ``train.generator``, ``train.losses3d``,
+``train.twod`` → ``train.host_read`` around ``torch.linalg.inv``, which
+synchronises on a card), ``train.disc`` (→ ``train.host_read`` around the
+gate's read, ``train.disc_optim``), ``train.backward`` (with the depth gate's
+``train.host_read``), ``train.optim``; the counters are ``train.steps`` and
+``train.host_reads``, one a span ``train.host_read``: on a card these are the
+step's only waits for the device (torch's sync debug mode finds no other).
+The plain depth fill's reads, on CPU tensors, count in ``ops/depth.py``'s
+``host_syncs``.
+
 PyTorch idiom: the state lives in the modules, their optimizers and the
 discriminator's spectral state, not in a state object threaded through the
 step.
@@ -96,6 +107,7 @@ from ..ops import normals3d
 from ..ops import raycast as raycast_ops
 from ..ops.raycast import RaycastConfig, raycast
 from ..parallel import mesh as pmesh
+from ..utils import timing
 from .config import StepFlags, TrainConfig
 from .state import (
     disc_optimizer, gen_optimizer, init_discriminator, init_generator, resolve_device)
@@ -139,6 +151,16 @@ def _frames(batch):
 
 def _sanitize(img, fill=0.0):
     return torch.where(torch.isfinite(img), img, fill)
+
+
+def _host_read(fn, *args):
+    """``fn(*args)``, a call that waits for the device: a flag read back to
+    the host (``fn`` ``bool``), or a library call that synchronises. The step
+    waits here for the device to reach it (the span ``train.host_read``,
+    counted in ``train.host_reads``)."""
+    with timing.span("train.host_read"):
+        timing.count("train.host_reads")
+        return fn(*args)
 
 
 def _scale_color(x):
@@ -198,6 +220,11 @@ class Trainer:
         loop's cache entries), concatenated here; the 2D block then uses it in
         place of the input and target marches and the depth chain. Returns the
         metrics under the JAX package's names as 0-dim tensors on the device."""
+        with timing.span("train.step"):
+            timing.count("train.steps")
+            return self._step(batch, flags, generator, gp_alpha, precomp)
+
+    def _step(self, batch, flags, generator, gp_alpha, precomp):
         cfg = self.cfg
         self._check_flags(flags)
         batch = self._to_device(batch)
@@ -210,34 +237,38 @@ class Trainer:
         skip_on_depth = train and flags.use_2d and cfg.skip_batch_on_bad_depth
         saved_buffers = ({k: v.clone() for k, v in self.generator.named_buffers()}
                          if skip_on_depth else None)
-        with torch.set_grad_enabled(train):
+        with timing.span("train.forward"), torch.set_grad_enabled(train):
             loss_rest, metrics, aux = self._forward_losses(batch, flags, precomp)
         gate = aux["gate2d"]
         total_loss = loss_rest
         if flags.use_disc and self.discriminator is not None:
-            gen_l = self._discriminator_step(flags, aux, metrics, generator, gp_alpha)
+            with timing.span("train.disc", stream=True):
+                gen_l = self._discriminator_step(flags, aux, metrics, generator, gp_alpha)
             total_loss = loss_rest + cfg.weight_discgen_loss * gate * gen_l
         if train:
-            params = list(self.generator.parameters())
-            self.optimizer.zero_grad(set_to_none=True)
-            # the generator's parameters only: the adversarial term also reaches
-            # the discriminator's, which have taken their step already
-            total_loss.backward(inputs=params)
-            # every parameter takes every step, as in the JAX package: one the
-            # loss did not reach has a zero gradient, is still decayed and
-            # still counts the step
-            for p in params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            pmesh.sum_gradients(params, self.mesh)
-            if skip_on_depth and not bool(aux["gate_depth"] > 0):  # a host read
+            with timing.span("train.backward"):
+                params = list(self.generator.parameters())
+                self.optimizer.zero_grad(set_to_none=True)
+                # the generator's parameters only: the adversarial term also
+                # reaches the discriminator's, which have taken their step already
+                total_loss.backward(inputs=params)
+                # every parameter takes every step, as in the JAX package: one
+                # the loss did not reach has a zero gradient, is still decayed
+                # and still counts the step
+                for p in params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                pmesh.sum_gradients(params, self.mesh)
+                depth_ok = not skip_on_depth or _host_read(bool, aux["gate_depth"] > 0)
+            if not depth_ok:
                 # the reference's whole-batch skip (train.py:539-541): no
                 # optimizer step, no running statistics, no iteration
                 with torch.no_grad():
                     for k, v in self.generator.named_buffers():
                         v.copy_(saved_buffers[k])
             else:
-                self.optimizer.step()
+                with timing.span("train.optim", stream=True):
+                    self.optimizer.step()
                 self.iteration += 1
         metrics["loss"] = total_loss
         return {k: v.detach() for k, v in metrics.items()}
@@ -373,8 +404,9 @@ class Trainer:
             # the reference steps the discriminator only with enough valid
             # pixels (train.py:662, 726-727): one host read of the gate a step
             # (a global value: every rank takes the same branch)
-            if bool(aux["gate2d"] > 0):
-                self.disc_optimizer.step()
+            if _host_read(bool, aux["gate2d"] > 0):
+                with timing.span("train.disc_optim", stream=True):
+                    self.disc_optimizer.step()
             self.sn_state = sn2
         # against the updated parameters and statistics, without an update
         with torch.set_grad_enabled(train):
@@ -391,55 +423,58 @@ class Trainer:
         mesh = self.mesh
         metrics: Dict[str, torch.Tensor] = {}
 
-        occ_logits, pred_sdf, pred_color, pred_sem = self.generator(
-            batch["input"], batch["mask"], pred_color=flags.pred_color, pred_sdf=True,
-            pred_semantic=flags.pred_semantic, mesh=mesh)
-        occ_logits = occ_logits[..., 0]
-        pred_sdf_g = pred_sdf[..., 0]
+        with timing.span("train.generator"):
+            occ_logits, pred_sdf, pred_color, pred_sem = self.generator(
+                batch["input"], batch["mask"], pred_color=flags.pred_color, pred_sdf=True,
+                pred_semantic=flags.pred_semantic, mesh=mesh)
+            occ_logits = occ_logits[..., 0]
+            pred_sdf_g = pred_sdf[..., 0]
 
-        target_sdf = geo_losses.compute_targets(batch["target_sdf"], trunc)
-        known = None
-        if cfg.use_loss_masking and "known" in batch:
-            known = batch["known"] <= 1  # reference train.py:445-446
-        input_sdf = batch["input"][..., 0]
-        input_occ = input_sdf.abs() < trunc - 0.01
-        weight = geo_losses.dense_geo_weights(
-            target_sdf, input_occ, trunc, cfg.weight_surf_geo, cfg.weight_missing_geo)
-        # zero loss where the model predicts empty (train.py:479-481)
-        empty = torch.sigmoid(occ_logits.detach()) < 0.5
-        weight = torch.where(empty, 0.0, weight)
+        with timing.span("train.losses3d"):
+            target_sdf = geo_losses.compute_targets(batch["target_sdf"], trunc)
+            known = None
+            if cfg.use_loss_masking and "known" in batch:
+                known = batch["known"] <= 1  # reference train.py:445-446
+            input_sdf = batch["input"][..., 0]
+            input_occ = input_sdf.abs() < trunc - 0.01
+            weight = geo_losses.dense_geo_weights(
+                target_sdf, input_occ, trunc, cfg.weight_surf_geo, cfg.weight_missing_geo)
+            # zero loss where the model predicts empty (train.py:479-481)
+            empty = torch.sigmoid(occ_logits.detach()) < 0.5
+            weight = torch.where(empty, 0.0, weight)
 
-        loss_occ = geo_losses.occ_loss(target_sdf, occ_logits, known, weight, trunc, mesh)
-        # weight_occ is 1 during the geo-only phase, weight_occ_loss after
-        # (train.py:476)
-        loss = batch["weight_occ"] * loss_occ
-        metrics["loss_occ"] = loss_occ
-        metrics["iou_occ"] = geo_losses.occ_iou(target_sdf, occ_logits.detach(), known, trunc,
-                                                mesh)
+            loss_occ = geo_losses.occ_loss(target_sdf, occ_logits, known, weight, trunc, mesh)
+            # weight_occ is 1 during the geo-only phase, weight_occ_loss after
+            # (train.py:476)
+            loss = batch["weight_occ"] * loss_occ
+            metrics["loss_occ"] = loss_occ
+            metrics["iou_occ"] = geo_losses.occ_iou(target_sdf, occ_logits.detach(), known, trunc,
+                                                    mesh)
 
-        if flags.pred_sdf and cfg.weight_sdf_loss > 0:
-            loss_sdf = geo_losses.sdf_l1_loss(
-                target_sdf, pred_sdf_g, known, weight, cfg.logweight_sdf, mesh)
-            loss = loss + cfg.weight_sdf_loss * loss_sdf
-            metrics["loss_sdf"] = loss_sdf
+            if flags.pred_sdf and cfg.weight_sdf_loss > 0:
+                loss_sdf = geo_losses.sdf_l1_loss(
+                    target_sdf, pred_sdf_g, known, weight, cfg.logweight_sdf, mesh)
+                loss = loss + cfg.weight_sdf_loss * loss_sdf
+                metrics["loss_sdf"] = loss_sdf
 
-        # sparsification mask of the prediction (train.py:493-498)
-        surface_pred = (pred_sdf_g.detach().abs() < trunc) & ~empty
+            # sparsification mask of the prediction (train.py:493-498)
+            surface_pred = (pred_sdf_g.detach().abs() < trunc) & ~empty
 
-        if flags.pred_semantic and cfg.pred_3d_semantic:
-            loss_sem = sem_losses.semantic_3d_loss(
-                pred_sem, batch["semantics"], surface_pred, self.class_weights, mesh)
-            loss = loss + cfg.weight_semantic_loss * loss_sem
-            metrics["loss_semantic"] = loss_sem
+            if flags.pred_semantic and cfg.pred_3d_semantic:
+                loss_sem = sem_losses.semantic_3d_loss(
+                    pred_sem, batch["semantics"], surface_pred, self.class_weights, mesh)
+                loss = loss + cfg.weight_semantic_loss * loss_sem
+                metrics["loss_semantic"] = loss_sem
 
         zero = torch.zeros((), device=self.device)
         aux = dict(synth=None, target_img=None, valid_patches=None, gate2d=zero,
                    gate_depth=zero, sample_weight_real=None, sample_weight_fake=None,
                    weight_color_disc=None)
         if flags.use_2d:
-            loss2d, metrics2d, aux2d = self._2d_losses(
-                batch, flags, target_sdf, pred_sdf_g, pred_color, pred_sem, surface_pred,
-                precomp)
+            with timing.span("train.twod", stream=True):
+                loss2d, metrics2d, aux2d = self._2d_losses(
+                    batch, flags, target_sdf, pred_sdf_g, pred_color, pred_sem, surface_pred,
+                    precomp)
             loss = loss + loss2d
             metrics.update(metrics2d)
             aux.update(aux2d)
@@ -502,7 +537,8 @@ class Trainer:
                 images_depth, intr, cfg.max_depth_fill_iters)
         # the reference skips the sample when holes remain (train.py:539-541)
         gate2d = pmesh.all_min(frames_ok.all().float(), mesh)
-        view_inv_rot = torch.linalg.inv(view)[:, :3, :3]
+        # on a card torch.linalg.inv synchronises (it checks its result)
+        view_inv_rot = _host_read(torch.linalg.inv, view)[:, :3, :3]
 
         # per-pixel colour weights where the input misses the target (train.py:546-554)
         weight_color = missing2d = None
