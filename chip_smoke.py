@@ -143,7 +143,8 @@ CUDA device or if any phase fails. Phases, each printing one JSON line:
            against the same step of a twin whose convs are the plain versions
            differentiated by autograd (metrics and every parameter gradient);
            launch counters per step (23 fused forward, 5 + 25 bare forward and
-           dx, 25 dW; geometry-only flags: 9, 2 + 11, 11); three more steps
+           dx, 25 dW, 7 library convs' dW (libconv_dw); geometry-only flags: 9,
+           2 + 11, 11, 3); three more steps
            (finite, parameters and running statistics move), timed; device
            time of one step by kind of kernel; a 16^3 / nf 4 step on the GPU
            against the same step on the CPU
@@ -157,7 +158,7 @@ CUDA device or if any phase fails. Phases, each printing one JSON line:
            step (23 fused, 5 + 28 bare forward and dx, 28 dW: the 2D losses reach
            the colour head; K4 3, K5 3, K6 1, K12 3, K9 1, K10 1 (one
            cooperative launch runs every round of the fill), K11 1 (run as
-           the last phase of that launch)) and the
+           the last phase of that launch), libconv_dw 7) and the
            depth chain's host reads (0 on the kernels);
            one step against a twin with the plain convs and the plain raycaster
            (metrics, every parameter gradient of the generator; the
@@ -215,7 +216,8 @@ CUDA device or if any phase fails. Phases, each printing one JSON line:
            the full step of train2d at TrainConfig() width with
            compute_dtype="bfloat16" (the generator's blocks in bf16; its
            parameters, Adam state, heads and losses and the discriminator in
-           float32): the launches as in train2d, every block's conv through the
+           float32): the launches as in train2d but libconv_dw 0 (the library
+           convs in bf16 keep cuDNN's dW), every block's conv through the
            bf16 variants of K1-K3 and the four heads' (4 forward, 4 dx, 4 dW) in
            float32, counted by storage type; parameters and Adam state finite
            float32; its metrics against the float32 step's on the same batch and
@@ -268,7 +270,8 @@ CUDA device or if any phase fails. Phases, each printing one JSON line:
            batch) with each flag and with remat beside the default step, each
            trainer from the same state: launches per step (K1 33, K2 28, K3 23
            with either flag; with remat K1 38 and K3 46: every block's forward
-           kernel once more in the backward), metrics within 1e-4 relative (2D
+           kernel once more in the backward; libconv_dw 7, 0 with zslab_conv, 5
+           with folded_conv), metrics within 1e-4 relative (2D
            and adversarial 1e-3) and the generator's gradients held to the
            gradient rule against the default step (Tolerances, below),
            one warm-up and three timed steps (median seconds, peak memory) and
@@ -346,7 +349,20 @@ CUDA device or if any phase fails. Phases, each printing one JSON line:
            once in each mode; max_dilation 2 on seeded weights: one window
            batch against its plain-conv twin (1e-3; 27 launches, geo_1d off
            K1 / K3) and one full step against its plain twin (launches K3 22,
-           K1 32, K2 27; metrics as train2d's, gradients by the gradient rule)
+           K1 32, K2 27, libconv_dw 7; metrics as train2d's, gradients by the gradient rule)
+  libconv_dw
+           the library convs' weight gradient (ops/libconv_dw.py,
+           libconv_dw_kernel + libconv_dw_join_kernel in csrc/conv3x3_dw.cu):
+           every variant of libconv_dw_kernel has HMMA in its machine code; at
+           each of the generator's seven library convs (nf 20, (128,64,64)
+           chunks) at batch 2 and 8, the kernel against
+           torch.nn.grad.conv3d_weight in true float32 (within 1e-4 of
+           max|dW|) and, at batch 2, in float64 (reported), two calls bit-equal, its time
+           beside cuDNN's float32 wgrad and the 3xTF32 bound; the same checks
+           on shapes off the path (ragged tiles, a tail chunk of channels, Cout
+           split over blocks, 3^3 stride 2, inputs at an odd address); then the
+           generator's train forward and backward at batch 2, with and without
+           remat: kernel launches equal to the counter train.libconv_dw (7)
   kernels  one line {"kernels": [...]}: per kernel its launches on the
            paths (serve, scene, train, train2d, train2d_missing_colour,
            train2d_style, train2d_bf16, train_cli, datagen, parallel_train,
@@ -361,7 +377,8 @@ CUDA device or if any phase fails. Phases, each printing one JSON line:
            heaviest main-path shape (for the raycaster's, the prediction grid
            at the path's size; for K7 the
            mask with the most samples; for K8 the mean of 8 of the room scan's
-           frames), with every shape (and, for the convs,
+           frames; for libconv_dw the seven library convs summed at batch 2),
+           with every shape (and, for the convs,
            both storage types) nested inside
   last     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}
 
@@ -370,7 +387,7 @@ Options (none when the script is run as the check of a checkout):
            metrics and conv_forms take scene, parallel takes path and scene);
            device and build always run; the kernels line lists the launches of
            the paths that ran, and a kernel's times only if its compare phase
-           (compare, compare_raycast, datagen) ran
+           (compare, compare_raycast, datagen, libconv_dw) ran
   --baseline-source PATH  another version of csrc/conv3x3.cu (e.g. the parent
            commit's, unpacked with git archive): built beside this one, and its
            K1 / K3 timed at every shape in turns with this one (baseline, this,
@@ -434,6 +451,7 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -457,15 +475,17 @@ from spsg_tpu_torch.datagen import fusion as tsdf  # noqa: E402
 from spsg_tpu_torch.inference import chunked  # noqa: E402
 from spsg_tpu_torch.losses import geo as geo_losses  # noqa: E402
 from spsg_tpu_torch.models import convert  # noqa: E402
+from spsg_tpu_torch.models import generator as tg_models  # noqa: E402
 from spsg_tpu_torch.models.generator import ConvBlock, use_true_float32  # noqa: E402
 from spsg_tpu_torch.ops import _build, conv3x3 as conv_ops  # noqa: E402
+from spsg_tpu_torch.ops import libconv_dw as libconv_ops  # noqa: E402
 from spsg_tpu_torch.ops.folded_conv import conv_folded, pick_fold  # noqa: E402
 from spsg_tpu_torch.ops.zslab_conv import conv3d_zslab  # noqa: E402
 from spsg_tpu_torch.ops import depth as depth_ops, normals3d, raycast as rc_ops  # noqa: E402
 from spsg_tpu_torch.training import StepFlags, TrainConfig  # noqa: E402
 from spsg_tpu_torch.training import state  # noqa: E402
 from spsg_tpu_torch.training.step import Trainer  # noqa: E402
-from spsg_tpu_torch.utils import goldens  # noqa: E402
+from spsg_tpu_torch.utils import goldens, timing  # noqa: E402
 
 DEV = torch.device("cuda:0")
 T0 = time.time()
@@ -500,6 +520,9 @@ KERNELS = {
     "depth_normals": ("spsg_tpu_torch/ops/csrc/depth.cu", "spsg_tpu/ops/depth.py:103"),
     # the TSDF integrate of dataset generation (spsg_tpu/datagen/fusion.py, XLA)
     "tsdf_integrate": ("spsg_tpu_torch/ops/csrc/tsdf.cu", "spsg_tpu/datagen/fusion.py:77"),
+    # the weight gradient of the generator's library convs (XLA's, of the nn.Conv
+    # of spsg_tpu/models/generator.py::ConvBlock; no Pallas kernel)
+    "libconv_dw": ("spsg_tpu_torch/ops/csrc/conv3x3_dw.cu", "spsg_tpu/models/generator.py:367"),
 }
 CONV_KERNELS = ("conv3x3", "conv3x3_act_stats", "conv3x3_dw")
 RAYCAST_KERNELS = ("raycast_march", "raycast_shade", "raycast_scatter", "raycast_occ")
@@ -561,11 +584,12 @@ def emit(phase, **kw):
 
 def all_launch_counts():
     return {**conv_ops.launch_counts, **rc_ops.launch_counts, **tsdf.launch_counts,
-            **depth_ops.launch_counts}
+            **depth_ops.launch_counts, **libconv_ops.launch_counts}
 
 
 def reset_all_launch_counts():
     conv_ops.reset_launch_counts()
+    libconv_ops.reset_launch_counts()
     rc_ops.reset_launch_counts()
     tsdf.reset_launch_counts()
     depth_ops.reset_launch_counts()
@@ -2080,7 +2104,7 @@ def phase_path(tmp, par):
 
     want = {"conv3x3_act_stats": 23 * 4, "conv3x3": 5 * 4, "conv3x3_dw": 0,
             "raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0, "raycast_occ": 0,
-            "tsdf_integrate": 0, **NO_SETUP_DEPTH}
+            "tsdf_integrate": 0, "libconv_dw": 0, **NO_SETUP_DEPTH}
     if launches != want:
         raise SystemExit(f"chip_smoke: launches on the main path {launches}, expected {want}")
     out = seen["out"]
@@ -2342,7 +2366,7 @@ def phase_scene(tmp, rc_results, par):
 
     want = {"conv3x3_act_stats": 23, "conv3x3": 5, "conv3x3_dw": 0, "raycast_march": 3,
             "raycast_shade": 3, "raycast_scatter": 0, "raycast_occ": 0, "tsdf_integrate": 0,
-            **NO_SETUP_DEPTH, "raycast_setup": 3}
+            "libconv_dw": 0, **NO_SETUP_DEPTH, "raycast_setup": 3}
     if launches != want:
         raise SystemExit(f"chip_smoke: launches on the scene path {launches}, expected {want}")
     out = seen["out"]
@@ -2680,10 +2704,11 @@ def phase_train():
         raise SystemExit("chip_smoke: the plain-conv twin launched a kernel")
     yard = yardstick_step(yard, batch, full, False)
     # (b) launch counters of one step: 28 eligible convs forward, 25 backward (the
-    # three convs of the colour head have no loss without the 2D terms); no raycast
+    # three convs of the colour head have no loss without the 2D terms); the seven
+    # library convs' dW; no raycast
     want = {"conv3x3_act_stats": 23, "conv3x3": 5 + 25, "conv3x3_dw": 25,
             "raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0, "raycast_occ": 0,
-            "tsdf_integrate": 0, **NO_SETUP_DEPTH}
+            "tsdf_integrate": 0, "libconv_dw": 7, **NO_SETUP_DEPTH}
     if launches != want:
         raise SystemExit(f"chip_smoke: launches of one train step {launches}, expected {want}")
     rec = dict(config=dict(nf_gen=cfg.nf_gen, input_dim=list(cfg.input_dim),
@@ -2732,9 +2757,10 @@ def phase_train():
     gm = trainer.step(batch, geo)
     torch.cuda.synchronize()
     geo_seconds = time.time() - t
+    # (the geometry net's three library convs: geo_0a, geo_0b, geo_1a)
     want = {"conv3x3_act_stats": 9, "conv3x3": 2 + 11, "conv3x3_dw": 11,
             "raycast_march": 0, "raycast_shade": 0, "raycast_scatter": 0, "raycast_occ": 0,
-            "tsdf_integrate": 0, **NO_SETUP_DEPTH}
+            "tsdf_integrate": 0, "libconv_dw": 3, **NO_SETUP_DEPTH}
     if all_launch_counts() != want:
         raise SystemExit(f"chip_smoke: launches of one geometry-only step "
                          f"{all_launch_counts()}, expected {want}")
@@ -2806,7 +2832,9 @@ WANT_2D = {"conv3x3_act_stats": 23, "conv3x3": 5 + 28, "conv3x3_dw": 28,
            "raycast_march": 3, "raycast_shade": 3, "raycast_scatter": 1, "raycast_occ": 0,
            "tsdf_integrate": 0, "raycast_setup": 3, "depth_bilateral": 1,
            # one cooperative launch of K10 runs every round of the fill
-           "depth_median_round": 1, "depth_normals": 1}
+           "depth_median_round": 1, "depth_normals": 1,
+           # the dW of the seven library convs, in float32
+           "libconv_dw": 7}
 # the 2D and adversarial metrics of two float32 forwards part where a
 # prediction pixel's hit flips (one pixel moves a mean over a few thousand by
 # ~1e-4): those are held to 1e-3, the 3D metrics to 1e-4
@@ -4163,9 +4191,11 @@ def phase_train2d_bf16(train2d_device):
     # semantic_head_c) in float32: their forward and dx by K1, their dW by K2
     want_types = {("forward", "torch.bfloat16"): 56 - 8, ("forward", "torch.float32"): 8,
                   ("dw", "torch.bfloat16"): 28 - 4, ("dw", "torch.float32"): 4}
-    if launches != WANT_2D or seen != want_types:
+    # the library convs in bf16 keep the library's weight gradient
+    want = dict(WANT_2D, libconv_dw=0)
+    if launches != want or seen != want_types:
         raise SystemExit(f"chip_smoke: launches of one bf16 step {launches} (by storage type "
-                         f"{seen}), expected {WANT_2D} ({want_types})")
+                         f"{seen}), expected {want} ({want_types})")
     params = [p for p in trainer.generator.parameters()]
     adam = [v for s in trainer.optimizer.state.values() for k, v in s.items()
             if k in ("exp_avg", "exp_avg_sq")]
@@ -4238,6 +4268,10 @@ FORM_FLAGS = ("zslab_conv", "folded_conv")
 # the full step's launches with remat: every block's forward kernel once more
 # in the backward (23 fused, 5 bare), the rest as WANT_2D
 WANT_2D_REMAT = dict(WANT_2D, conv3x3_act_stats=2 * 23, conv3x3=2 * 5 + 28)
+# the library convs whose dW is the hand kernel's with each form: zslab_conv takes
+# all seven, folded_conv the two 5^3 entry convs
+WANT_2D_FORMS = {"zslab_conv": dict(WANT_2D, libconv_dw=0),
+                 "folded_conv": dict(WANT_2D, libconv_dw=5), "remat": WANT_2D_REMAT}
 FORM_REPS = 5
 # the gradient witness: the full step from these seeds' weights (batches 7 + seed)
 WITNESS_SEEDS = (0, 1, 2)
@@ -4400,7 +4434,7 @@ def conv_forms_steps():
         metrics = tr.step(batch, flags)
         torch.cuda.synchronize()
         launches[name] = all_launch_counts()
-        want = WANT_2D_REMAT if name == "remat" else WANT_2D
+        want = WANT_2D_FORMS.get(name, WANT_2D)
         if launches[name] != want:
             raise SystemExit(f"chip_smoke: conv_forms: launches of the full step with {name} "
                              f"{launches[name]}, expected {want}")
@@ -5217,7 +5251,7 @@ def phase_trained(tmp, smi, scene_rec):
     paths["trained_scene"] = all_launch_counts()
     want = {"conv3x3_act_stats": 23, "conv3x3": 5, "conv3x3_dw": 0, "raycast_march": 3,
             "raycast_shade": 3, "raycast_scatter": 0, "raycast_occ": 0, "tsdf_integrate": 0,
-            **NO_SETUP_DEPTH, "raycast_setup": 3}
+            "libconv_dw": 0, **NO_SETUP_DEPTH, "raycast_setup": 3}
     if paths["trained_scene"] != want or len(renders) != 3 or not all(
             np.isfinite(o).all() for o in wseen["out"]):
         raise SystemExit(f"chip_smoke: trained whole scene: launches {paths['trained_scene']}, "
@@ -5319,7 +5353,7 @@ PAR_WORLD = 2
 PAR_CLI_ARGS = ["--synthetic_chunks", "4", "--max_epoch", "1", "--num_iters_geo_only", "0",
                 "--no_vis"]
 # the kernels each parallel path must launch (the counts of both ranks, summed)
-PAR_PATHS = {"parallel_train": CONV_KERNELS,
+PAR_PATHS = {"parallel_train": CONV_KERNELS + ("libconv_dw",),
              "parallel_chunked": ("conv3x3", "conv3x3_act_stats"),
              "parallel_scene": ("conv3x3", "conv3x3_act_stats")}
 
@@ -5571,6 +5605,114 @@ def phase_parallel(par, smi):
     return by_path
 
 
+# --------------------------------------------------------------------------- libconv_dw
+# the generator's seven library convs at nf 20 on (128,64,64) chunks:
+# (input extent, Cin, Cout, kernel, stride, padding)
+LIBCONV_LAYERS = {
+    "geo_0a": ((128, 64, 64), 1, 10, 5, 1, 2),
+    "geo_0b": ((128, 64, 64), 10, 20, 4, 2, 1),
+    "geo_1a": ((64, 32, 32), 20, 40, 4, 2, 1),
+    "encoder_0a": ((128, 64, 64), 4, 20, 5, 1, 2),
+    "encoder_0b": ((128, 64, 64), 20, 40, 4, 2, 1),
+    "encoder_geo": ((128, 64, 64), 20, 20, 4, 2, 1),
+    "encoder_1a": ((64, 32, 32), 60, 100, 4, 2, 1),
+}
+
+
+# shapes off the generator's path: ragged tiles, a tail chunk of input channels,
+# Cout split over blocks, a 3^3 stride-2 conv, and inputs at an odd address
+LIBCONV_EDGES = {
+    "ragged_5": ((13, 21, 19), 3, 7, 5, 1, 2),
+    "tail_chunk_split_cout": ((10, 18, 22), 7, 100, 4, 2, 1),
+    "odd_3_stride2": ((9, 9, 9), 5, 9, 3, 2, 1),
+    "unaligned": ((16, 20, 24), 4, 20, 4, 2, 1),
+}
+
+
+def libconv_dw_layer(name, batch, gen):
+    """One library conv's weight gradient at ``batch``: the kernel against the
+    library's in true float32 and in float64, two calls, times."""
+    dims, cin, cout, k, s, p = {**LIBCONV_LAYERS, **LIBCONV_EDGES}[name]
+    out = tuple((n + 2 * p - k) // s + 1 for n in dims)
+    if name == "unaligned":  # contiguous views one float past an aligned start
+        x = torch.randn(batch * math.prod(dims) * cin + 1, device="cuda", generator=gen)
+        dy = torch.randn(batch * math.prod(out) * cout + 1, device="cuda", generator=gen)
+        x, dy = x[1:].view((batch,) + dims + (cin,)), dy[1:].view((batch,) + out + (cout,))
+    else:
+        x = torch.randn((batch,) + dims + (cin,), device="cuda", generator=gen)
+        dy = torch.randn((batch,) + out + (cout,), device="cuda", generator=gen)
+    got = libconv_ops.libconv_dw(x, dy, k, s, p)
+    again = libconv_ops.libconv_dw(x, dy, k, s, p)
+    ref = libconv_ops.libconv_dw_plain(x, dy, k, s, p)
+    ref64 = None
+    if batch == 2:  # cuDNN's float64 wgrad takes seconds a layer at batch 8
+        ref64 = torch.nn.grad.conv3d_weight(x.double().permute(0, 4, 1, 2, 3), tuple(ref.shape),
+                                            dy.double().permute(0, 4, 1, 2, 3), s, p)
+    err = ((got - ref).abs().max() / ref.abs().max()).item()
+    abs_err = (got - ref).abs().max().item()
+    flops = 2.0 * k ** 3 * cin * cout * batch * math.prod(out)
+    nbytes = 4.0 * (x.numel() + dy.numel() + got.numel())
+    t_ops, t_bytes = PASSES[torch.float32] * flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES
+    rec = dict(layer=name, batch=batch, x=list(x.shape), dy=list(dy.shape), kernel=k, stride=s,
+               padding=p, max_rel_err=err, max_abs_err=abs_err,
+               max_rel_err_float64="not measured" if ref64 is None else
+               ((got.double() - ref64).abs().max() / ref64.abs().max()).item(),
+               library_max_rel_err_float64="not measured" if ref64 is None else
+               ((ref.double() - ref64).abs().max() / ref64.abs().max()).item(),
+               bit_equal=bool(torch.equal(got, again)),
+               ms=cuda_ms(lambda: libconv_ops.libconv_dw(x, dy, k, s, p), 10),
+               library_ms=cuda_ms(lambda: libconv_ops.libconv_dw_plain(x, dy, k, s, p), 3),
+               bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    if not (err <= 1e-4 and rec["bit_equal"] and torch.isfinite(got).all()):
+        raise SystemExit(f"chip_smoke: libconv_dw at {name}, batch {batch}: {rec}")
+    return rec
+
+
+def libconv_dw_launches(remat):
+    """Kernel launches and the counter train.libconv_dw of one train forward
+    and backward of the nf-20 generator at batch 2."""
+    gen = tg_models.Generator(tg_models.GeneratorConfig(remat=remat)).cuda().train()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.rand((2, 128, 64, 64, 4), device="cuda", generator=g) * 6 - 3
+    m = (torch.rand((2, 128, 64, 64, 1), device="cuda", generator=g) > 0.5).float()
+    libconv_ops.reset_launch_counts()
+    timing.drain()  # what the profiled phases before this one left in the record
+    timing.enable()
+    try:
+        outs = gen(x, m, **FULL_3D)
+        sum((o.float() ** 2).mean() for o in outs).backward()
+        torch.cuda.synchronize()
+    finally:
+        timing.disable()
+    counted = timing.drain()["counts"].get("train.libconv_dw", 0)
+    launches = libconv_ops.launch_counts["libconv_dw"]
+    if not launches == counted == 7:
+        raise SystemExit(f"chip_smoke: libconv_dw: {launches} launches, counter {counted}, "
+                         f"remat {remat}; want 7 and 7")
+    return dict(remat=remat, launches=launches, counter=counted)
+
+
+def phase_libconv_dw():
+    use_true_float32()
+    hmma = _build.sass_summary("conv3x3_dw")
+    variants = {k: v for k, v in hmma.items() if "libconv_dw_kernel" in k} \
+        if "error" not in hmma else {}
+    if "error" not in hmma and (not variants or not all(v > 0 for v in variants.values())):
+        raise SystemExit(f"chip_smoke: libconv_dw_kernel variants without HMMA: "
+                         f"{[k for k, v in variants.items() if not v > 0] or 'none built'}")
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    layers = [libconv_dw_layer(name, batch, gen) for batch in (2, 8) for name in LIBCONV_LAYERS]
+    totals = {b: {k: sum(r[k] for r in layers if r["batch"] == b)
+                  for k in ("ms", "library_ms", "bound_ms")} for b in (2, 8)}
+    edges = [libconv_dw_layer(name, 2, gen) for name in LIBCONV_EDGES]
+    emit("libconv_dw", hmma=variants if "error" not in hmma else "not measured",
+         layers=layers, totals_by_batch=totals, edges=edges,
+         launches=[libconv_dw_launches(False), libconv_dw_launches(True)])
+    return dict(layers=layers, edges=edges, totals_by_batch=totals)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of spsg_tpu_torch on one GPU.")
     ap.add_argument("--baseline-source", default=None,
@@ -5612,7 +5754,7 @@ def main(argv=None):
 # run); a phase that reads another's outputs takes it along (NEEDS)
 PHASES = ("compare", "compare_raycast", "path", "scene", "metrics", "train", "train2d",
           "train2d_style", "train2d_bf16", "conv_forms", "train_cli", "datagen", "parallel",
-          "trained")
+          "trained", "libconv_dw")
 NEEDS = {"metrics": ("scene",), "conv_forms": ("scene",), "parallel": ("path", "scene")}
 
 
@@ -5677,27 +5819,33 @@ def run_phases(args, par):
         if rc_results is not None:
             rc_results["raycast_march"].append(trained_renders[0])
             rc_results["raycast_shade"].append(trained_renders[1])
+    libconv_rec = phase_libconv_dw() if "libconv_dw" in run else None
     print(f"gradient rule: its yardstick steps took {RULE_SECONDS[0]:.1f} s", flush=True)
 
     # the kernels of each path: serving runs the two forward kernels, the 3D
-    # training step all three conv kernels, the full step (with style / content
-    # too) all but the occupancy march, which only the missing-colour weights
-    # run; the train CLI as the full step (bf16 too); datagen the TSDF integrate;
-    # the trained model's validation pass the forward kernels and the renders
+    # training step all three conv kernels and the library convs' dW, the full
+    # step (with style / content too) all but the occupancy march, which only the
+    # missing-colour weights run; in bf16 and with zslab_conv the full step but the
+    # library convs' dW; the train CLI as the full step; datagen the TSDF
+    # integrate; the trained model's validation pass the forward kernels and the
+    # renders
     training = tuple(k for k in KERNELS if k != "tsdf_integrate")
     full_step = tuple(k for k in training if k != "raycast_occ")
+    library_dw = tuple(k for k in full_step if k != "libconv_dw")
     forward = ("conv3x3", "conv3x3_act_stats")
     rendered = forward + ("raycast_setup", "raycast_march", "raycast_shade")
-    on_path = {"serve": forward, "scene": rendered, "train": CONV_KERNELS,
+    on_path = {"serve": forward, "scene": rendered, "train": CONV_KERNELS + ("libconv_dw",),
                "train2d": full_step, "train2d_missing_colour": training,
-               "train2d_style": full_step, "train2d_bf16": full_step, "train_cli": full_step,
+               "train2d_style": full_step, "train2d_bf16": library_dw, "train_cli": full_step,
                "datagen": ("tsdf_integrate",), **PAR_PATHS,
                "trained_chunked": forward, "trained_scene": rendered,
                "trained_validation": rendered + DEPTH_KERNELS, "dilation2_window": forward,
                "dilation2_step": full_step}
     for path in by_path:
-        if path.startswith(("train2d_zslab", "train2d_folded", "train2d_remat",
-                            "trained_style_", "trained_largest_batch")):
+        if path in ("train2d_zslab_conv", "trained_style_bfloat16"):
+            on_path[path] = library_dw
+        elif path.startswith(("train2d_folded", "train2d_remat", "trained_style_",
+                              "trained_largest_batch")):
             on_path[path] = full_step
         elif path.startswith("scene_"):
             on_path[path] = forward
@@ -5737,6 +5885,18 @@ def run_phases(args, par):
             measured_at = dict(grid=head["grid"], dims=head["dims"], image=head["image"],
                                dtype="float32")
             detail = dict(cases=recs)
+        elif name == "libconv_dw" and libconv_rec is not None:
+            # all seven library convs at the training batch, summed; the plain
+            # version is the library's weight gradient
+            recs = libconv_rec["layers"] + libconv_rec["edges"]
+            b2 = libconv_rec["totals_by_batch"][2]
+            head = dict(ms=b2["ms"], plain_ms=b2["library_ms"], library_ms=b2["library_ms"],
+                        bound_ms=b2["bound_ms"], bound_by="operations" if all(
+                            r["bound_by"] == "operations" for r in libconv_rec["layers"]
+                            if r["batch"] == 2) else "operations and bytes")
+            measured_at = dict(layers=list(LIBCONV_LAYERS), batch=2, dtype="float32",
+                               summed=True)
+            detail = dict(cases=recs, totals_by_batch=libconv_rec["totals_by_batch"])
         numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,

@@ -26,7 +26,12 @@ downsamplers; ``geo_1d`` too with ``max_dilation > 1``):
   (``ops/folded_conv.py``), as z-slab convs too: on an H100 the z-slab form
   is the faster of the two on both layers (PERF.md, the conv forms' table);
 - else (the default) ``F.conv3d`` on the ``(B, C, Z, Y, X)`` view of the same
-  memory (``channels_last_3d`` strides, no copy).
+  memory (``channels_last_3d`` strides, no copy). A layer that trains in
+  float32 with dilation 1 (train mode, grad enabled, the weight requiring it)
+  takes the same forward and input gradient through
+  ``ops/libconv_dw.py::library_conv``, whose weight gradient is a hand kernel;
+  each such call counts ``train.libconv_dw`` (``utils/timing.py``), and each
+  other library conv of a training forward counts 0 there.
 
 ``GeneratorConfig.remat`` (train mode) recomputes each conv block's
 activations in the backward instead of keeping them (the JAX package's
@@ -70,8 +75,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import conv3x3 as conv_ops
+from ..ops.libconv_dw import library_conv
 from ..ops.zslab_conv import conv3d_zslab
 from ..parallel import mesh as pmesh
+from ..utils import timing
 
 NUM_CLASSES = 14
 
@@ -182,13 +189,15 @@ class ConvBlock(nn.Module):
     float32 kernel).
 
     ``plain_convs`` is a testing hook: it sends eligible layers through the
-    kernels' plain versions on any device, so that a run with the kernels can
-    be held against a run without them. It is not consulted as a fallback.
+    kernels' plain versions and the library convs' weight gradient through the
+    library on any device, so that a run with the kernels can be held against
+    a run without them. It is not consulted as a fallback.
 
     ``route`` says how the conv is computed: ``"hand"`` (eligible: the kernels
     of ``ops/conv3x3.py``, under every flag), ``"zslab"`` (``zslab_conv``: every
     other conv; ``folded_conv``: the odd, cubic, stride-1, dilation-1 SAME
-    convs that are not eligible) or ``"library"`` (``F.conv3d``).
+    convs that are not eligible) or ``"library"`` (``F.conv3d``; its weight
+    gradient by hand where :meth:`hand_dw` says so).
 
     ``forward(x, mesh, spatial)``: ``mesh`` makes a train-mode BatchNorm's
     statistics global (:class:`BatchNorm`). ``spatial`` (eval mode) serves a
@@ -220,19 +229,31 @@ class ConvBlock(nn.Module):
         # training/state.py::init_generator re-draws from an explicit Generator
         nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
         self.bn = BatchNorm(features) if bn else None
+        self.replay = False
 
     @contextlib.contextmanager
     def replaying(self):
         """While a rematerialised block is recomputed in the backward: its
-        BatchNorm leaves the running statistics alone."""
-        if self.bn is None:
-            yield
-            return
-        self.bn.update_running = False
+        BatchNorm leaves the running statistics alone, and the block counts
+        nothing."""
+        self.replay = True
+        if self.bn is not None:
+            self.bn.update_running = False
         try:
             yield
         finally:
-            self.bn.update_running = True
+            self.replay = False
+            if self.bn is not None:
+                self.bn.update_running = True
+
+    def hand_dw(self, dt) -> bool:
+        """Whether a ``"library"`` conv computing in ``dt`` takes
+        ``library_conv``, whose weight gradient is the hand kernel: float32,
+        dilation 1, in training with a weight gradient to compute (and not
+        under the ``plain_convs`` hook, which runs no hand kernel)."""
+        return (self.route == "library" and self.dilation == 1 and dt == torch.float32
+                and self.training and torch.is_grad_enabled() and self.weight.requires_grad
+                and not self.plain_convs)
 
     def _library_conv(self, x, dt, halo):
         """The conv of a layer the hand kernels do not take, by its route;
@@ -242,6 +263,13 @@ class ConvBlock(nn.Module):
         if self.route == "zslab":
             return conv3d_zslab(x, w.permute(2, 3, 4, 1, 0), self.stride,
                                 (p, 0, p) if halo else p, self.dilation)
+        hand = self.hand_dw(dt)
+        if self.training and torch.is_grad_enabled() and not self.replay:
+            # a layer that keeps the library's weight gradient (bf16, dilation 2)
+            # counts 0: where none takes the hand kernel the counter reads 0
+            timing.count("train.libconv_dw", int(hand))
+        if hand:
+            return library_conv(x, w, self.stride, p)
         y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, None, self.stride,
                      (p, 0, p) if halo else p, self.dilation)
         return y.permute(0, 2, 3, 4, 1)

@@ -82,6 +82,13 @@ def _bind_dw(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.spsg_conv3x3_dw_slices.argtypes = [i, i, i, i, i, i, i]
     lib.spsg_conv3x3_dw_launch.restype = ctypes.c_int
     lib.spsg_conv3x3_dw_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
+    # the library convs' weight gradient (ops/libconv_dw.py); an older version
+    # of the source, built to be timed beside this one, may have K2 alone
+    if hasattr(lib, "spsg_libconv_dw_launch"):
+        lib.spsg_libconv_dw_slices.restype = ctypes.c_int
+        lib.spsg_libconv_dw_slices.argtypes = [p, p, i, i, i, i, i, i, i, i, i]
+        lib.spsg_libconv_dw_launch.restype = ctypes.c_int
+        lib.spsg_libconv_dw_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
     return lib
 
 

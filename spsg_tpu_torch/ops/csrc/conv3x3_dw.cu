@@ -1,6 +1,8 @@
 // Weight gradient of the 3x3x3, stride-1, zero-pad-1, channel-last 3D
 // convolution for Hopper (sm_90a), as a split-K GEMM on the tensor cores
-// (mma.sync, TF32).
+// (mma.sync, TF32). The weight gradient of the generator's other convs (the
+// library convs: 5^3 and 4^3 stride 2) follows K2 below, from "Weight
+// gradient of the generator's library convs".
 //
 // Replaces the TPU kernel _dw_kernel (spsg_tpu/ops/pallas_conv.py:104,
 // launcher _conv3x3_dw_impl) of the JAX package. For tap = (dz, dy, dx):
@@ -545,4 +547,516 @@ extern "C" int spsg_conv3x3_dw_launch(const void* x, const void* dy, void* parti
     return (int)cudaGetLastError();
   }
   return 0;
+}
+
+// ===========================================================================
+// Weight gradient of the generator's library convs (ops/libconv_dw.py): the
+// cubic convs that are not 3x3x3 / stride 1, as the generator has them the
+// 5^3 / stride-1 / pad-2 entry convs (geo_0a 1 -> 10, encoder_0a 4 -> 20) and
+// the 4^3 / stride-2 / pad-1 downsamplers (geo_0b, geo_1a, encoder_0b,
+// encoder_geo, encoder_1a); any kernel size K <= 8, stride 1 or 2, symmetric
+// padding, any Cin and Cout, float32 storage only. No TPU kernel stands behind
+// it: the JAX package left these convs to XLA. For tap = (kz, ky, kx):
+//   dW[co, ci, kz, ky, kx] = sum over (b, z, y, x) of
+//                            xpad[b, S*z+kz, S*y+ky, S*x+kx, ci] * dy[b, z, y, x, co]
+// x (B,Z,Y,X,Cin) and dy (B,OZ,OY,OX,Cout) channel-last; dW in PyTorch's
+// weight layout (Cout, Cin, K, K, K).
+//
+// What bounds it on an H100: operations (2*K^3*Cin*Cout flops per output
+// voxel against Cin*S^3 + Cout loaded elements), computed as 3xTF32 on the
+// tensor cores as K2 above (mma.sync m16n8k8, lo*hi + hi*lo + hi*hi): its least
+// time is 3*flops / 495 TFLOP/s.
+//
+// The GEMM: dW as a matrix is (K^3*Cin) x Cout, 125 x 10 to 3,840 x 100 in the
+// generator, and K (the reduction) is the output voxels, 16k-1M at batch 2.
+// What differs from K2, for these shapes:
+//   * Rows are (tap, input channel) packed densely into m16 tiles: a block owns
+//     a chunk of CC input channels for all K^3 taps, K^3*CC rows, row
+//     r = tap*CC + c. K2's chunk of 8 channels a tap would leave 7/8 of every
+//     mma empty at Cin 1 and half at Cin 4. CC is chosen per shape (the least
+//     m16 tile passes over the whole M, then the larger CC, so that dy is
+//     staged by fewer blocks): 1 at geo_0a (125 rows in 8 m16 tiles), 4 at
+//     encoder_0a (500 rows in 32), so that a block owns all of M there and reads
+//     dy (84 MB for encoder_0a at batch 2, x is 17 MB) once; 2 or 4 on the
+//     downsamplers, whose larger operand is x, split by the chunks.
+//   * 8 warps; warp w owns MT consecutive m16 tiles (MT = 1-4, ceil(tiles/8);
+//     rows past K^3*CC are computed and dropped) and the block's NT n8 tiles of
+//     output channels (NT <= 7; Cout > 56 is split over 2 or more blocks).
+//   * The stride-2 taps read a strided input: the block stages its slab split
+//     by parity, [kz][y parity][x parity][hy][hx][CC], so that tap (kz, ky, kx)
+//     of output voxel (vy, vx) is the element (vy + ky/2, vx + kx/2) of the
+//     sub-slab of parity (ky%2, kx%2): consecutive voxels of a k8 step are
+//     consecutive positions, as in a stride-1 slab. A sub-slab's size is padded
+//     to 16 (mod 32) floats, so that the two parities a row group reads fall on
+//     different banks. Stride 1 is the one-parity case.
+//   * Voxel tiles of TY x TX output voxels of one (b, z) plane, TX = 16 (8 for
+//     OX < 16): 128 voxels at stride 1, 64 at stride 2 (the slab of 4 input
+//     planes is the larger there).
+// Kept from K2: a per-tile float32 join of temporaries that start at 0 (the
+// tensor core truncates as it accumulates; tests/test_torch_libconv_dw.py
+// emulates this order of sums), split K over voxel shares with every block's
+// sums in its own slice of a scratch buffer, added in a fixed order by
+// libconv_dw_join_kernel, which also writes PyTorch's layout (no float atomics:
+// results repeat bit for bit); cp.async two-stage staging with zero fill at the
+// volume's edges; 64-bit offsets into x and dy.
+
+namespace {
+namespace libconv {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kStages = 2;
+constexpr int kMaxNT = 7;
+constexpr int kMaxK = 8;  // K^3 rows fit the 8 warps' m16 tiles with CC = 1
+constexpr long long kMaxTilesPerBlock = 64;
+constexpr long long kScratchBytes = 32LL << 20;
+
+// registers: MT * NT <= 6 is held to 128 a thread (2 blocks an SM)
+template <int MT, int NT>
+constexpr int min_blocks() { return MT * NT <= 6 ? 2 : 1; }
+
+struct Plan {
+  int B, Z, Y, X, Cin;     // input
+  int OZ, OY, OX, Cout;    // output
+  int K, S, P;             // kernel size, stride, padding
+  int MT, NT;              // m16 tiles a warp, n8 tiles a block (template values)
+  int CC, ciBlocks, coBlocks, rows;  // rows = K^3 * CC
+  int TX, TY, txs, tilesX, tilesY;
+  long long tiles;
+  int HY, HX, PS, PL;      // sub-slab rows / columns, floats a sub-slab / a slab plane
+  int DS;                  // row stride of the staged dy tile
+  int xe, de;              // floats a copy of x / dy: 4, 2 or 1
+  int xs_elems, stage_elems;
+  size_t smem;
+};
+
+// E floats from src to dst with cp.async, zero fill where !ok
+template <int E>
+__device__ __forceinline__ void copy(float* dst, const float* src, bool ok) {
+  if constexpr (E == 4)
+    cp16(dst, src, ok);
+  else if constexpr (E == 2)
+    cp8(dst, src, ok);
+  else
+    cp4(dst, src, ok);
+}
+
+// the input slab of output plane (b, oz), rows oy0 .., columns ox0 .., by
+// parity; positions outside the volume zero-filled, channels past Cin not
+// written (zeroed once at the start)
+template <int E>
+__device__ __forceinline__ void stage_slab(float* xs, const float* __restrict__ x, const Plan& p,
+                                           int b, int oz, int oy0, int ox0, int c0, int xn,
+                                           int tid) {
+  const int npos = p.K * p.S * p.S * p.HY * p.HX;
+  for (int i = tid; i < npos; i += kThreads) {
+    int r = i;
+    const int hx = r % p.HX;
+    r /= p.HX;
+    const int hy = r % p.HY;
+    r /= p.HY;
+    const int px = r % p.S;
+    r /= p.S;
+    const int py = r % p.S;
+    const int kz = r / p.S;
+    const int iz = p.S * oz - p.P + kz;
+    const int iy = p.S * (oy0 + hy) - p.P + py;
+    const int ix = p.S * (ox0 + hx) - p.P + px;
+    const bool ok = iz >= 0 && iz < p.Z && iy >= 0 && iy < p.Y && ix >= 0 && ix < p.X;
+    const float* src =
+        x + (ok ? ((((long long)b * p.Z + iz) * p.Y + iy) * p.X + ix) * (long long)p.Cin + c0 : 0);
+    float* dst = xs + kz * p.PL + (py * p.S + px) * p.PS + (hy * p.HX + hx) * p.CC;
+    for (int k = 0; k < xn; ++k) copy<E>(dst + k * E, src + k * E, ok);
+  }
+}
+
+// the tile [TY*TX][DS] of dy, channels co0 .. co0+NPAD-1; voxels outside the
+// volume zero-filled, channels past Cout not written
+template <int E, int NPAD>
+__device__ __forceinline__ void stage_dy(float* ds, const float* __restrict__ dy, const Plan& p,
+                                         long long plane, int oy0, int ox0, int co0, int dn,
+                                         int tid) {
+  constexpr int Q = NPAD / E;
+  for (int i = tid; i < p.TY * p.TX * Q; i += kThreads) {
+    const int v = i / Q, q = i - v * Q;
+    if (q >= dn) continue;
+    const int oy = oy0 + (v >> p.txs), ox = ox0 + (v & (p.TX - 1));
+    const bool ok = oy < p.OY && ox < p.OX;
+    const float* src = dy + (ok ? ((plane + oy) * p.OX + ox) * (long long)p.Cout + co0 + q * E : 0);
+    copy<E>(ds + v * p.DS + q * E, src, ok);
+  }
+}
+
+// Stage voxel tile t: the slab of x (channels c0 .. c0+CC-1) into xs and the
+// tile of dy into ds.
+template <int NPAD>
+__device__ __forceinline__ void stage_tile(float* xs, float* ds, const float* __restrict__ x,
+                                           const float* __restrict__ dy, const Plan& p,
+                                           long long t, int c0, int co0, int xn, int dn,
+                                           int tid) {
+  long long r = t;
+  const int tileX = (int)(r % p.tilesX);
+  r /= p.tilesX;
+  const int tileY = (int)(r % p.tilesY);
+  r /= p.tilesY;
+  const int oz = (int)(r % p.OZ);
+  const int b = (int)(r / p.OZ);
+  const int ox0 = tileX * p.TX, oy0 = tileY * p.TY;
+  if (p.xe == 4)
+    stage_slab<4>(xs, x, p, b, oz, oy0, ox0, c0, xn, tid);
+  else if (p.xe == 2)
+    stage_slab<2>(xs, x, p, b, oz, oy0, ox0, c0, xn, tid);
+  else
+    stage_slab<1>(xs, x, p, b, oz, oy0, ox0, c0, xn, tid);
+  const long long plane = ((long long)b * p.OZ + oz) * p.OY;
+  if (p.de == 4)
+    stage_dy<4, NPAD>(ds, dy, p, plane, oy0, ox0, co0, dn, tid);
+  else if (p.de == 2)
+    stage_dy<2, NPAD>(ds, dy, p, plane, oy0, ox0, co0, dn, tid);
+  else
+    stage_dy<1, NPAD>(ds, dy, p, plane, oy0, ox0, co0, dn, tid);
+}
+
+// d += a * b as 3xTF32: lo*hi + hi*lo, then hi*hi
+__device__ __forceinline__ void passes3(float (&d)[4], const uint32_t (&ahi)[4],
+                                        const uint32_t (&alo)[4], const uint32_t (&bhi)[2],
+                                        const uint32_t (&blo)[2]) {
+  mma(d, alo, bhi[0], bhi[1]);
+  mma(d, ahi, blo[0], blo[1]);
+  mma(d, ahi, bhi[0], bhi[1]);
+}
+
+template <int MT, int NT>
+__global__ void __launch_bounds__(kThreads, min_blocks<MT, NT>())
+libconv_dw_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+                  float* __restrict__ partials, const Plan p) {
+  constexpr int NPAD = NT * 8;
+  extern __shared__ __align__(16) float smem[];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gid = lane >> 2;  // fragment row (A, C) / column (B)
+  const int tig = lane & 3;   // fragment k (A, B) / column pair (C)
+
+  const int c0 = (blockIdx.x / p.coBlocks) * p.CC;
+  const int co0 = (blockIdx.x % p.coBlocks) * NPAD;
+  const int xn = (min(p.CC, p.Cin - c0) + p.xe - 1) / p.xe;
+  const int dn = (min(NPAD, p.Cout - co0) + p.de - 1) / p.de;
+  // channels past Cin / Cout are never staged: zeros from here on
+  for (int i = tid; i < kStages * p.stage_elems; i += kThreads) smem[i] = 0.f;
+  __syncthreads();
+
+  const long long S = gridDim.y;
+  const long long t_begin = p.tiles * (long long)blockIdx.y / S;
+  const long long t_end = p.tiles * ((long long)blockIdx.y + 1) / S;
+
+  // slab offset of this thread's A rows at voxel (0, 0), k = tig: row gid (h 0)
+  // and gid + 8 (h 1) of m16 tile warp*MT + mt; rows past K^3*CC read the
+  // slab's start and are not stored
+  int aoff[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (warp * MT + mt) * 16 + gid + 8 * h;
+      int off = 0;
+      if (r < p.rows) {
+        const int tap = r / p.CC, c = r - tap * p.CC;
+        const int kz = tap / (p.K * p.K), ky = (tap / p.K) % p.K, kx = tap % p.K;
+        off = kz * p.PL + ((ky % p.S) * p.S + kx % p.S) * p.PS +
+              ((ky / p.S) * p.HX + kx / p.S) * p.CC + c;
+      }
+      aoff[mt][h] = off + tig * p.CC;
+    }
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0.f;
+
+  // one commit group a tile (empty past the share), so that wait_group<1>
+  // always means "tile t has landed"
+  auto stage = [&](long long t) {
+    if (t < t_end) {
+      float* base = smem + ((t - t_begin) % kStages) * p.stage_elems;
+      stage_tile<NPAD>(base, base + p.xs_elems, x, dy, p, t, c0, co0, xn, dn, tid);
+    }
+    cp_commit();
+  };
+
+  const int k4 = 4 * p.CC;  // slab offset of the voxel 4 further along x
+  stage(t_begin);
+  for (long long t = t_begin; t < t_end; ++t) {
+    // the buffer of tile t + 1 was read by tile t - 1, before the barrier
+    // that closed it
+    stage(t + 1);
+    cp_wait<kStages - 1>();
+    __syncthreads();
+    const float* xs = smem + ((t - t_begin) % kStages) * p.stage_elems;
+    const float* ds = xs + p.xs_elems;
+    // the passes of one tile into temporaries from 0, joined to acc by a
+    // rounded add
+    float d[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) d[mt][nt][j] = 0.f;
+    for (int vy = 0; vy < p.TY; ++vy) {
+      for (int vx = 0; vx < p.TX; vx += 8) {
+        // B fragments: b0 (k = tig, n = gid), b1 (k = tig + 4, n = gid)
+        const float* drow = ds + (vy * p.TX + vx + tig) * p.DS + gid;
+        uint32_t bhi[NT][2], blo[NT][2];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          split(drow[nt * 8], bhi[nt][0], blo[nt][0]);
+          split(drow[4 * p.DS + nt * 8], bhi[nt][1], blo[nt][1]);
+        }
+        const float* xb = xs + (vy * p.HX + vx) * p.CC;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          // a0 (gid, tig), a1 (gid+8, tig), a2 (gid, tig+4), a3 (gid+8, tig+4)
+          const float v[4] = {xb[aoff[mt][0]], xb[aoff[mt][1]], xb[aoff[mt][0] + k4],
+                              xb[aoff[mt][1] + k4]};
+          uint32_t ahi[4], alo[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) split(v[j], ahi[j], alo[j]);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) passes3(d[mt][nt], ahi, alo, bhi[nt], blo[nt]);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[mt][nt][j] += d[mt][nt][j];
+    __syncthreads();  // tile t's buffer is refilled by the stage of tile t + 2
+  }
+  cp_wait<0>();
+
+  // c0 (row gid, col 2*tig), c1 (gid, 2*tig+1), c2 (gid+8, 2*tig), c3 (gid+8, 2*tig+1);
+  // the slice is (K^3, Cin, Cout)
+  float* dst = partials + (long long)blockIdx.y * p.K * p.K * p.K * p.Cin * p.Cout;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (warp * MT + mt) * 16 + gid + 8 * h;
+      if (r >= p.rows) continue;
+      const int tap = r / p.CC, ci = c0 + r - tap * p.CC;
+      if (ci >= p.Cin) continue;
+      float* row = dst + ((long long)tap * p.Cin + ci) * p.Cout;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int co = co0 + nt * 8 + 2 * tig;
+        if (co < p.Cout) row[co] = acc[mt][nt][2 * h];
+        if (co + 1 < p.Cout) row[co + 1] = acc[mt][nt][2 * h + 1];
+      }
+    }
+}
+
+// dw[co, ci, tap] = sum over the S slices of partials[s][tap, ci, co], slices
+// taken in order
+__global__ void __launch_bounds__(256)
+libconv_dw_join_kernel(const float* __restrict__ partials, int S, int K3, int Cin, int Cout,
+                       float* __restrict__ dw) {
+  const long long n = (long long)K3 * Cin * Cout;
+  const long long j = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (j >= n) return;
+  float s = 0.f;
+  for (int k = 0; k < S; ++k) s += partials[(long long)k * n + j];
+  const int co = (int)(j % Cout);
+  const long long r = j / Cout;
+  const int ci = (int)(r % Cin), tap = (int)(r / Cin);
+  dw[((long long)co * Cin + ci) * K3 + tap] = s;
+}
+
+using KernelFn = void (*)(const float*, const float*, float*, const Plan);
+
+constexpr int kNTs[] = {1, 2, 3, 5, kMaxNT};  // instantiated n8 tile counts
+
+template <int NT>
+KernelFn kernel_mt(int MT) {
+  switch (MT) {
+    case 1: return libconv_dw_kernel<1, NT>;
+    case 2: return libconv_dw_kernel<2, NT>;
+    case 3: return libconv_dw_kernel<3, NT>;
+    default: return libconv_dw_kernel<4, NT>;
+  }
+}
+
+// MT <= 4 for NT <= 3, MT <= 2 for NT 5 and 7 (make_plan keeps to these)
+KernelFn kernel_for(int MT, int NT) {
+  switch (NT) {
+    case 1: return kernel_mt<1>(MT);
+    case 2: return kernel_mt<2>(MT);
+    case 3: return kernel_mt<3>(MT);
+    case 5: return MT == 1 ? libconv_dw_kernel<1, 5> : libconv_dw_kernel<2, 5>;
+    default: return MT == 1 ? libconv_dw_kernel<1, kMaxNT> : libconv_dw_kernel<2, kMaxNT>;
+  }
+}
+
+int round_nt(int n) {
+  for (int c : kNTs)
+    if (n <= c) return c;
+  return kMaxNT;
+}
+
+// m16 tiles a warp allows with NT n8 tiles: 4, or 2 from NT 5 on (registers)
+int max_mt(int NT) { return NT <= 3 ? 4 : 2; }
+
+// floats a copy can move: rows of n elements at p, chunks of c of them
+int copy_width(const void* p, int n, int c) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  return n % 4 == 0 && c % 4 == 0 && a % 16 == 0 ? 4 : n % 2 == 0 && c % 2 == 0 && a % 8 == 0 ? 2 : 1;
+}
+
+int out_extent(int n, int K, int S, int P) { return (n + 2 * P - K) / S + 1; }
+
+bool bad_shape(int B, int Z, int Y, int X, int Cin, int Cout, int K, int S, int P) {
+  if (B < 1 || Z < 1 || Y < 1 || X < 1 || Cin < 1 || Cout < 1) return true;
+  if (K < 1 || K > kMaxK || (S != 1 && S != 2) || P < 0 || P >= K) return true;
+  return out_extent(Z, K, S, P) < 1 || out_extent(Y, K, S, P) < 1 || out_extent(X, K, S, P) < 1;
+}
+
+Plan make_plan(int B, int Z, int Y, int X, int Cin, int Cout, int K, int S, int P,
+               const void* x, const void* dy) {
+  Plan p;
+  p.B = B; p.Z = Z; p.Y = Y; p.X = X; p.Cin = Cin; p.Cout = Cout; p.K = K; p.S = S; p.P = P;
+  p.OZ = out_extent(Z, K, S, P);
+  p.OY = out_extent(Y, K, S, P);
+  p.OX = out_extent(X, K, S, P);
+  const int octs = (Cout + 7) / 8;
+  const int parts = (octs + kMaxNT - 1) / kMaxNT;
+  p.NT = round_nt((octs + parts - 1) / parts);
+  p.coBlocks = (octs + p.NT - 1) / p.NT;
+  // input channels a block: the least m16 tile passes over all of M
+  // (chunks x tiles a warp), then the most channels
+  const int K3 = K * K * K;
+  const int rows_max = kWarps * 16 * max_mt(p.NT);
+  int best = 1;
+  long long best_cost = -1;
+  for (int c = 1; c <= Cin && K3 * c <= rows_max; ++c) {
+    const long long cost = (long long)((Cin + c - 1) / c) * ((K3 * c + kWarps * 16 - 1) / (kWarps * 16));
+    if (best_cost < 0 || cost <= best_cost) { best_cost = cost; best = c; }
+  }
+  p.CC = best;
+  p.ciBlocks = (Cin + p.CC - 1) / p.CC;
+  p.rows = K3 * p.CC;
+  p.MT = ((p.rows + 15) / 16 + kWarps - 1) / kWarps;
+  p.TX = p.OX >= 16 ? 16 : 8;  // a multiple of 8: k8 steps stay inside a tile row
+  p.txs = p.TX == 16 ? 4 : 3;
+  p.TY = (S == 1 ? 128 : 64) / p.TX;
+  if (p.TY > p.OY) p.TY = p.OY;
+  p.tilesX = (p.OX + p.TX - 1) / p.TX;
+  p.tilesY = (p.OY + p.TY - 1) / p.TY;
+  p.tiles = (long long)B * p.OZ * p.tilesY * p.tilesX;
+  p.HY = p.TY + (K - 1) / S;
+  p.HX = p.TX + (K - 1) / S;
+  p.PS = (p.HY * p.HX * p.CC + 3) / 4 * 4;
+  if (S > 1) p.PS += (48 - p.PS % 32) % 32;  // 16 (mod 32)
+  p.PL = S * S * p.PS;
+  p.DS = dstride(p.NT * 8);
+  p.xe = copy_width(x, Cin, p.CC);
+  p.de = copy_width(dy, Cout, p.NT * 8);
+  p.xs_elems = K * p.PL;
+  p.stage_elems = p.xs_elems + p.TY * p.TX * p.DS;
+  p.smem = sizeof(float) * kStages * (size_t)p.stage_elems;
+  return p;
+}
+
+bool bad_plan(const Plan& p) {
+  return p.MT > max_mt(p.NT) || p.smem > 232448 ||
+         (long long)p.ciBlocks * p.coBlocks > 2147483647LL;
+}
+
+// Number of voxel shares S, as K2's choose_splits: from the least that keeps a
+// block's share within kMaxTilesPerBlock tiles, the first that fills the
+// card's block slots in nearly whole waves (>= 90 %), else the one that fills
+// them best; bounded by the tiles and the scratch buffer. <= 0 on a CUDA error.
+int choose_splits(const Plan& p) {
+  int dev = 0, sms = 0, occ = 0;
+  const void* kern = reinterpret_cast<const void*>(kernel_for(p.MT, p.NT));
+  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return -1;
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem) !=
+      cudaSuccess)
+    return -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, kThreads, p.smem) != cudaSuccess)
+    return -1;
+  if (sms < 1 || occ < 1) return -1;
+  const double slots = (double)sms * occ;
+  const long long units = (long long)p.ciBlocks * p.coBlocks;
+  long long maxS = kScratchBytes / ((long long)p.K * p.K * p.K * p.Cin * p.Cout * sizeof(float));
+  if (maxS < 1) maxS = 1;
+  if (maxS > p.tiles) maxS = p.tiles;
+  if (maxS > 65535) maxS = 65535;
+  long long minS = (p.tiles + kMaxTilesPerBlock - 1) / kMaxTilesPerBlock;
+  if (minS > maxS) minS = maxS;
+  long long bestS = minS;
+  double bestEff = -1.0;
+  for (long long s = minS; s <= maxS; ++s) {
+    const double waves = (double)(units * s) / slots;
+    const double full = (double)(long long)(waves + 0.999999);
+    const double eff = waves / (full < 1.0 ? 1.0 : full);
+    if (eff > bestEff + 1e-9) { bestEff = eff; bestS = s; }
+    if (eff >= 0.9) { bestS = s; break; }
+  }
+  return (int)bestS;
+}
+
+}  // namespace libconv
+}  // namespace
+
+// Slices of the scratch buffer (slices, K^3, Cin, Cout) float32 that
+// spsg_libconv_dw_launch needs for these shapes and pointers on the current
+// device; <= 0 on a shape it does not take or a CUDA error.
+extern "C" int spsg_libconv_dw_slices(const void* x, const void* dy, int B, int Z, int Y, int X,
+                                      int Cin, int Cout, int K, int S, int P) {
+  namespace lc = libconv;
+  if (lc::bad_shape(B, Z, Y, X, Cin, Cout, K, S, P)) return -1;
+  const lc::Plan p = lc::make_plan(B, Z, Y, X, Cin, Cout, K, S, P, x, dy);
+  if (lc::bad_plan(p)) return -1;
+  return lc::choose_splits(p);
+}
+
+// x (B,Z,Y,X,Cin) and dy (B,OZ,OY,OX,Cout) float32, contiguous, on the current
+// device, OZ = (Z + 2P - K)/S + 1 and so on; partials (slices, K^3, Cin, Cout)
+// float32 scratch with `slices` as spsg_libconv_dw_slices gave it; dw (Cout,
+// Cin, K, K, K) float32. Returns the cudaError_t of the launches (0 =
+// success), -1 on bad arguments.
+extern "C" int spsg_libconv_dw_launch(const void* x, const void* dy, void* partials, void* dw,
+                                      int B, int Z, int Y, int X, int Cin, int Cout, int K, int S,
+                                      int P, int slices, void* stream_ptr) {
+  namespace lc = libconv;
+  if (lc::bad_shape(B, Z, Y, X, Cin, Cout, K, S, P)) return -1;
+  const lc::Plan p = lc::make_plan(B, Z, Y, X, Cin, Cout, K, S, P, x, dy);
+  if (lc::bad_plan(p)) return -1;
+  if (slices < 1 || slices > p.tiles || slices > 65535) return -1;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const void* kern = reinterpret_cast<const void*>(lc::kernel_for(p.MT, p.NT));
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (err != cudaSuccess) return (int)err;
+  const float* xf = static_cast<const float*>(x);
+  const float* dyf = static_cast<const float*>(dy);
+  float* part = static_cast<float*>(partials);
+  void* args[] = {&xf, &dyf, &part, const_cast<lc::Plan*>(&p)};
+  dim3 grid((unsigned)((long long)p.ciBlocks * p.coBlocks), (unsigned)slices);
+  err = cudaLaunchKernel(kern, grid, dim3(lc::kThreads), args, p.smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int K3 = K * K * K;
+  const long long n = (long long)K3 * Cin * Cout;
+  lc::libconv_dw_join_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      part, slices, K3, Cin, Cout, static_cast<float*>(dw));
+  return (int)cudaGetLastError();
 }

@@ -98,7 +98,9 @@ def test_a_step_records_its_span_tree_once(recorder, batch, skip_on_depth):
         ("train.optim", "train.step")]
     assert _tree(rec["spans"]) == want * 2 and _nested(rec["spans"])
     assert [s["request"] for s in rec["spans"]] == [0] * len(want) + [1] * len(want)
-    assert rec["counts"] == {"train.steps": 2, "train.host_reads": 2 * (2 + skip_on_depth)}
+    # and the seven library convs whose weight gradient is the hand kernel's, a step
+    assert rec["counts"] == {"train.steps": 2, "train.host_reads": 2 * (2 + skip_on_depth),
+                             "train.libconv_dw": 2 * 7}
 
 
 def test_the_plain_depth_fill_counts_its_reads(recorder, batch):
